@@ -1,0 +1,69 @@
+"""Paged decode and paged chunk-prefill attention: the CUDA kernels
+(``csrc/paged_attention.cu``) for CUDA tensors, the plain versions
+(``ref.paged_decode_ref``, ``ref.paged_prefill_ref``) for CPU tensors."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import ref
+
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 16                 # query heads per KV head in one decode block
+
+
+def _check_pool(q, k_pages, v_pages, block_table, what):
+    b, _, h, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    if d not in HEAD_DIMS or h % hkv:
+        raise ValueError(f"{what}: head dim {d} (takes {HEAD_DIMS}), "
+                         f"heads {h} over {hkv} KV heads")
+    build.check(q, f"{what} q", torch.bfloat16)
+    build.check(k_pages, f"{what} k_pages", torch.bfloat16)
+    build.check(v_pages, f"{what} v_pages", torch.bfloat16, k_pages.shape)
+    if block_table.dim() != 2 or block_table.shape[0] != b:
+        raise ValueError(f"{what}: block_table must be (B={b}, pages_per_slot)")
+    build.check(block_table, f"{what} block_table", torch.int32)
+    return b, h, hkv, d, page, block_table.shape[1]
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
+                           scale=None):
+    """q: (B, 1, H, D); pools (P, page, Hkv, D); block_table (B, pps)
+    int32; lengths (B,) int32 visible keys per slot."""
+    if q.device.type == "cpu":
+        return ref.paged_decode_ref(q, k_pages, v_pages, block_table,
+                                    lengths, scale=scale)
+    b, h, hkv, d, page, maxp = _check_pool(q, k_pages, v_pages, block_table,
+                                           "paged_decode")
+    if q.shape[1] != 1 or h // hkv > MAX_GROUP:
+        raise ValueError(f"paged_decode: one query row per slot and at most "
+                         f"{MAX_GROUP} heads per KV head, got {tuple(q.shape)}")
+    build.check(lengths, "paged_decode lengths", torch.int32, (b,))
+    out = torch.empty_like(q)
+    build.launch("paged_decode", "paged_decode_bf16", q.device, q.data_ptr(),
+                 k_pages.data_ptr(), v_pages.data_ptr(),
+                 block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 b, h, hkv, d, page, maxp, float(scale or d ** -0.5))
+    return out
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_table, start, n_valid,
+                            *, scale=None):
+    """q: (B, C, H, D) chunk rows at positions start[b] + j; pools and
+    block table as for decode; start, n_valid (B,) int32.  Rows at or
+    past n_valid are padding whose output is garbage."""
+    if q.device.type == "cpu":
+        return ref.paged_prefill_ref(q, k_pages, v_pages, block_table,
+                                     start, n_valid, scale=scale)
+    b, h, hkv, d, page, maxp = _check_pool(q, k_pages, v_pages, block_table,
+                                           "paged_prefill")
+    build.check(start, "paged_prefill start", torch.int32, (b,))
+    build.check(n_valid, "paged_prefill n_valid", torch.int32, (b,))
+    out = torch.empty_like(q)
+    build.launch("paged_prefill", "paged_prefill_bf16", q.device,
+                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 block_table.data_ptr(), start.data_ptr(), n_valid.data_ptr(),
+                 out.data_ptr(), b, q.shape[1], h, hkv, d, page, maxp,
+                 float(scale or d ** -0.5))
+    return out

@@ -1,0 +1,62 @@
+"""Dispatching facade over the port's kernels, with the signatures of the
+JAX package's ``kernels/ops.py``.
+
+``impl=None`` picks by the tensor's device: the CUDA kernel for a CUDA
+tensor, the plain PyTorch version for a CPU tensor.  ``impl="ref"``
+takes the plain version on any device (the comparisons on the card);
+``impl="cuda"`` insists on the kernel and raises for a CPU tensor.
+There is no fallback from a kernel to its plain version.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import kernel as _dec
+from repro_torch.kernels.decode_attention import ref as _dec_ref
+from repro_torch.kernels.flash_attention import kernel as _fa
+from repro_torch.kernels.flash_attention import ref as _fa_ref
+from repro_torch.kernels.rmsnorm import kernel as _rn
+from repro_torch.kernels.rmsnorm import ref as _rn_ref
+
+IMPLS = (None, "cuda", "ref")
+
+
+def _plain(impl, x) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors")
+    return impl == "ref"
+
+
+def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
+                    block_kv=1024, impl=None):
+    # the kernel wrapper would take the plain version on the CPU as
+    # well, but without ``block_kv``
+    if _plain(impl, q) or q.device.type == "cpu":
+        return _fa_ref.chunked(q, k, v, causal=causal, scale=scale,
+                               block_kv=block_kv, q_offset=q_offset)
+    return _fa.flash_fwd(q, k, v, causal=causal, scale=scale,
+                         q_offset=q_offset)[0]
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
+                           scale=None, impl=None):
+    if _plain(impl, q):
+        return _dec_ref.paged_decode_ref(q, k_pages, v_pages, block_table,
+                                         lengths, scale=scale)
+    return _dec.paged_decode_attention(q, k_pages, v_pages, block_table,
+                                       lengths, scale=scale)
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_table, start,
+                            n_valid, *, scale=None, impl=None):
+    if _plain(impl, q):
+        return _dec_ref.paged_prefill_ref(q, k_pages, v_pages, block_table,
+                                          start, n_valid, scale=scale)
+    return _dec.paged_prefill_attention(q, k_pages, v_pages, block_table,
+                                        start, n_valid, scale=scale)
+
+
+def rmsnorm(x, weight, *, eps=1e-5, impl=None):
+    if _plain(impl, x):
+        return _rn_ref.rmsnorm_ref(x, weight, eps=eps)
+    return _rn.rmsnorm(x, weight, eps=eps)

@@ -1,0 +1,165 @@
+"""Transformer layers of the dense decoder: RMSNorm, RoPE, GQA attention
+(prefill, paged decode, paged chunk prefill), SwiGLU, embed and logits.
+
+Each layer has ``*_defs(cfg)`` (the PDef schema, with the JAX package's
+key names and logical axes) and ``*_apply(cfg, params, ...)`` (the math
+on tensors).  Matmul weights are cast to the activation type at use, as
+the JAX layers do; ``impl`` selects the kernels (see ``kernels/ops``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.params import PDef
+
+
+class PagedView(NamedTuple):
+    """Block-table view over a paged KV pool (built by ``serve``).
+
+    ``lengths`` is each slot's write position for the incoming row(s).
+    Chunked prefill (s > 1) also sets ``n_valid``, the real rows of the
+    chunk, and ``null_page``, the page that takes the padding rows' KV.
+    """
+
+    block_table: torch.Tensor               # (n_slots, pages_per_slot) int32
+    lengths: torch.Tensor                   # (n_slots,) int32
+    n_valid: Optional[torch.Tensor] = None  # (B,) int32
+    null_page: Optional[int] = None
+
+
+def norm_defs(cfg: ModelConfig):
+    # float32 whatever the tree's dtype: the rmsnorm kernel reads it so
+    return {"scale": PDef((cfg.d_model,), (None,), init="ones",
+                          dtype="float32")}
+
+
+def norm_apply(cfg: ModelConfig, p, x, impl=None):
+    return ops.rmsnorm(x, p["scale"], eps=cfg.norm_eps, impl=impl)
+
+
+def apply_rope(x, positions, theta: float, fraction: float = 1.0):
+    """x: (B, S, H, D); positions: (S,) or (B, S).  The rotation runs in
+    float32 (JAX promotes the activation against f32 cos/sin)."""
+    d = x.shape[-1]
+    rot = int(d * fraction)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    ang = ang[None, :, None, :] if positions.dim() == 1 else ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x_rot[..., :half], x_rot[..., half:]
+    y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([y.to(x.dtype), x_pass], dim=-1)
+
+
+def attention_defs(cfg: ModelConfig):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": PDef((d, h * hd), ("embed", "heads")),
+        "wk": PDef((d, kv * hd), ("embed", "kv_heads")),
+        "wv": PDef((d, kv * hd), ("embed", "kv_heads")),
+        "wo": PDef((h * hd, d), ("heads", "embed")),
+    }
+
+
+def _project_qkv(cfg, p, x):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
+            v.reshape(b, s, kv, hd))
+
+
+def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
+                    cache=None, paging: Optional[PagedView] = None,
+                    impl=None):
+    """Self-attention.  Without ``cache``: the prompt prefill, returning
+    (out, (k, v)).  With ``cache`` (the page pools ``{"k", "v"}`` of one
+    layer) and ``paging``: paged decode (s == 1) or paged chunk prefill
+    (s > 1).  The port writes the new KV into the pools in place (the
+    JAX engine donates its pool, so the effect is the same) and returns
+    (out, (k_pool, v_pool))."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+
+    if cache is None:                                   # prompt prefill
+        out = ops.flash_attention(q, k, v, causal=causal, impl=impl)
+        new_kv = (k, v)
+    elif paging is None:
+        raise NotImplementedError("contiguous-cache decode is not ported")
+    else:
+        ck, cv = cache["k"], cache["v"]
+        page_size = ck.shape[1]
+        rows = torch.arange(b, device=x.device)
+        pos = paging.lengths.long()                                 # (B,)
+        if s == 1:                                      # paged decode
+            page = paging.block_table[rows, pos // page_size].long()
+            off = pos % page_size
+            ck[page, off] = k[:, 0].to(ck.dtype)
+            cv[page, off] = v[:, 0].to(cv.dtype)
+            out = ops.paged_decode_attention(q, ck, cv, paging.block_table,
+                                             paging.lengths + 1, impl=impl)
+        else:                                           # paged chunk prefill
+            maxp = paging.block_table.shape[1]
+            j = torch.arange(s, device=x.device)
+            offs = pos[:, None] + j[None, :]                       # (B, s)
+            valid = j[None, :] < paging.n_valid.long()[:, None]
+            page = paging.block_table[
+                rows[:, None], torch.clamp(offs // page_size, max=maxp - 1)]
+            # padding rows sink into the null page: their offsets may lie
+            # past the slot's reserved pages, and clamping alone would
+            # land them on the slot's last real page
+            page = torch.where(valid, page,
+                               torch.full_like(page, paging.null_page)).long()
+            ck[page, offs % page_size] = k.to(ck.dtype)
+            cv[page, offs % page_size] = v.to(cv.dtype)
+            out = ops.paged_prefill_attention(q, ck, cv, paging.block_table,
+                                              paging.lengths, paging.n_valid,
+                                              impl=impl)
+        new_kv = (ck, cv)
+    out = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    return out, new_kv
+
+
+def mlp_defs(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_in": PDef((d, f), ("embed", "ff")),
+            "w_out": PDef((f, d), ("ff", "embed")),
+            "w_gate": PDef((d, f), ("embed", "ff"))}
+
+
+def mlp_apply(cfg: ModelConfig, p, x):
+    """SwiGLU."""
+    h = x @ p["w_in"].to(x.dtype)
+    g = x @ p["w_gate"].to(x.dtype)
+    return (F.silu(g) * h) @ p["w_out"].to(x.dtype)
+
+
+def embed_defs(cfg: ModelConfig):
+    return {"tok": PDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                        init="normal", scale=0.02),
+            "head": PDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab")),
+            "final_norm": norm_defs(cfg)}
+
+
+def embed_apply(cfg: ModelConfig, p, tokens, dtype):
+    return p["tok"][tokens].to(dtype)
+
+
+def logits_apply(cfg: ModelConfig, p, x, impl=None):
+    x = norm_apply(cfg, p["final_norm"], x, impl=impl)
+    return x @ p["head"].to(x.dtype)

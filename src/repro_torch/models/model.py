@@ -1,0 +1,99 @@
+"""Model facade: schema, init, prefill, chunk prefill, paged decode.
+
+As in the JAX package, parameters and caches are explicit trees (nested
+dicts of tensors) passed to every call; the ``Model`` holds the config
+and which kernels to run (``impl``, see ``kernels/ops``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers, transformer
+from repro_torch.models import params as P
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, impl: Optional[str] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.impl = impl
+
+    def param_defs(self):
+        return {"embed": layers.embed_defs(self.cfg),
+                "blocks": transformer.stack_defs(self.cfg)}
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             dtype=torch.float32, device=None):
+        """Random parameters (normal(0.02) matrices, unit norm scales).
+
+        Runs on CUDA unless ``device`` says otherwise; ``generator``
+        defaults to one seeded with 0 on that device."""
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        return P.init_params(self.param_defs(), generator, dtype, device)
+
+    def n_params(self) -> int:
+        return P.count_params(self.param_defs())
+
+    # ------------------------------------------------------------ forward
+    def _trunk(self, params, tokens, positions, *, compute_dtype,
+               caches=None, paging=None):
+        cfg = self.cfg
+        x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype)
+        x, new_caches = transformer.stack_apply(
+            cfg, params["blocks"], x, positions=positions, caches=caches,
+            paging=paging, impl=self.impl)
+        return layers.logits_apply(cfg, params["embed"], x,
+                                   impl=self.impl), new_caches
+
+    @torch.no_grad()
+    def prefill(self, params, batch: Dict, *, compute_dtype=torch.bfloat16,
+                last_index=None):
+        """A whole prompt: (last_logits (B, V), caches) where caches are
+        the prompt's KV, ``{"p{i}": {"k", "v"}}`` of (reps, B, S, kv, hd).
+
+        ``last_index``: per-row position of the last real prompt token
+        (prompts padded to a fixed capacity); default the final column.
+        """
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        logits, caches = self._trunk(params, tokens, positions,
+                                     compute_dtype=compute_dtype)
+        if last_index is None:
+            return logits[:, -1], caches
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        return logits[rows, last_index.long()], caches
+
+    @torch.no_grad()
+    def prefill_chunk(self, params, pool, tokens, paging, *,
+                      compute_dtype=torch.bfloat16):
+        """One chunk of prompt tokens into the paged pool.
+
+        tokens (B, C) at positions ``paging.lengths[b] + j``; rows past
+        ``paging.n_valid[b]`` are padding whose KV sinks into
+        ``paging.null_page``.  Returns (logits (B, C, V), pool)."""
+        positions = (paging.lengths.long()[:, None]
+                     + torch.arange(tokens.shape[1], device=tokens.device))
+        return self._trunk(params, tokens, positions, caches=pool,
+                           paging=paging, compute_dtype=compute_dtype)
+
+    @torch.no_grad()
+    def decode_step(self, params, caches, tokens, cache_index, *,
+                    compute_dtype=torch.bfloat16, paging=None):
+        """One token per slot.  tokens (B, 1); cache_index (B,) per-slot
+        positions; caches the page pools of ``paged_cache_defs``.
+        Returns (logits (B, V), caches)."""
+        if paging is None:
+            raise NotImplementedError("only paged decode is ported")
+        positions = (cache_index.long()[:, None]
+                     + torch.arange(tokens.shape[1], device=tokens.device))
+        logits, caches = self._trunk(params, tokens, positions,
+                                     caches=caches, paging=paging,
+                                     compute_dtype=compute_dtype)
+        return logits[:, -1], caches

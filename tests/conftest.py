@@ -12,3 +12,9 @@ if "xla_force_host_platform_device_count" not in os.environ.get(
         + " --xla_force_host_platform_device_count=8").strip()
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel; needs an NVIDIA GPU and nvcc, "
+                   "skipped (inside the test) where there is none")

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  This file imports no JAX, so it runs where only the port is
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a CUDA device each test skips with its reason.  Tolerance:
+|kernel - plain| <= 2e-2 * (1 + |plain|), the bf16 tolerance of the
+kernel tests (one rounding of a bf16 output after f32 sums taken in
+another order).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
+
+TOL = 2e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _close(got, want, tol=TOL):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert bool(((got - want).abs() <= tol * (1 + want.abs())).all()), \
+        float((got - want).abs().max())
+
+
+def _rnd(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(1, 64), (5, 4096), (300, 1000)])
+def test_rmsnorm_kernel(dev, rows, d):
+    x = _rnd(dev, 2, rows, d)
+    w = torch.randn(d, device=dev)
+    build.reset_launches()
+    _close(ops.rmsnorm(x, w), rn_ref.rmsnorm_ref(x, w))
+    assert build.LAUNCHES["rmsnorm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", [
+    (2, 70, 90, 8, 2, 128, True), (1, 33, 65, 2, 2, 64, True),
+    (2, 64, 192, 6, 2, 64, False), (1, 17, 17, 8, 1, 128, True)])
+def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
+    q, k, v = (_rnd(dev, b, s, n, d, seed=i) for i, (s, n) in
+               enumerate([(sq, h), (skv, hkv), (skv, hkv)]))
+    qo = skv - sq
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=causal, q_offset=qo)
+    ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=causal, q_offset=qo)
+    _close(out, ref_out)
+    _close(lse, ref_lse, 1e-3)
+
+
+def _pool(dev, n_pages=40, page=16, hkv=2, d=128):
+    return (_rnd(dev, n_pages, page, hkv, d, seed=5),
+            _rnd(dev, n_pages, page, hkv, d, seed=6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(8, 2), (4, 4), (16, 1)])
+def test_paged_decode_kernel(dev, h, hkv):
+    kp, vp = _pool(dev, hkv=hkv)
+    bt = torch.randperm(39, device=dev)[:36].add(1).to(torch.int32).reshape(3, 12)
+    lens = torch.tensor([1, 100, 192], dtype=torch.int32, device=dev)
+    q = _rnd(dev, 3, 1, h, 128, seed=7)
+    _close(ops.paged_decode_attention(q, kp, vp, bt, lens),
+           dec_ref.paged_decode_ref(q, kp, vp, bt, lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,n_valid", [(0, 24), (16, 10), (100, 24),
+                                           (170, 20)])
+def test_paged_prefill_kernel(dev, start, n_valid):
+    kp, vp = _pool(dev)
+    bt = torch.arange(1, 13, dtype=torch.int32, device=dev)[None]
+    q = _rnd(dev, 1, 24, 8, 128, seed=8)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+    got = ops.paged_prefill_attention(q, kp, vp, bt, st, nv)
+    want = dec_ref.paged_prefill_ref(q, kp, vp, bt, st, nv)
+    _close(got[:, :n_valid], want[:, :n_valid])
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = _rnd(dev, 4, 64)
+    with pytest.raises(ValueError):
+        ops.rmsnorm(x.float(), torch.ones(64, device=dev))
+    with pytest.raises(ValueError):
+        ops.rmsnorm(x, torch.ones(64, device=dev, dtype=torch.bfloat16))
+    q = _rnd(dev, 1, 8, 4, 32)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q)          # head dim 32 is not built
