@@ -15,7 +15,15 @@ Phases, each printing its own lines:
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
              each run; then one prompt and 4 decode steps teacher-forced
-             through the kernel path and the plain path.
+             through the kernel path and the plain path;
+5. train   - the gradients of yi-6b at full width and 2 layers on one
+             2 x 4096 batch through the kernel path, the plain path in
+             bf16 and the plain path in float32; then yi-6b at full width
+             and 8 of its 32 layers trained 4 steps through the port's
+             Trainer (AdamW, float32 master weights, bf16 compute, remat)
+             with the launch counts read around the run and a checkpoint
+             saved at step 2, restored into a fresh Trainer and stepped
+             on to 4.
 
 Then the ``kernels`` JSON line, the card's line, and the result line.
 Any failure raises and exits non-zero; without CUDA, or without the port
@@ -48,17 +56,26 @@ LSE_TOL = 1e-3
 # plain bf16 path is, within this factor.
 LOGIT_NOISE_FACTOR = 1.5
 
+# resumed training: the losses of steps 2 and 3 after a checkpoint
+# round trip against the uninterrupted run (the embedding's backward
+# sums with atomics, so the last bits may differ)
+RESUME_RTOL = 1e-4
+
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:27",
     "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:86",
     "paged_decode": "src/repro/kernels/decode_attention/kernel.py:148",
     "paged_prefill": "src/repro/kernels/decode_attention/kernel.py:240",
+    "flash_bwd_dq": "src/repro/kernels/flash_attention/kernel.py:249",
+    "flash_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:249",
 }
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_fwd": "src/repro_torch/csrc/flash_fwd.cu",
     "paged_decode": "src/repro_torch/csrc/paged_attention.cu",
     "paged_prefill": "src/repro_torch/csrc/paged_attention.cu",
+    "flash_bwd_dq": "src/repro_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkv": "src/repro_torch/csrc/flash_bwd.cu",
 }
 
 
@@ -242,6 +259,59 @@ def kernel_phase(torch, dev):
                     4 * seen * H * D),
         shape="q (1,256,32,128) at start 256, n_valid 180, page 16")
 
+    # flash backward at yi-6b's published 4K training context
+    S = 4096
+    q, k, v = rnd(1, S, H, D), rnd(1, S, HKV, D), rnd(1, S, HKV, D)
+    do = rnd(1, S, H, D)
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
+    got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa_ref.bwd(q, k, v, out, lse, do, causal=True)
+    errs = []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        e, ok = err_within(a, b, TOL)
+        check(ok, f"flash_bwd {name} differs from the plain version")
+        errs.append(e)
+    delta = (out.float() * do.float()).sum(-1)
+    # the plain version and the library call compute dq, dk and dv
+    # together: both rows carry the whole backward's time
+    plain = median_ms(cpm, lambda: fa_ref.bwd(q, k, v, out, lse, do,
+                                              causal=True), n=2, reps=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k.repeat_interleave(H // HKV, dim=2),
+                            v.repeat_interleave(H // HKV, dim=2)))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    library = median_ms(cpm, sdpa_fwd_bwd) - median_ms(cpm, sdpa_fwd)
+    pairs = S * (S + 1) // 2                 # (query, key) pairs under the mask
+    matmul = 2 * pairs * H * D               # flops of one S x S x D product
+    in_bytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * lse.numel() * 4
+    print(f"[kernels] flash_bwd: the whole backward does 5 products (s, dp, "
+          f"dq, dk, dv) = {5 * matmul:.3e} flops, "
+          f"{5 * matmul / BF16_FLOPS_S * 1e3:.4f} ms at the bf16 peak; the dq "
+          f"kernel does 3 of them, the dk/dv kernel 4 (s and dp again)")
+    kw = dict(causal=True)
+    shape = "q (1,4096,32,128), kv (1,4096,4,128) bf16, causal"
+    rows_out["flash_bwd_dq"] = dict(
+        max_abs_err=errs[0],
+        ms=median_ms(cpm, lambda: fa_kernel.flash_bwd_dq(q, k, v, do, lse,
+                                                         delta, **kw)),
+        plain_ms=plain, library_ms=library,
+        bound=bound(in_bytes + q.numel() * 2, 3 * matmul), shape=shape)
+    rows_out["flash_bwd_dkv"] = dict(
+        max_abs_err=max(errs[1:]),
+        ms=median_ms(cpm, lambda: fa_kernel.flash_bwd_dkv(q, k, v, do, lse,
+                                                          delta, **kw)),
+        plain_ms=plain, library_ms=library,
+        bound=bound(in_bytes + 2 * k.numel() * 2, 4 * matmul), shape=shape)
+
     for name, r in rows_out.items():
         print(f"[kernels] {name}: {r['shape']}: max_abs_err "
               f"{r['max_abs_err']:.3g} (tol {TOL} x (1+|ref|)) "
@@ -348,6 +418,189 @@ def teacher_force(torch, dev, cfg, params):
           f"{max(p_f)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: train yi-6b through the port's Trainer
+# ---------------------------------------------------------------------------
+
+
+def _rel_by_group(params, a, b):
+    """Relative L2 error of gradient tree ``a`` against ``b``, per leaf
+    group: embedding, head, final norm, and each block module."""
+    from repro_torch.models import params as P
+    num, den = {}, {}
+
+    def walk(tree, x, y, path):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                walk(tree[key], x[key], y[key], path + (key,))
+            return
+        # ("embed", "tok") or ("blocks", "p0", "attn", "wq") -> blocks/attn
+        group = "/".join(path[:2] if path[0] == "embed"
+                         else (path[0], path[2]))
+        num[group] = num.get(group, 0.0) + float((x - y).float().norm()) ** 2
+        den[group] = den.get(group, 0.0) + float(y.float().norm()) ** 2
+
+    walk(params, P.tree_unflatten(params, a), P.tree_unflatten(params, b), ())
+    return {g: round((num[g] / den[g]) ** 0.5, 5) for g in sorted(num)}
+
+
+def grad_check(torch, dev):
+    """yi-6b at full width and 2 layers, one 2 x 4096 batch: gradients
+    through the kernels (bf16), the plain versions (bf16) and the plain
+    versions (float32).  The kernel path must be as close to float32 as
+    the plain bf16 path is, within LOGIT_NOISE_FACTOR, in every group."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, WorkloadShape, yi_6b
+    from repro_torch.data import synthetic_batch
+    from repro_torch.dist.steps import init_train_state
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(yi_6b.CONFIG, n_layers=2)
+    params = init_train_state(cfg, TrainConfig(), device=dev)["params"]
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
+             synthetic_batch(cfg, WorkloadShape("chip", "train", 4096, 2)
+                             ).items()}
+    leaves = P.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    got, losses = {}, {}
+    for name, impl, dtype in (("plain_f32", "ref", torch.float32),
+                              ("plain", "ref", torch.bfloat16),
+                              ("kernels", None, torch.bfloat16)):
+        t = time.perf_counter()
+        loss, _ = Model(cfg, impl=impl).loss(params, batch, remat=True,
+                                             compute_dtype=dtype)
+        got[name] = torch.autograd.grad(loss, leaves)
+        losses[name] = round(float(loss.detach()), 5)
+        torch.cuda.synchronize()
+        print(f"[train] grad check: {name} loss {losses[name]} in "
+              f"{time.perf_counter() - t:.2f} s")
+    k_f = _rel_by_group(params, got["kernels"], got["plain_f32"])
+    p_f = _rel_by_group(params, got["plain"], got["plain_f32"])
+    print(f"[train] grad check ({cfg.name} at 2 layers, batch 2 x 4096), "
+          f"relative L2 error per group: kernels vs f32 {k_f}; plain bf16 "
+          f"vs f32 {p_f}")
+    for group in k_f:
+        check(k_f[group] <= LOGIT_NOISE_FACTOR * p_f[group],
+              f"kernel-path gradients of {group} drift from f32 by "
+              f"{k_f[group]}, plain bf16 by {p_f[group]}")
+
+
+def step_table(prof, step_s):
+    """Device time of one traced train step by kernel, and the share of
+    the step's host-clock time in which the card ran none (one stream,
+    so kernels do not overlap).  Only device rows count: an operator row
+    (``aten::mm``, the ``FlashAttention`` Function) repeats the time of
+    the kernels it launched, and CUPTI's "Command Buffer Full" records a
+    full launch queue, not device work."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.key != "Command Buffer Full"),
+                  key=dev_us, reverse=True)
+    busy = max(sum(dev_us(e) for e in rows) / 1e6, 1e-9)
+    print(f"[train] traced step: {step_s * 1e3:.1f} ms on the host clock "
+          f"(under the profiler), card busy {busy * 1e3:.1f} ms, idle "
+          f"share {max(0.0, 1 - busy / step_s):.3f}; device time by "
+          f"kernel:")
+    for e in rows[:12]:
+        print(f"[train]   {dev_us(e) / 1e3:10.2f} ms "
+              f"{100 * dev_us(e) / 1e6 / busy:5.1f}%  {e.count:6d} calls  "
+              f"{e.key[:70]}")
+
+
+def train_phase(torch, dev, build):
+    """yi-6b at full width and 8 of 32 layers, 4 steps of 2 x 4096 tokens
+    through the Trainer, a checkpoint at step 2, then a fresh Trainer
+    restored from it and stepped on to 4.  Returns the launch counts of
+    the uninterrupted run."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig, WorkloadShape, yi_6b
+    from repro_torch.models.model import Model
+    from repro_torch.train import Trainer
+
+    cfg = dataclasses.replace(yi_6b.CONFIG, n_layers=8)
+    tcfg = TrainConfig()
+    shape = WorkloadShape("chip", "train", 4096, 2)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tcfg, shape, ckpt_dir=str(ckpt_dir), seed=0,
+                 device=dev)
+    t = time.perf_counter()
+    tr.init_or_resume()
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name} at {cfg.n_layers} of 32 layers, d_model "
+          f"{cfg.d_model}: {Model(cfg).n_params() / 1e9:.3f} B params, "
+          f"float32 with AdamW state, drawn in {time.perf_counter() - t:.1f} "
+          f"s; batch {shape.global_batch} x {shape.seq_len}, {tcfg}")
+    build.reset_launches()
+    t = time.perf_counter()
+    tr.run(2, ckpt_every=2, log_every=0)
+    t_save = time.perf_counter()
+    tr.run(1, log_every=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(1, log_every=0)                   # step 3, traced
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for h in tr.history:
+        print(f"[train] step {h['step']}: loss {h['loss']:.5f} grad_norm "
+              f"{h['grad_norm']:.5f} step {h['step_time_s'] * 1e3:.1f} ms")
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"step {h['step']} is not finite")
+    save_s = t_save - t - sum(h["step_time_s"] for h in tr.history[:2])
+    print(f"[train] 4 steps and one checkpoint in {time.perf_counter() - t:.1f}"
+          f" s (the save at step 2, {save_s:.1f} s of it, host copy and npz "
+          f"write); peak device memory {peak:.2f} GB; launches {launches}")
+    step_table(prof, tr.history[-1]["step_time_s"])
+    L, steps = cfg.n_layers, 4
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps, "rmsnorm": (2 * 2 * L + 1) * steps}
+    for name, n in want.items():
+        check(launches[name] == n, f"train launched {name} {launches[name]} "
+              f"times, expected {n} (each forward runs twice under remat)")
+
+    ref = tr.history
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    tr2 = Trainer(cfg, tcfg, shape, ckpt_dir=str(ckpt_dir), seed=0,
+                  device=dev)
+    check(tr2.init_or_resume() == "resumed" and tr2.start_step == 2,
+          "the fresh Trainer did not resume at step 2")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t
+    resumed = tr2.run(2, log_every=0)
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(resumed, ref[2:])]
+    print(f"[train] resumed from step 2 in {t_restore:.1f} s: losses "
+          f"{[round(h['loss'], 5) for h in resumed]} against "
+          f"{[round(h['loss'], 5) for h in ref[2:]]}, relative {rel}")
+    check(len(rel) == 2 and max(rel) <= RESUME_RTOL,
+          f"resumed losses differ by {rel}")
+    del tr2
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -403,13 +656,18 @@ def main() -> int:
     check(torch.argmax(tie, dim=-1).tolist() == [5, 5],
           "argmax over bf16 logits must return the first maximal index")
     teacher_force(torch, dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    grad_check(torch, dev)
+    train = train_phase(torch, dev, build)
 
     kernels = []
     for name, r in rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": legacy[name] + chunked[name],
+            "launches": legacy[name] + chunked[name] + train[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})

@@ -1,8 +1,10 @@
-"""Model configuration for the PyTorch port.
+"""Model, workload and training configuration for the PyTorch port.
 
-A copy of the fields and properties of ``ModelConfig`` that the dense
-serving path reads.  Field names and defaults match the JAX package's
-``configs/base.py`` so a config converts field for field.
+Copies of the fields and properties of the JAX package's
+``configs/base.py`` that the dense serving and single-device training
+paths read: ``ModelConfig`` (with its optimizer choice),
+``WorkloadShape`` with ``SHAPES``, and ``TrainConfig``.  Field names and
+defaults match, so a config converts field for field.
 """
 from __future__ import annotations
 
@@ -32,6 +34,10 @@ class ModelConfig:
     # position and stacked over n_repeats (attention-only so far)
     block_pattern: Tuple[str, ...] = ("attn",)
 
+    # optimizer choice (production default per arch)
+    optimizer: str = "adamw"         # adamw | adafactor
+    opt_state_dtype: str = "float32"  # float32 | bfloat16 (memory pressure)
+
     source: str = ""
 
     @property
@@ -60,3 +66,35 @@ class ModelConfig:
         attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
         return 2 * self.vocab_size * d + self.n_layers * (attn + 3 * d * self.d_ff)
 
+
+
+@dataclass(frozen=True)
+class WorkloadShape:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k":    WorkloadShape("train_4k", "train", 4_096, 256),
+    "prefill_32k": WorkloadShape("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k":  WorkloadShape("decode_32k", "decode", 32_768, 128),
+    "long_500k":   WorkloadShape("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    param_dtype: str = "float32"      # master params
+    compute_dtype: str = "bfloat16"
+    grad_accum: int = 1
+    remat: bool = True
+    seed: int = 0

@@ -43,11 +43,19 @@ SIGNATURES = {
     # B, C, H, Hkv, D, page, pages_per_slot, scale, stream
     "paged_prefill_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, dq,
+    # B, Sq, Skv, H, Hkv, D, causal, q_offset, scale, stream
+    "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, dk, dv,
+    # B, Sq, Skv, H, Hkv, D, causal, q_offset, scale, stream
+    "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _P],
 }
 
 # launches per kernel; a wrapper adds one only where its kernel launched
 LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "paged_decode": 0,
-            "paged_prefill": 0}
+            "paged_prefill": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -122,6 +130,17 @@ def lib() -> ctypes.CDLL:
             so.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = so
     return _lib
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise if a raw kernel wrapper would cut a gradient: the kernels
+    launch through raw pointers and return tensors with no autograd
+    history, so under grad mode an input that requires grad must go
+    through the ``torch.autograd.Function`` of ``kernels/ops.py``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and the raw kernel wrapper "
+            f"has no backward; call it through repro_torch.kernels.ops")
 
 
 def check(t: torch.Tensor, name: str, dtype, shape=None) -> None:

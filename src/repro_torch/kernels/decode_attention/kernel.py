@@ -18,6 +18,7 @@ def _check_pool(q, k_pages, v_pages, block_table, what):
     if d not in HEAD_DIMS or h % hkv:
         raise ValueError(f"{what}: head dim {d} (takes {HEAD_DIMS}), "
                          f"heads {h} over {hkv} KV heads")
+    build.refuse_autograd(what, q, k_pages, v_pages)
     build.check(q, f"{what} q", torch.bfloat16)
     build.check(k_pages, f"{what} k_pages", torch.bfloat16)
     build.check(v_pages, f"{what} v_pages", torch.bfloat16, k_pages.shape)

@@ -6,14 +6,20 @@ tensor, the plain PyTorch version for a CPU tensor.  ``impl="ref"``
 takes the plain version on any device (the comparisons on the card);
 ``impl="cuda"`` insists on the kernel and raises for a CPU tensor.
 There is no fallback from a kernel to its plain version.
+
+``flash_attention`` and ``rmsnorm`` are differentiable on every route:
+the kernels through their ``torch.autograd.Function``s (flash attention
+with the ``flash_bwd`` kernels as its backward, rmsnorm with a plain
+float32 backward), the plain versions through ``ref.chunked``'s custom
+backward and autograd.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import kernel as _dec
 from repro_torch.kernels.decode_attention import ref as _dec_ref
-from repro_torch.kernels.flash_attention import kernel as _fa
+from repro_torch.kernels.flash_attention import ops as _fa
 from repro_torch.kernels.flash_attention import ref as _fa_ref
-from repro_torch.kernels.rmsnorm import kernel as _rn
+from repro_torch.kernels.rmsnorm import ops as _rn
 from repro_torch.kernels.rmsnorm import ref as _rn_ref
 
 IMPLS = (None, "cuda", "ref")
@@ -29,13 +35,13 @@ def _plain(impl, x) -> bool:
 
 def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
                     block_kv=1024, impl=None):
-    # the kernel wrapper would take the plain version on the CPU as
-    # well, but without ``block_kv``
+    # the Function would take the plain versions on the CPU as well,
+    # but without ``block_kv`` and with GQA run natively
     if _plain(impl, q) or q.device.type == "cpu":
         return _fa_ref.chunked(q, k, v, causal=causal, scale=scale,
                                block_kv=block_kv, q_offset=q_offset)
-    return _fa.flash_fwd(q, k, v, causal=causal, scale=scale,
-                         q_offset=q_offset)[0]
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                               q_offset=q_offset)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
@@ -57,6 +63,6 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, start,
 
 
 def rmsnorm(x, weight, *, eps=1e-5, impl=None):
-    if _plain(impl, x):
+    if _plain(impl, x) or x.device.type == "cpu":
         return _rn_ref.rmsnorm_ref(x, weight, eps=eps)
     return _rn.rmsnorm(x, weight, eps=eps)

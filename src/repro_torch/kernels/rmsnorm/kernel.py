@@ -1,5 +1,9 @@
 """RMSNorm: the CUDA kernel (``csrc/rmsnorm.cu``) for a CUDA tensor, the
-plain version (``ref.rmsnorm_ref``) for a CPU tensor."""
+plain version (``ref.rmsnorm_ref``) for a CPU tensor.
+
+This raw wrapper returns a tensor without autograd history and refuses
+inputs that require grad under grad mode; the differentiable route is
+``ops.RMSNorm``."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +14,7 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 def rmsnorm(x, weight, *, eps=1e-5):
     """x: (..., d) bf16; weight: (d,) f32.  Same type and shape out."""
+    build.refuse_autograd("rmsnorm", x, weight)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, weight, eps=eps)
     d = x.shape[-1]

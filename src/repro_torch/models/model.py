@@ -1,4 +1,5 @@
-"""Model facade: schema, init, prefill, chunk prefill, paged decode.
+"""Model facade: schema, init, train loss, prefill, chunk prefill, paged
+decode.
 
 As in the JAX package, parameters and caches are explicit trees (nested
 dicts of tensors) passed to every call; the ``Model`` holds the config
@@ -6,7 +7,7 @@ and which kernels to run (``impl``, see ``kernels/ops``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +41,33 @@ class Model(nn.Module):
 
     def n_params(self) -> int:
         return P.count_params(self.param_defs())
+
+    # -------------------------------------------------------------- train
+    def loss(self, params, batch: Dict, *, remat=True,
+             compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token cross-entropy: (loss, {"loss", "xent",
+        "moe_aux"}); ``moe_aux`` is 0 for the dense decoder.
+
+        The gold logit is gathered, not contracted with a one-hot as the
+        JAX package does (there the contraction stays local under a
+        vocab-sharded head): at 8192 tokens by 64000 words a float32
+        one-hot alone is 2.1 GB."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype)
+        x = transformer.stack_train(cfg, params["blocks"], x,
+                                    positions=positions, remat=remat,
+                                    impl=self.impl)
+        logits = layers.logits_apply(cfg, params["embed"], x,
+                                     impl=self.impl).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            batch["labels"].long()[..., None])[..., 0]
+        xent = (lse - gold).mean()
+        aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+        loss = xent + aux
+        return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
     # ------------------------------------------------------------ forward
     def _trunk(self, params, tokens, positions, *, compute_dtype,

@@ -50,6 +50,27 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """A tree shaped like ``tree`` whose leaves, in ``tree_leaves``
+    order, are ``leaves``."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return rebuild(tree)
+
+
+def abstract_params(defs, dtype=torch.float32):
+    """The tree's shapes and dtypes as tensors on the ``meta`` device
+    (no storage): a template to restore a checkpoint into."""
+    return tree_map(lambda d: torch.empty(
+        d.shape, dtype=DTYPES[d.dtype] if d.dtype else dtype,
+        device="meta"), defs)
+
+
 def init_params(defs, generator: torch.Generator, dtype=torch.float32,
                 device=None):
     """Materialize a PDef tree: normal(0, scale), zeros or ones, in

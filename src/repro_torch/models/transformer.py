@@ -8,6 +8,7 @@ Python loop over the repeats, indexing each layer's slice.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
@@ -92,3 +93,36 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
         return x, caches
     return x, {key: {n: torch.stack(ts) for n, ts in kv.items()}
                for key, kv in new.items()}
+
+
+def _superblock(cfg, pslice, x, positions, impl):
+    for i in range(cfg.pattern_len):
+        x, _ = _apply_position(cfg, pslice[f"p{i}"], x, positions=positions,
+                               impl=impl)
+    return x
+
+
+def stack_train(cfg: ModelConfig, blocks, x, *, positions, remat=True,
+                impl=None):
+    """The layer stack of the training loss: no caches.
+
+    With ``remat`` each super-block (all pattern positions of one repeat)
+    runs under ``torch.utils.checkpoint`` (non-reentrant), as the JAX
+    package checkpoints each scanned super-block: only its input is kept
+    for the backward, and everything inside it (the bfloat16 copies of
+    its weights included) is recomputed there.  Each stacked leaf is
+    unbound once, so the backward stacks the layers' gradients once
+    instead of scattering every layer into a zero-filled copy."""
+    per_layer = {key: {name: {n: t.unbind(0) for n, t in sub.items()}
+                       for name, sub in blocks[key].items()}
+                 for key in blocks}
+    for r in range(cfg.n_repeats):
+        pslice = {key: {name: {n: ts[r] for n, ts in sub.items()}
+                        for name, sub in per_layer[key].items()}
+                  for key in per_layer}
+        if remat:
+            x = checkpoint(_superblock, cfg, pslice, x, positions, impl,
+                           use_reentrant=False)
+        else:
+            x = _superblock(cfg, pslice, x, positions, impl)
+    return x

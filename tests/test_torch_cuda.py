@@ -105,3 +105,92 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = _rnd(dev, 1, 8, 4, 32)
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q)          # head dim 32 is not built
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward and the autograd Functions
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = [
+    # b, sq, skv, h, hkv, d, causal  (q_offset = skv - sq)
+    (2, 70, 90, 8, 2, 128, True),       # GQA, ragged tiles, offset
+    (1, 128, 128, 8, 1, 64, True),      # MQA
+    (1, 33, 65, 2, 2, 64, True),        # odd sizes, offset
+    (2, 64, 192, 6, 2, 64, False),      # non-causal, cross shape
+    (1, 200, 200, 4, 4, 128, True),     # several tiles each way
+]
+
+
+def _bwd_inputs(dev, b, sq, skv, h, hkv, d):
+    return (_rnd(dev, b, sq, h, d, seed=1), _rnd(dev, b, skv, hkv, d, seed=2),
+            _rnd(dev, b, skv, hkv, d, seed=3), _rnd(dev, b, sq, h, d, seed=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", BWD_SHAPES)
+def test_flash_bwd_kernels(dev, b, sq, skv, h, hkv, d, causal):
+    """dq, dk, dv of the kernels against ``ref.bwd`` on the same out and
+    lse.  The kernels keep p and ds in float32 and the plain version
+    rounds them to bf16, as the JAX ref does: within the bf16 tolerance."""
+    q, k, v, do = _bwd_inputs(dev, b, sq, skv, h, hkv, d)
+    qo = skv - sq
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=causal, q_offset=qo)
+    build.reset_launches()
+    got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=causal,
+                              q_offset=qo)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_bwd_dq"] == 1
+    assert build.LAUNCHES["flash_bwd_dkv"] == 1
+    want = fa_ref.bwd(q, k, v, out, lse, do, causal=causal, q_offset=qo)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", BWD_SHAPES[:3])
+def test_flash_function_grads_match_the_plain_path(dev, b, sq, skv, h, hkv,
+                                                   d, causal):
+    q, k, v, do = _bwd_inputs(dev, b, sq, skv, h, hkv, d)
+    qo = skv - sq
+    grads = []
+    for impl in (None, "ref"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention(*leaves, causal=causal, q_offset=qo,
+                                  impl=impl)
+        grads.append(torch.autograd.grad(out, leaves, do))
+    for g, w in zip(*grads):
+        _close(g, w)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_function_grads_match_the_plain_path(dev):
+    x = _rnd(dev, 3, 40, 512)
+    w = 1 + 0.1 * torch.randn(512, device=dev)
+    dy = _rnd(dev, 3, 40, 512, seed=9)
+    grads = []
+    for impl in (None, "ref"):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        grads.append(torch.autograd.grad(
+            ops.rmsnorm(xl, wl, impl=impl), (xl, wl), dy))
+    _close(grads[0][0], grads[1][0])
+    # dweight sums 120 rows: relative to its own scale
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-2,
+                               atol=1e-2 * float(grads[1][1].abs().max()))
+
+
+@pytest.mark.cuda
+def test_raw_wrappers_refuse_grad_and_strided_grads_are_made_dense(dev):
+    q = _rnd(dev, 1, 16, 4, 64).requires_grad_()
+    k = _rnd(dev, 1, 16, 2, 64, seed=1)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa_kernel.flash_fwd(q, k, k)
+    with torch.no_grad():
+        fa_kernel.flash_fwd(q, k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        build.check(k.transpose(1, 2), "k", torch.bfloat16)
+    # the output feeds a reshape and a matmul, so its grad is strided
+    w = torch.randn(256, 8, device=dev, dtype=torch.bfloat16)
+    out = ops.flash_attention(q, k, k).reshape(1, 16, 256) @ w
+    out.sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -21,7 +22,11 @@ from repro.kernels.flash_attention import ref as jfa  # noqa: E402
 from repro.kernels.rmsnorm import ref as jrn  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as tdec  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as tfa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as tfa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tfa  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as trn_kernel  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as trn_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as trn  # noqa: E402
 
 SHAPES = [
@@ -130,6 +135,129 @@ def test_flash_chunked_small_blocks_match_naive(shape):
 
 
 # ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+
+
+def _grad_inputs(shape, jdt, tdt):
+    b, sq, skv, h, hkv, d, causal = shape
+    q, k, v = _qkv(b, sq, skv, h, hkv, d)
+    do = np.random.default_rng(5).standard_normal((b, sq, h, d), np.float32)
+    return [_both(a, jdt, tdt) for a in (q, k, v, do)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_bwd_ref_matches_pallas_flash_bwd(shape, dt):
+    """``ref.bwd`` on the Pallas forward's out and lse against the Pallas
+    backward in interpret mode (GQA native on both sides)."""
+    causal, qo = shape[-1], shape[2] - shape[1]
+    _, jdt, tdt, tol = DTYPES[dt]
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _grad_inputs(shape, jdt, tdt)
+    out, lse = jfa_kernel.flash_fwd(qj, kj, vj, causal=causal, q_offset=qo,
+                                    interpret=True)
+    want = jfa_kernel.flash_bwd(qj, kj, vj, out, lse, doj, causal=causal,
+                                q_offset=qo, interpret=True)
+    got = tfa.bwd(qt, kt, vt, _both(np.array(out.astype(jnp.float32)),
+                                    jdt, tdt)[1],
+                  torch.from_numpy(np.array(lse)), dot, causal=causal,
+                  q_offset=qo)
+    for g, w, ref_t in zip(got, want, (qt, kt, vt)):
+        assert g.dtype == tdt and g.shape == ref_t.shape
+        _close(g, w, tol)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_grads_match_jax_grad_through_the_ref(shape, dt):
+    """Autograd through the port's facade on the CPU (``ref.chunked``:
+    KV repeated for GQA, ``ref.bwd`` as the custom backward) against
+    ``jax.grad`` through the JAX facade's ref."""
+    causal, qo = shape[-1], shape[2] - shape[1]
+    _, jdt, tdt, tol = DTYPES[dt]
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _grad_inputs(shape, jdt, tdt)
+
+    def f(q, k, v):
+        out = jops.flash_attention(q, k, v, causal=causal, q_offset=qo,
+                                   impl="ref")
+        return jnp.sum(out.astype(jnp.float32) * doj.astype(jnp.float32))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(qj, kj, vj)
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    out = ops.flash_attention(*leaves, causal=causal, q_offset=qo)
+    got = torch.autograd.grad(out, leaves, dot)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:4])
+def test_flash_function_on_the_cpu_matches_autograd_of_naive(shape):
+    """The kernel route's autograd Function, run on the CPU through the
+    plain versions (GQA native in ``ref.bwd``), against autograd through
+    the materialized oracle, in float32."""
+    b, sq, skv, h, hkv, d, causal = shape
+    qo = skv - sq
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(b, sq, skv, h, hkv, d))
+    do = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (b, sq, h, d), np.float32))
+    got = torch.autograd.grad(tfa_ops.flash_attention(
+        q, k, v, causal=causal, q_offset=qo), (q, k, v), do)
+    want = torch.autograd.grad(tfa.naive(q, k, v, causal=causal,
+                                         q_offset=qo), (q, k, v), do)
+    for g, w in zip(got, want):
+        _close(g, w, 2e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rmsnorm_function_grads_match_jax_grad(dt):
+    _, jdt, tdt, tol = DTYPES[dt]
+    tol = 1e-5 if dt == "f32" else tol
+    rng = np.random.default_rng(3)
+    (xj, xt), (dyj, dyt) = (_both(rng.standard_normal((3, 20, 64),
+                                                      np.float32), jdt, tdt)
+                            for _ in range(2))
+    w = rng.standard_normal((64,), np.float32)
+
+    def f(x, w):
+        y = jrn.rmsnorm_ref(x, w)
+        return jnp.sum(y.astype(jnp.float32) * dyj.astype(jnp.float32))
+
+    want = jax.grad(f, argnums=(0, 1))(xj, jnp.asarray(w))
+    xl, wl = xt.clone().requires_grad_(), torch.from_numpy(w).requires_grad_()
+    got = torch.autograd.grad(trn_ops.rmsnorm(xl, wl), (xl, wl), dyt)
+    assert got[0].dtype == tdt and got[1].dtype == torch.float32
+    _close(got[0], want[0], tol)
+    # dweight sums 60 rows of bf16-rounded terms
+    _close(got[1], want[1], tol if dt == "f32" else 5e-2)
+
+
+def test_raw_kernel_wrappers_refuse_to_cut_gradients():
+    """The kernels launch through raw pointers and return tensors with
+    no autograd history: under grad mode a raw wrapper refuses an input
+    that requires grad (on every device, before it picks a route), and
+    the facade takes the differentiable route instead."""
+    q = torch.randn(1, 8, 2, 64, requires_grad=True)
+    k = torch.randn(1, 8, 2, 64)
+    x = torch.randn(4, 64, requires_grad=True)
+    w = torch.ones(64)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tfa_kernel.flash_fwd(q, k, k)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tfa_kernel.flash_bwd(q, k, k, q, torch.zeros(1, 8, 2), q)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        trn_kernel.rmsnorm(x, w)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        build.refuse_autograd("x", w, x)
+    build.refuse_autograd("x", w, k)          # nothing requires grad
+    with torch.no_grad():
+        tfa_kernel.flash_fwd(q, k, k)
+        trn_kernel.rmsnorm(x, w)
+    assert ops.rmsnorm(x, w).requires_grad
+    assert ops.flash_attention(q, k, k).requires_grad
+
+
+# ---------------------------------------------------------------------------
 # decode attention (contiguous and paged)
 # ---------------------------------------------------------------------------
 
@@ -232,7 +360,10 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
 
 def test_kernel_sources_are_present_and_hashed():
     names = {p.name for p in build.CSRC.glob("*.cu")}
-    assert {"rmsnorm.cu", "flash_fwd.cu", "paged_attention.cu"} <= names
+    assert {"rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu",
+            "paged_attention.cu"} <= names
+    assert {"flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"} <= set(build.SIGNATURES)
+    assert {"flash_bwd_dq", "flash_bwd_dkv"} <= set(build.LAUNCHES)
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path()          # stable for one tree
