@@ -45,6 +45,15 @@ def flash_fwd(q, k, v, *, causal=True, scale=None, q_offset=0):
     return out, lse
 
 
+def _check_bwd(name, q, k, v, dout, lse, delta):
+    """Everything the backward kernels read through raw pointers."""
+    build.refuse_autograd(name, q, k, v, dout, lse, delta)
+    _check_qkv(name, q, k, v)
+    build.check(dout, f"{name} dout", torch.bfloat16, q.shape)
+    build.check(lse, f"{name} lse", torch.float32, q.shape[:3])
+    build.check(delta, f"{name} delta", torch.float32, q.shape[:3])
+
+
 def _bwd_args(q, k, causal, scale, q_offset):
     b, sq, h, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -54,9 +63,10 @@ def _bwd_args(q, k, causal, scale, q_offset):
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None,
                  q_offset=0):
-    """The dq kernel alone (inputs as checked by ``flash_bwd``; delta
-    (B, Sq, H) float32)."""
-    build.check(delta, "flash_bwd delta", torch.float32, lse.shape)
+    """The dq kernel alone: CUDA tensors only (``flash_bwd`` is the
+    wrapper with a plain version).  delta (B, Sq, H) float32 is
+    ``rowsum(out * dout)``."""
+    _check_bwd("flash_bwd_dq", q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
     build.launch("flash_bwd_dq", "flash_bwd_dq_bf16", q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -67,8 +77,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None,
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None,
                   q_offset=0):
-    """The dk/dv kernel alone; returns (dk, dv)."""
-    build.check(delta, "flash_bwd delta", torch.float32, lse.shape)
+    """The dk/dv kernel alone, inputs as ``flash_bwd_dq``; (dk, dv)."""
+    _check_bwd("flash_bwd_dkv", q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     build.launch("flash_bwd_dkv", "flash_bwd_dkv_bf16", q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -86,10 +96,7 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal=True, scale=None,
     if q.device.type == "cpu":
         return ref.bwd(q, k, v, out, lse, dout, causal=causal, scale=scale,
                        q_offset=q_offset)
-    _check_qkv("flash_bwd", q, k, v)
     build.check(out, "flash_bwd out", torch.bfloat16, q.shape)
-    build.check(dout, "flash_bwd dout", torch.bfloat16, q.shape)
-    build.check(lse, "flash_bwd lse", torch.float32, q.shape[:3])
     delta = (out.float() * dout.float()).sum(-1)
     kw = dict(causal=causal, scale=scale, q_offset=q_offset)
     dq = flash_bwd_dq(q, k, v, dout, lse, delta, **kw)

@@ -56,9 +56,9 @@ class Model(nn.Module):
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype)
-        x = transformer.stack_train(cfg, params["blocks"], x,
-                                    positions=positions, remat=remat,
-                                    impl=self.impl)
+        x, _ = transformer.stack_apply(cfg, params["blocks"], x,
+                                       positions=positions, mode="train",
+                                       remat=remat, impl=self.impl)
         logits = layers.logits_apply(cfg, params["embed"], x,
                                      impl=self.impl).float()
         lse = torch.logsumexp(logits, dim=-1)
@@ -70,13 +70,13 @@ class Model(nn.Module):
         return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
     # ------------------------------------------------------------ forward
-    def _trunk(self, params, tokens, positions, *, compute_dtype,
+    def _trunk(self, params, tokens, positions, *, mode, compute_dtype,
                caches=None, paging=None):
         cfg = self.cfg
         x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype)
         x, new_caches = transformer.stack_apply(
             cfg, params["blocks"], x, positions=positions, caches=caches,
-            paging=paging, impl=self.impl)
+            mode=mode, paging=paging, impl=self.impl)
         return layers.logits_apply(cfg, params["embed"], x,
                                    impl=self.impl), new_caches
 
@@ -92,6 +92,7 @@ class Model(nn.Module):
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         logits, caches = self._trunk(params, tokens, positions,
+                                     mode="prefill",
                                      compute_dtype=compute_dtype)
         if last_index is None:
             return logits[:, -1], caches
@@ -108,8 +109,9 @@ class Model(nn.Module):
         ``paging.null_page``.  Returns (logits (B, C, V), pool)."""
         positions = (paging.lengths.long()[:, None]
                      + torch.arange(tokens.shape[1], device=tokens.device))
-        return self._trunk(params, tokens, positions, caches=pool,
-                           paging=paging, compute_dtype=compute_dtype)
+        return self._trunk(params, tokens, positions, mode="prefill",
+                           caches=pool, paging=paging,
+                           compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def decode_step(self, params, caches, tokens, cache_index, *,
@@ -122,6 +124,7 @@ class Model(nn.Module):
         positions = (cache_index.long()[:, None]
                      + torch.arange(tokens.shape[1], device=tokens.device))
         logits, caches = self._trunk(params, tokens, positions,
-                                     caches=caches, paging=paging,
+                                     mode="decode", caches=caches,
+                                     paging=paging,
                                      compute_dtype=compute_dtype)
         return logits[:, -1], caches

@@ -3,7 +3,8 @@
 Parameters for each block-pattern position are stacked over
 ``cfg.n_repeats`` under the keys ``p{i}`` (the JAX package's layout, so
 a JAX parameter tree carries across unchanged); the stack runs as a
-Python loop over the repeats, indexing each layer's slice.
+Python loop over the repeats, each stacked leaf unbound once into its
+layers' slices.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
-from repro_torch.models.params import PDef, stack
+from repro_torch.models.params import PDef, stack, tree_map
 
 
 def _check_attention_only(cfg: ModelConfig):
@@ -69,60 +70,62 @@ def _apply_position(cfg, p, x, *, positions, cache=None, paging=None,
     return x + layers.mlp_apply(cfg, p["mlp"], h), kvs
 
 
+def _superblock(cfg, pslice, x, positions, cslice, paging, impl):
+    """All pattern positions of one repeat: (x, {"p{i}": (k, v)})."""
+    kvs = {}
+    for i in range(cfg.pattern_len):
+        key = f"p{i}"
+        x, kvs[key] = _apply_position(
+            cfg, pslice[key], x, positions=positions,
+            cache=None if cslice is None else cslice[key], paging=paging,
+            impl=impl)
+    return x, kvs
+
+
+def _train_superblock(cfg, pslice, x, positions, impl):
+    return _superblock(cfg, pslice, x, positions, None, None, impl)[0]
+
+
 def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
-                paging=None, impl=None):
-    """Run the layer stack.  Without ``caches`` (prompt prefill) it
-    returns (x, {"p{i}": {"k", "v"}}) with each position's prompt KV
-    stacked over the repeats; with the page pools it writes them in place
-    and returns (x, caches)."""
+                mode="train", remat=True, paging=None, impl=None):
+    """Run the layer stack.
+
+    ``mode="train"`` (the loss) keeps no KV and returns (x, None); with
+    ``remat`` each super-block (all pattern positions of one repeat) runs
+    under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package
+    checkpoints each scanned super-block: only its input is kept for the
+    backward, and everything inside it (the bfloat16 copies of its
+    weights included) is recomputed there.  Otherwise, without ``caches``
+    (prompt prefill) it returns (x, {"p{i}": {"k", "v"}}) with each
+    position's prompt KV stacked over the repeats; with the page pools it
+    writes them in place and returns (x, caches).
+
+    Each stacked leaf is unbound once, so the backward stacks the layers'
+    gradients once instead of scattering every layer into a zero-filled
+    copy."""
+    per_layer = tree_map(lambda t: t.unbind(0), blocks)
+    per_cache = None if caches is None else tree_map(
+        lambda t: t.unbind(0), caches)
     new = {f"p{i}": {"k": [], "v": []} for i in range(cfg.pattern_len)}
     for r in range(cfg.n_repeats):
-        for i in range(cfg.pattern_len):
-            key = f"p{i}"
-            p = {name: {n: t[r] for n, t in sub.items()}
-                 for name, sub in blocks[key].items()}
-            cache = None if caches is None else {
-                n: caches[key][n][r] for n in ("k", "v")}
-            x, (k, v) = _apply_position(cfg, p, x, positions=positions,
-                                        cache=cache, paging=paging,
-                                        impl=impl)
-            if caches is None:
+        pslice = tree_map(lambda ts: ts[r], per_layer)
+        if mode == "train":
+            if remat:
+                x = checkpoint(_train_superblock, cfg, pslice, x, positions,
+                               impl, use_reentrant=False)
+            else:
+                x = _train_superblock(cfg, pslice, x, positions, impl)
+            continue
+        cslice = None if caches is None else tree_map(lambda ts: ts[r],
+                                                      per_cache)
+        x, kvs = _superblock(cfg, pslice, x, positions, cslice, paging, impl)
+        if caches is None:
+            for key, (k, v) in kvs.items():
                 new[key]["k"].append(k)
                 new[key]["v"].append(v)
+    if mode == "train":
+        return x, None
     if caches is not None:
         return x, caches
     return x, {key: {n: torch.stack(ts) for n, ts in kv.items()}
                for key, kv in new.items()}
-
-
-def _superblock(cfg, pslice, x, positions, impl):
-    for i in range(cfg.pattern_len):
-        x, _ = _apply_position(cfg, pslice[f"p{i}"], x, positions=positions,
-                               impl=impl)
-    return x
-
-
-def stack_train(cfg: ModelConfig, blocks, x, *, positions, remat=True,
-                impl=None):
-    """The layer stack of the training loss: no caches.
-
-    With ``remat`` each super-block (all pattern positions of one repeat)
-    runs under ``torch.utils.checkpoint`` (non-reentrant), as the JAX
-    package checkpoints each scanned super-block: only its input is kept
-    for the backward, and everything inside it (the bfloat16 copies of
-    its weights included) is recomputed there.  Each stacked leaf is
-    unbound once, so the backward stacks the layers' gradients once
-    instead of scattering every layer into a zero-filled copy."""
-    per_layer = {key: {name: {n: t.unbind(0) for n, t in sub.items()}
-                       for name, sub in blocks[key].items()}
-                 for key in blocks}
-    for r in range(cfg.n_repeats):
-        pslice = {key: {name: {n: ts[r] for n, ts in sub.items()}
-                        for name, sub in per_layer[key].items()}
-                  for key in per_layer}
-        if remat:
-            x = checkpoint(_superblock, cfg, pslice, x, positions, impl,
-                           use_reentrant=False)
-        else:
-            x = _superblock(cfg, pslice, x, positions, impl)
-    return x

@@ -7,7 +7,9 @@ installed:
 Without a CUDA device each test skips with its reason.  Tolerance:
 |kernel - plain| <= 2e-2 * (1 + |plain|), the bf16 tolerance of the
 kernel tests (one rounding of a bf16 output after f32 sums taken in
-another order).
+another order).  flash_bwd's gradients are also held as whole tensors,
+||kernel - plain|| <= 1e-2 * ||plain||, which holds the bulk of small
+gradients that the per-element limit lets through.
 """
 import pytest
 
@@ -20,6 +22,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 
 TOL = 2e-2
+REL_L2_TOL = 1e-2
 
 
 @pytest.fixture
@@ -145,6 +148,8 @@ def test_flash_bwd_kernels(dev, b, sq, skv, h, hkv, d, causal):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         _close(g, w)
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= REL_L2_TOL, rel
 
 
 @pytest.mark.cuda

@@ -257,6 +257,25 @@ def test_raw_kernel_wrappers_refuse_to_cut_gradients():
     assert ops.flash_attention(q, k, k).requires_grad
 
 
+@pytest.mark.parametrize("part", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_backward_kernel_wrappers_check_their_own_inputs(part):
+    """The dq and dk/dv wrappers launch through raw pointers themselves,
+    so each refuses grad-mode inputs and anything but CUDA tensors
+    without going through ``flash_bwd``."""
+    fn = getattr(tfa_kernel, part)
+    q = torch.randn(1, 8, 2, 64, dtype=torch.bfloat16)
+    k = torch.randn(1, 8, 2, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 8, 2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fn(q.clone().requires_grad_(), k, k, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(q, k, k, q, lse, lse)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(q, k, k, q, lse, lse[..., :1])
+    assert build.LAUNCHES[part] == 0
+
+
 # ---------------------------------------------------------------------------
 # decode attention (contiguous and paged)
 # ---------------------------------------------------------------------------
