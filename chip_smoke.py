@@ -7,23 +7,33 @@ Phases, each printing its own lines:
 
 1. device  - ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build   - nvcc builds every kernel from ``src/repro_torch/csrc``;
-3. kernels - each CUDA kernel against its plain PyTorch version at yi-6b
-             shapes in bf16: max error against the stated tolerance, and
-             CUDA-event medians of the kernel, the plain version and one
-             PyTorch library call, beside the least time the card could take;
+3. kernels - each CUDA kernel against its plain PyTorch version at the
+             shapes the served and trained paths give it, in bf16: max
+             error against the stated tolerance, and CUDA-event medians
+             of the kernel, the plain version and one PyTorch library
+             call, beside the least time the card could take.  The
+             attention kernels are held at yi-6b's head dim 128 and
+             granite's 64, flash attention also on query rows that see
+             no key (a negative query offset);
 4. serve   - yi-6b at full width and depth (random weights from a seeded
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
-             each run; then one prompt and 4 decode steps teacher-forced
-             through the kernel path and the plain path;
-5. train   - the gradients of yi-6b at full width and 2 layers on one
-             2 x 4096 batch through the kernel path, the plain path in
-             bf16 and the plain path in float32; then yi-6b at full width
-             and 8 of its 32 layers trained 4 steps through the port's
-             Trainer (AdamW, float32 master weights, bf16 compute, remat)
-             with the launch counts read around the run and a checkpoint
-             saved at step 2, restored into a fresh Trainer and stepped
-             on to 4.
+             each run; one prompt and 4 decode steps teacher-forced
+             through the kernel path and the plain path; then 4 of the
+             prompts alone through the contiguous path (Model.prefill
+             right-padded to 1024, then decode steps at a scalar index)
+             against the legacy engine's streams; then granite-moe-1b-
+             a400m at full width and depth through the Engine in both
+             modes, and teacher-forced;
+5. train   - the gradients of yi-6b and of granite-moe-1b-a400m at full
+             width and 2 layers on one 2 x 4096 batch through the kernel
+             path, the plain path in bf16 and the plain path in float32;
+             yi-6b at full width and 8 of its 32 layers trained 4 steps
+             through the port's Trainer (AdamW, float32 master weights,
+             bf16 compute, remat) with the launch counts read around the
+             run and a checkpoint saved at step 2, restored into a fresh
+             Trainer and stepped on to 4; then granite-moe-1b-a400m at
+             full width and all 24 layers trained 4 steps, batch 4 x 4096.
 
 Then the ``kernels`` JSON line, the card's line, and the result line.
 Any failure raises and exits non-zero; without CUDA, or without the port
@@ -62,6 +72,16 @@ REL_L2_TOL = 1e-2
 # plain bf16 path is, within this factor.
 LOGIT_NOISE_FACTOR = 1.5
 
+# the grouped expert GEMM sums D products of unit-scale bf16 values per
+# output: kernel and plain version are compared after scaling both by
+# 1 / sqrt(D), the size of such a sum, at TOL
+
+# the contiguous path against the engine's stream: where the two greedy
+# streams part, the engine's token must be within this much of the
+# contiguous path's largest logit at that step (bf16 logits of yi-6b's
+# random head: about one bf16 step at the top of the range)
+STREAM_LOGIT_TOL = 3e-2
+
 # resumed training: the losses of steps 2 and 3 after a checkpoint
 # round trip against the uninterrupted run (the embedding's backward
 # sums with atomics, so the last bits may differ)
@@ -74,6 +94,8 @@ REPLACES = {
     "paged_prefill": "src/repro/kernels/decode_attention/kernel.py:240",
     "flash_bwd_dq": "src/repro/kernels/flash_attention/kernel.py:249",
     "flash_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:249",
+    "moe_gemm": "src/repro/kernels/moe_gemm/kernel.py:39",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:62",
 }
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
@@ -82,6 +104,8 @@ SOURCES = {
     "paged_prefill": "src/repro_torch/csrc/paged_attention.cu",
     "flash_bwd_dq": "src/repro_torch/csrc/flash_bwd.cu",
     "flash_bwd_dkv": "src/repro_torch/csrc/flash_bwd.cu",
+    "moe_gemm": "src/repro_torch/csrc/moe_gemm.cu",
+    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
 }
 
 
@@ -345,6 +369,11 @@ def kernel_phase(torch, dev):
         plain_ms=plain, library_ms=library,
         bound=bound(in_bytes + 2 * k.numel() * 2, 4 * matmul), shape=shape)
 
+    head_dim_64(torch, dev, rows_out, rnd, cpm)
+    unseen_rows(torch, dev, rows_out, rnd)
+    rows_out["moe_gemm"] = moe_gemm_row(torch, dev, rnd, cpm)
+    rows_out["decode_attention"] = decode_attention_row(torch, dev, rnd, cpm)
+
     for name, r in rows_out.items():
         print(f"[kernels] {name}: {r['shape']}: max_abs_err "
               f"{r['max_abs_err']:.3g} (tol {TOL} x (1+|ref|)) "
@@ -354,8 +383,231 @@ def kernel_phase(torch, dev):
     return rows_out
 
 
+def _fold(row, err, note):
+    """Count one more shape's error into a kernel's row."""
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["shape"] += note
+
+
+def head_dim_64(torch, dev, rows_out, rnd, cpm):
+    """The attention kernels at granite-moe-1b-a400m's head dim 64 (16
+    query heads over 8 KV heads): flash forward and backward at its
+    training shape (batch 4 x 4096), paged decode and prefill at its
+    serving shapes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    H, HKV, D, PAGE = 16, 8, 64, 16
+    q, k, v = rnd(4, 4096, H, D), rnd(4, 4096, HKV, D), rnd(4, 4096, HKV, D)
+    do = rnd(4, 4096, H, D)
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
+    ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=True)
+    e, ok = err_within(out, ref_out, TOL)
+    check(ok, "flash_fwd at head dim 64 differs from the plain version")
+    e_lse = float((lse - ref_lse).abs().max())
+    check(e_lse <= LSE_TOL, f"flash_fwd lse at head dim 64 differs by {e_lse}")
+    _fold(rows_out["flash_fwd"], e, "; and q (4,4096,16,64), kv (4,4096,8,64)")
+    del ref_out, ref_lse
+    got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa_ref.bwd(q, k, v, out, lse, do, causal=True)
+    rels = []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        e, ok = err_within(a, b, TOL)
+        r = rel_l2(a, b)
+        check(ok and r <= REL_L2_TOL, f"flash_bwd {name} at head dim 64 "
+              f"differs from the plain version (relative L2 {r:.3g})")
+        rels.append(r)
+        _fold(rows_out["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"],
+              e, "")
+    del got, want
+    delta = (out.float() * do.float()).sum(-1)
+    t_fwd = median_ms(cpm, lambda: fa_kernel.flash_fwd(q, k, v, causal=True),
+                      n=3, reps=5)
+    t_dq = median_ms(cpm, lambda: fa_kernel.flash_bwd_dq(
+        q, k, v, do, lse, delta, causal=True), n=3, reps=5)
+    t_dkv = median_ms(cpm, lambda: fa_kernel.flash_bwd_dkv(
+        q, k, v, do, lse, delta, causal=True), n=3, reps=5)
+    pairs = 4096 * 4097 // 2
+    mm = 2 * 4 * pairs * H * D
+    print(f"[kernels] head dim 64, q (4,4096,16,64) kv (4,4096,8,64) causal: "
+          f"flash_fwd {t_fwd:.4f} ms (bound {2 * mm / BF16_FLOPS_S * 1e3:.4f}),"
+          f" flash_bwd_dq {t_dq:.4f} ms (bound {3 * mm / BF16_FLOPS_S * 1e3:.4f})"
+          f", flash_bwd_dkv {t_dkv:.4f} ms (bound "
+          f"{4 * mm / BF16_FLOPS_S * 1e3:.4f}); relative L2 dq {rels[0]:.3g}, "
+          f"dk {rels[1]:.3g}, dv {rels[2]:.3g}")
+    del q, k, v, do, out, lse, delta
+
+    g = torch.Generator(device=dev).manual_seed(99)
+    B, MAXP = 8, 1024 // PAGE
+    n_pages = B * MAXP + 1
+    kp, vp = rnd(n_pages, PAGE, HKV, D), rnd(n_pages, PAGE, HKV, D)
+    bt = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)[:B * MAXP]
+          ).to(torch.int32).reshape(B, MAXP)
+    lens = torch.tensor([1, 17, 100, 256, 511, 700, 1000, 1024],
+                        dtype=torch.int32, device=dev)
+    qd = rnd(B, 1, H, D)
+    e, ok = err_within(ops.paged_decode_attention(qd, kp, vp, bt, lens),
+                       dec_ref.paged_decode_ref(qd, kp, vp, bt, lens), TOL)
+    check(ok, "paged_decode at head dim 64 differs from the plain version")
+    _fold(rows_out["paged_decode"], e, "; and at (8,1,16,64) over 8 KV heads")
+    t_dec = median_ms(cpm, lambda: ops.paged_decode_attention(qd, kp, vp, bt,
+                                                              lens))
+    qc = rnd(1, 256, H, D)
+    st = torch.tensor([256], dtype=torch.int32, device=dev)
+    nv = torch.tensor([180], dtype=torch.int32, device=dev)
+    got = ops.paged_prefill_attention(qc, kp, vp, bt[:1], st, nv)
+    want = dec_ref.paged_prefill_ref(qc, kp, vp, bt[:1], st, nv)
+    e, ok = err_within(got[:, :180], want[:, :180], TOL)
+    check(ok, "paged_prefill at head dim 64 differs from the plain version")
+    _fold(rows_out["paged_prefill"], e, "; and at (1,256,16,64) over 8 KV heads")
+    t_pre = median_ms(cpm, lambda: ops.paged_prefill_attention(
+        qc, kp, vp, bt[:1], st, nv))
+    print(f"[kernels] head dim 64 serving shapes: paged_decode (8 slots, "
+          f"lengths 1..1024) {t_dec:.4f} ms, paged_prefill (256 rows at start "
+          f"256, n_valid 180) {t_pre:.4f} ms")
+
+
+def unseen_rows(torch, dev, rows_out, rnd):
+    """Causal attention with a negative query offset: the first rows see
+    no key.  The kernels must give the plain version's answer (the JAX
+    reference's: scores masked at -1e30, so the mean of V forward, and
+    ``ref.bwd``'s gradients).  Such a row has p = 1 on every key, and its
+    dq (and the dk it adds to every key) sums many terms of size ~1 that
+    cancel, which the plain version's bf16 rounding of ds moves by more
+    than TOL: the kernels (ds in f32) are held per element against the
+    plain version run in float32 on the same inputs, and in relative L2
+    against the bf16 one."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    for b, sq, skv, h, hkv, d, qo in ((1, 256, 256, 16, 8, 64, -100),
+                                      (2, 128, 192, 32, 4, 128, -60)):
+        q, k, v, do = (rnd(b, sq, h, d), rnd(b, skv, hkv, d),
+                       rnd(b, skv, hkv, d), rnd(b, sq, h, d))
+        kw = dict(causal=True, q_offset=qo)
+        out, lse = fa_kernel.flash_fwd(q, k, v, **kw)
+        ref_out, ref_lse = fa_ref.fwd(q, k, v, **kw)
+        e_fwd, ok = err_within(out, ref_out, TOL)
+        e_lse = float((lse - ref_lse).abs().max())
+        check(ok and e_lse <= LSE_TOL, f"flash_fwd at q_offset {qo} differs "
+              f"from the plain version (lse by {e_lse})")
+        check(bool((lse[:, :-qo] == -1e30).all()), "rows that see no key "
+              "must have lse -1e30")
+        _fold(rows_out["flash_fwd"], e_fwd, f"; and at q_offset {qo}")
+        got = fa_kernel.flash_bwd(q, k, v, out, lse, do, **kw)
+        want = fa_ref.bwd(q, k, v, out, lse, do, **kw)
+        want32 = fa_ref.bwd(q.float(), k.float(), v.float(), out.float(), lse,
+                            do.float(), **kw)
+        rels = []
+        for name, a, w, w32 in zip(("dq", "dk", "dv"), got, want, want32):
+            e, ok = err_within(a, w32, TOL)
+            r = rel_l2(a, w)
+            check(ok and r <= REL_L2_TOL, f"flash_bwd {name} at q_offset {qo}"
+                  f" differs from the plain version (relative L2 {r:.3g})")
+            rels.append(round(r, 5))
+        print(f"[kernels] q_offset {qo}, q ({b},{sq},{h},{d}), kv ({b},{skv},"
+              f"{hkv},{d}): rows 0..{-qo - 1} see no key; forward max error "
+              f"{e_fwd:.3g}, lse error {e_lse:.3g}, backward relative L2 {rels}")
+
+
+def moe_gemm_row(torch, dev, rnd, cpm):
+    """The grouped expert GEMM at the three shapes granite-moe-1b-a400m's
+    path gives it (32 experts, D 1024, F 512): a decode tick's 8 rows
+    per expert (8 slots x capacity 1), a legacy prefill's 160 (a
+    512-token group's capacity), a train step's 5120 (4 groups x 1280);
+    the backward's two products at the train shape.  The row is the
+    train shape's."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.moe_gemm import ref as moe_ref
+
+    E, D, F_ = 32, 1024, 512
+    errs = []
+    for label, T in (("decode", 8), ("legacy prefill", 160), ("train", 5120)):
+        x, w = rnd(E, T, D), rnd(E, D, F_)
+        got, want = moe_kernel.moe_gemm(x, w), moe_ref.moe_gemm_ref(x, w)
+        e, ok = err_within(got.float() * D ** -0.5, want.float() * D ** -0.5,
+                           TOL)
+        check(ok, f"moe_gemm at T {T} differs from the plain version")
+        errs.append(e)
+        row = dict(
+            ms=median_ms(cpm, lambda: moe_kernel.moe_gemm(x, w)),
+            plain_ms=median_ms(cpm, lambda: moe_ref.moe_gemm_ref(x, w)),
+            library_ms=median_ms(cpm, lambda: torch.bmm(x, w)),
+            bound=bound((E * T * D + E * D * F_ + E * T * F_) * 2,
+                        2 * E * T * D * F_))
+        print(f"[kernels] moe_gemm {label} (32,{T},1024) x (32,1024,512): "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"torch.bmm {row['library_ms']:.4f} ms, bound "
+              f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), "
+              f"{2 * E * T * D * F_ / row['ms'] / 1e9:.1f} TFLOP/s")
+    dy = rnd(E, T, F_)
+    grads = []
+    for impl in (None, "ref"):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        grads.append(torch.autograd.grad(ops.moe_gemm(xl, wl, impl=impl),
+                                         (xl, wl), dy))
+    for name, a, b, depth in (("dX", grads[0][0], grads[1][0], F_),
+                              ("dW", grads[0][1], grads[1][1], T)):
+        e, ok = err_within(a.float() * depth ** -0.5,
+                           b.float() * depth ** -0.5, TOL)
+        r = rel_l2(a, b)
+        check(ok and r <= REL_L2_TOL, f"moe_gemm backward {name} differs from "
+              f"the plain version's autograd (relative L2 {r:.3g})")
+        errs.append(e)
+    del grads
+    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+    t_dx = median_ms(cpm, lambda: moe_kernel.moe_gemm(dy, wt))
+    t_dw = median_ms(cpm, lambda: moe_kernel.moe_gemm(xt, dy))
+    print(f"[kernels] moe_gemm backward at the train shape: dX = dY W^T "
+          f"{t_dx:.4f} ms, dW = X^T dY {t_dw:.4f} ms (same flops as the "
+          f"forward)")
+    row["max_abs_err"] = max(errs)
+    row["shape"] = ("x (32,5120,1024), w (32,1024,512) bf16; held at T 8, "
+                    "160, 5120 and the backward's dX, dW (errors x 1/sqrt(depth))")
+    return row
+
+
+def decode_attention_row(torch, dev, rnd, cpm):
+    """Decode over a contiguous cache, B 8, S 1024, cache_len 700, at
+    yi-6b's widths (the row) and granite's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+
+    B, S, L = 8, 1024, 700
+    errs = []
+    for label, H, HKV, D in (("granite", 16, 8, 64), ("yi-6b", 32, 4, 128)):
+        q, k, v = rnd(B, 1, H, D), rnd(B, S, HKV, D), rnd(B, S, HKV, D)
+        e, ok = err_within(ops.decode_attention(q, k, v, L),
+                           dec_ref.decode_ref(q, k, v, L), TOL)
+        check(ok, f"decode_attention ({label}) differs from the plain version")
+        errs.append(e)
+        g = H // HKV
+        qt = q.transpose(1, 2)
+        kr = k[:, :L].repeat_interleave(g, dim=2).transpose(1, 2)
+        vr = v[:, :L].repeat_interleave(g, dim=2).transpose(1, 2)
+        row = dict(
+            ms=median_ms(cpm, lambda: ops.decode_attention(q, k, v, L)),
+            plain_ms=median_ms(cpm, lambda: dec_ref.decode_ref(q, k, v, L)),
+            library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
+                qt, kr, vr)),
+            bound=bound(2 * B * L * HKV * D * 2 + 2 * q.numel() * 2,
+                        4 * B * L * H * D))
+        print(f"[kernels] decode_attention {label} q (8,1,{H},{D}), cache "
+              f"(8,1024,{HKV},{D}), cache_len 700: kernel {row['ms']:.4f} ms,"
+              f" plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} "
+              f"ms, bound {row['bound'][0]:.5f} ms ({row['bound'][1]})")
+    row["max_abs_err"] = max(errs)
+    row["shape"] = ("q (8,1,32,128), cache (8,1024,4,128) bf16, cache_len "
+                    "700; also held at (8,1,16,64) over 8 KV heads")
+    return row
+
+
 # ---------------------------------------------------------------------------
-# phase 4: serve yi-6b through the Engine
+# phase 4: serve yi-6b and granite-moe-1b-a400m through the Engine
 # ---------------------------------------------------------------------------
 
 
@@ -395,6 +647,58 @@ def serve_run(torch, dev, cfg, params, chunk, prompts, build):
           f"{ttft[-1]:.1f}); decode tick median "
           f"{decode_ms[len(decode_ms) // 2]:.2f} ms over {len(decode_ms)} "
           f"ticks; stats {eng.stats()}; launches {launches}")
+    return launches, [r.tokens for r in reqs]
+
+
+def contiguous_phase(torch, dev, cfg, params, prompts, streams, build):
+    """Each prompt alone through the contiguous path, as the JAX
+    package's ``_contiguous_greedy`` runs it: ``Model.prefill``
+    right-padded to 1024 positions, then 31 ``decode_step`` calls at a
+    scalar index, greedy.  Each stream is held against the engine's for
+    that prompt: where they part, the engine's token must be within
+    STREAM_LOGIT_TOL of the contiguous path's largest logit at that step.
+    Returns the launch counts of the run."""
+    from repro_torch.models.model import Model
+
+    model, cap, n_new = Model(cfg), 1024, 32
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    report = []
+    for prompt, engine_stream in zip(prompts, streams):
+        toks = torch.zeros((1, cap), dtype=torch.long, device=dev)
+        toks[0, :len(prompt)] = torch.tensor(prompt, device=dev)
+        logits, cache = model.prefill(
+            params, {"tokens": toks},
+            last_index=torch.tensor([len(prompt) - 1], device=dev))
+        out, parted = [], None
+        for i in range(n_new):
+            lg = logits[0].float()
+            out.append(int(torch.argmax(lg)))
+            if parted is None and out[-1] != engine_stream[i]:
+                parted = (i, float(lg.max() - lg[engine_stream[i]]))
+            if i + 1 < n_new:
+                logits, cache = model.decode_step(
+                    params, cache, torch.tensor([[out[-1]]], device=dev),
+                    len(prompt) + i)
+        report.append((len(prompt), parted))
+        if parted is not None:
+            check(parted[1] <= STREAM_LOGIT_TOL,
+                  f"contiguous and engine streams part at step {parted[0]} "
+                  f"with the engine's token {parted[1]:.4f} below the max")
+        check(all(0 <= t < cfg.vocab_size for t in out),
+              "contiguous stream has tokens outside the vocabulary")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"[serve] contiguous path, {len(prompts)} prompts alone (prefill "
+          f"right-padded to {cap}, then {n_new - 1} decode steps each) in "
+          f"{time.perf_counter() - t0:.2f} s; (prompt length, first step "
+          f"where the stream parts from the engine's and the engine token's "
+          f"logit gap, or None) {report}; launches {launches}")
+    want = cfg.n_layers * (n_new - 1) * len(prompts)
+    check(launches["decode_attention"] == want,
+          f"the contiguous path launched decode_attention "
+          f"{launches['decode_attention']} times, expected {want}")
     return launches
 
 
@@ -458,7 +762,8 @@ def teacher_force(torch, dev, cfg, params):
 
 def _rel_by_group(params, a, b):
     """Relative L2 error of gradient tree ``a`` against ``b``, per leaf
-    group: embedding, head, final norm, and each block module."""
+    group: embedding, head, final norm, each block module, and a MoE
+    FFN's router apart from its experts."""
     from repro_torch.models import params as P
     num, den = {}, {}
 
@@ -467,9 +772,12 @@ def _rel_by_group(params, a, b):
             for key in sorted(tree):
                 walk(tree[key], x[key], y[key], path + (key,))
             return
-        # ("embed", "tok") or ("blocks", "p0", "attn", "wq") -> blocks/attn
+        # ("embed", "tok") or ("blocks", "p0", "attn", "wq") -> blocks/attn;
+        # ("blocks", "p0", "moe", "w_in") -> blocks/moe/experts
         group = "/".join(path[:2] if path[0] == "embed"
                          else (path[0], path[2]))
+        if path[2:3] == ("moe",):
+            group += "/router" if path[3] == "router" else "/experts"
         num[group] = num.get(group, 0.0) + float((x - y).float().norm()) ** 2
         den[group] = den.get(group, 0.0) + float(y.float().norm()) ** 2
 
@@ -477,20 +785,20 @@ def _rel_by_group(params, a, b):
     return {g: round((num[g] / den[g]) ** 0.5, 5) for g in sorted(num)}
 
 
-def grad_check(torch, dev):
-    """yi-6b at full width and 2 layers, one 2 x 4096 batch: gradients
+def grad_check(torch, dev, arch):
+    """``arch`` at full width and 2 layers, one 2 x 4096 batch: gradients
     through the kernels (bf16), the plain versions (bf16) and the plain
     versions (float32).  The kernel path must be as close to float32 as
     the plain bf16 path is, within LOGIT_NOISE_FACTOR, in every group."""
     import dataclasses
 
-    from repro_torch.configs import TrainConfig, WorkloadShape, yi_6b
+    from repro_torch.configs import TrainConfig, WorkloadShape, registry
     from repro_torch.data import synthetic_batch
     from repro_torch.dist.steps import init_train_state
     from repro_torch.models import params as P
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(yi_6b.CONFIG, n_layers=2)
+    cfg = dataclasses.replace(registry.get(arch), n_layers=2)
     params = init_train_state(cfg, TrainConfig(), device=dev)["params"]
     batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
              synthetic_batch(cfg, WorkloadShape("chip", "train", 4096, 2)
@@ -519,6 +827,8 @@ def grad_check(torch, dev):
         check(k_f[group] <= LOGIT_NOISE_FACTOR * p_f[group],
               f"kernel-path gradients of {group} drift from f32 by "
               f"{k_f[group]}, plain bf16 by {p_f[group]}")
+    del got, params
+    torch.cuda.empty_cache()
 
 
 def step_table(prof, step_s):
@@ -549,6 +859,68 @@ def step_table(prof, step_s):
               f"{e.key[:70]}")
 
 
+def _check_history(history):
+    import math
+    for h in history:
+        print(f"[train] step {h['step']}: loss {h['loss']:.5f} (xent "
+              f"{h['xent']:.5f}, moe_aux {h['moe_aux']:.5f}) grad_norm "
+              f"{h['grad_norm']:.5f} step {h['step_time_s'] * 1e3:.1f} ms")
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"step {h['step']} is not finite")
+
+
+def train_granite(torch, dev, build):
+    """granite-moe-1b-a400m at full width and all 24 layers, 4 steps of
+    4 x 4096 tokens through the Trainer (the ``train_4k`` shape with its
+    batch of 256 cut to one card), the last one traced.  Returns the
+    launch counts of the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig, WorkloadShape, registry
+    from repro_torch.models.model import Model
+    from repro_torch.train import Trainer
+
+    cfg = registry.get("granite-moe-1b-a400m")
+    tcfg = TrainConfig()
+    shape = WorkloadShape("chip", "train", 4096, 4)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tcfg, shape, seed=0, device=dev)
+    t = time.perf_counter()
+    tr.init_or_resume()
+    torch.cuda.synchronize()
+    m = Model(cfg)
+    print(f"[train] {cfg.name}, all {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}: {m.n_params() / 1e9:.3f} B params "
+          f"({m.n_active_params() / 1e9:.3f} B active per token), float32 "
+          f"with AdamW state, drawn in {time.perf_counter() - t:.1f} s; "
+          f"batch {shape.global_batch} x {shape.seq_len}, {tcfg}")
+    build.reset_launches()
+    t = time.perf_counter()
+    tr.run(3, log_every=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(1, log_every=0)                   # step 3, traced
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _check_history(tr.history)
+    print(f"[train] 4 steps in {time.perf_counter() - t:.1f} s; peak device "
+          f"memory {peak:.2f} GB; launches {launches}")
+    step_table(prof, tr.history[-1]["step_time_s"])
+    L, steps = cfg.n_layers, 4
+    # per layer and step: 3 expert products forward, 3 again under remat,
+    # 2 per product backward
+    want = {"moe_gemm": 12 * L * steps, "flash_fwd": 2 * L * steps,
+            "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
+            "rmsnorm": (2 * 2 * L + 1) * steps}
+    for name, n in want.items():
+        check(launches[name] == n, f"granite train launched {name} "
+              f"{launches[name]} times, expected {n}")
+    del tr, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_phase(torch, dev, build):
     """yi-6b at full width and 8 of 32 layers, 4 steps of 2 x 4096 tokens
     through the Trainer, a checkpoint at step 2, then a fresh Trainer
@@ -556,7 +928,6 @@ def train_phase(torch, dev, build):
     the uninterrupted run."""
     import dataclasses
     import gc
-    import math
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -591,11 +962,7 @@ def train_phase(torch, dev, build):
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    for h in tr.history:
-        print(f"[train] step {h['step']}: loss {h['loss']:.5f} grad_norm "
-              f"{h['grad_norm']:.5f} step {h['step_time_s'] * 1e3:.1f} ms")
-        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
-              f"step {h['step']} is not finite")
+    _check_history(tr.history)
     save_s = t_save - t - sum(h["step_time_s"] for h in tr.history[:2])
     print(f"[train] 4 steps and one checkpoint in {time.perf_counter() - t:.1f}"
           f" s (the save at step 2, {save_s:.1f} s of it, host copy and npz "
@@ -665,42 +1032,59 @@ def main() -> int:
             print(f"[build]   {line.strip()}")
 
     rows = kernel_phase(torch, dev)
-
-    cfg = registry.get("yi-6b")
-    t = time.perf_counter()
-    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
-                             dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {Model(cfg).n_params() / 1e9:.2f} B params in "
-          f"bf16, drawn in {time.perf_counter() - t:.1f} s")
     import numpy as np
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(64, 513, 12)]
-    legacy = serve_run(torch, dev, cfg, params, 0, prompts, build)
-    chunked = serve_run(torch, dev, cfg, params, 256, prompts, build)
-    for name in ("rmsnorm", "flash_fwd", "paged_decode"):
-        check(legacy[name] > 0, f"legacy serve never launched {name}")
-    for name in ("rmsnorm", "paged_prefill", "paged_decode"):
-        check(chunked[name] > 0, f"chunked serve never launched {name}")
+    runs = []                       # launch counts of every main-path run
+
+    def serve_phase(arch):
+        """Both engine modes on ``arch`` at full size, then teacher-forced
+        logits; returns (params, prompts, legacy streams)."""
+        cfg = registry.get(arch)
+        t = time.perf_counter()
+        params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {Model(cfg).n_params() / 1e9:.2f} B params in "
+              f"bf16, drawn in {time.perf_counter() - t:.1f} s")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(64, 513, 12)]
+        legacy, streams = serve_run(torch, dev, cfg, params, 0, prompts, build)
+        chunked, _ = serve_run(torch, dev, cfg, params, 256, prompts, build)
+        moe = ("moe_gemm",) if cfg.moe is not None else ()
+        for name in ("rmsnorm", "flash_fwd", "paged_decode") + moe:
+            check(legacy[name] > 0, f"legacy serve never launched {name}")
+        for name in ("rmsnorm", "paged_prefill", "paged_decode") + moe:
+            check(chunked[name] > 0, f"chunked serve never launched {name}")
+        runs.extend([legacy, chunked])
+        teacher_force(torch, dev, cfg, params)
+        return cfg, params, prompts, streams
+
+    cfg, params, prompts, streams = serve_phase("yi-6b")
     tie = torch.zeros((2, 64000), dtype=torch.bfloat16, device=dev)
     tie[:, 5] = tie[:, 70] = 1.0
     check(torch.argmax(tie, dim=-1).tolist() == [5, 5],
           "argmax over bf16 logits must return the first maximal index")
-    teacher_force(torch, dev, cfg, params)
+    runs.append(contiguous_phase(torch, dev, cfg, params, prompts[:4],
+                                 streams[:4], build))
+    del params
+    torch.cuda.empty_cache()
+    params = serve_phase("granite-moe-1b-a400m")[1]
     del params
     torch.cuda.empty_cache()
 
-    grad_check(torch, dev)
-    train = train_phase(torch, dev, build)
+    grad_check(torch, dev, "yi-6b")
+    grad_check(torch, dev, "granite-moe-1b-a400m")
+    runs.append(train_phase(torch, dev, build))
+    runs.append(train_granite(torch, dev, build))
 
     kernels = []
     for name, r in rows.items():
+        launches = sum(run[name] for run in runs)
+        check(launches > 0, f"no main-path run launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": legacy[name] + chunked[name] + train[name],
+            "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})

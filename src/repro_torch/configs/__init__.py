@@ -1,4 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    SHAPES, ModelConfig, TrainConfig, WorkloadShape,
+    SHAPES, ModelConfig, MoEConfig, TrainConfig, WorkloadShape,
 )
 from repro_torch.configs.registry import ARCH_IDS, get, smoke  # noqa: F401

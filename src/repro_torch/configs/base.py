@@ -1,21 +1,39 @@
 """Model, workload and training configuration for the PyTorch port.
 
 Copies of the fields and properties of the JAX package's
-``configs/base.py`` that the dense serving and single-device training
-paths read: ``ModelConfig`` (with its optimizer choice),
-``WorkloadShape`` with ``SHAPES``, and ``TrainConfig``.  Field names and
-defaults match, so a config converts field for field.
+``configs/base.py`` that the dense and MoE decoders' serving and
+single-device training paths read: ``MoEConfig``, ``ModelConfig`` (with
+its optimizer choice), ``WorkloadShape`` with ``SHAPES``, and
+``TrainConfig``.  Field names and defaults match, so a config converts
+field for field.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings (token-choice top-k, capacity dispatch)."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # Apply MoE to every ``every``-th position of the block pattern (1 = all).
+    every: int = 1
+    # Arctic-style parallel dense residual FFN next to the MoE branch.
+    dense_residual: bool = False
+    d_ff_dense: int = 0
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense (the only family ported so far)
+    family: str                      # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,11 +46,15 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     rope_fraction: float = 1.0       # rotate this fraction of the head dim
     causal: bool = True
+    mlp_type: str = "swiglu"         # swiglu | gelu
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False
 
     # kinds cycle through this pattern; parameters are keyed "p{i}" by
     # position and stacked over n_repeats (attention-only so far)
     block_pattern: Tuple[str, ...] = ("attn",)
+
+    moe: Optional[MoEConfig] = None
 
     # optimizer choice (production default per arch)
     optimizer: str = "adamw"         # adamw | adafactor
@@ -60,11 +82,26 @@ class ModelConfig:
         return any(k in ("mamba", "mlstm", "slstm") for k in self.block_pattern)
 
     def n_params(self) -> int:
-        """Analytic parameter count of the dense decoder (embedding and
-        head, attention and SwiGLU weights; norm scales not counted)."""
+        """Analytic parameter count of an attention-only decoder, as the
+        JAX package counts it (embeddings once when tied; norm scales
+        not counted)."""
         d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
-        attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
-        return 2 * self.vocab_size * d + self.n_layers * (attn + 3 * d * self.d_ff)
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+
+        def mlp_params(dff: int) -> int:
+            return (3 if self.mlp_type == "swiglu" else 2) * d * dff
+
+        for i in range(self.pattern_len):
+            blk = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+            if self.moe is not None and (i % self.moe.every) == (self.moe.every - 1):
+                blk += self.moe.n_experts * mlp_params(self.moe.d_ff_expert)
+                blk += d * self.moe.n_experts                       # router
+                if self.moe.dense_residual:
+                    blk += mlp_params(self.moe.d_ff_dense)
+            else:
+                blk += mlp_params(self.d_ff)
+            total += blk * self.n_repeats
+        return total
 
 
 

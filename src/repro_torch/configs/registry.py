@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCH_IDS = ["yi-6b"]
+ARCH_IDS = ["yi-6b", "granite-moe-1b-a400m", "arctic-480b"]
 
 
 def _module(arch_id: str) -> str:

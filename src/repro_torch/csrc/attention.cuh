@@ -1,5 +1,5 @@
 // The online-softmax core shared by the port's attention kernels
-// (flash_fwd.cu, paged_attention.cu).
+// (flash_fwd.cu, paged_attention.cu, decode_attention.cu).
 //
 // A block of up to MAX_WARPS warps owns up to RW query rows per warp,
 // all of one KV head.  It walks the keys in tiles of TK = 32 positions:
@@ -144,6 +144,52 @@ __device__ void attend(Smem<D>& sm, const KV& kv, int kv_end, float scale,
 #pragma unroll
         for (int c = 0; c < NC; ++c) st.acc[r][c] = fmaf(pj, vj[c], st.acc[r][c]);
       }
+    }
+  }
+}
+
+// Rows that saw no key at all (flagged in `empty`; only a causal row
+// with a negative query offset can be one).  The plain version and the
+// JAX reference mask a score to -1e30 rather than dropping it, so such a
+// row's softmax is uniform over every key: its output is the mean of
+// V[0, kv_len) and its lse -1e30 + log(kv_len), which rounds to -1e30.
+// attend() gives it p = 0 everywhere, so this pass sums V for it; the
+// running max stays -1e30.  A block with no such row returns after one
+// barrier and changes nothing.  Every thread of the block must call it.
+template <int D, class KV>
+__device__ void attend_unseen(Smem<D>& sm, const KV& kv, int kv_len,
+                              const bool (&empty)[RW], Rows<D>& st) {
+  constexpr int VPR = D / 8;
+  constexpr int NC = D / 32;
+  const int lane = threadIdx.x & 31;
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) any |= empty[r];
+  if (!__syncthreads_or(any)) return;
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+    if (empty[r]) st.l[r] = (float)kv_len;
+  for (int t0 = 0; t0 < kv_len; t0 += TK) {
+    __syncthreads();           // the previous tile is consumed
+    for (int vi = threadIdx.x; vi < TK * VPR; vi += blockDim.x) {
+      const int j = vi / VPR, c = (vi % VPR) * 8, pos = t0 + j;
+      float vf[8];
+      if (pos < kv_len) {
+        unpack8(*reinterpret_cast<const uint4*>(kv.v + kv.offset(pos) + c), vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) vf[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sm.v[j][c + e] = vf[e];
+    }
+    __syncthreads();
+    for (int j = 0; j < TK; ++j) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+        if (empty[r])
+#pragma unroll
+          for (int c = 0; c < NC; ++c) st.acc[r][c] += sm.v[j][lane + 32 * c];
     }
   }
 }

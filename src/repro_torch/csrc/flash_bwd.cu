@@ -33,7 +33,14 @@
 // score tile (rows ty + 16 i, keys tx + 16 j) and then a 4 x D/16 patch
 // of the output tile.  p and ds stay f32, as in the Pallas kernels.
 // Masks are those of the Pallas kernels: kpos < Skv, qraw < Sq and,
-// when causal, kpos <= qraw + q_offset; a masked entry has p = 0.
+// when causal, kpos <= qraw + q_offset.  Outside the first two p = 0;
+// a score hidden by the causal mask is -1e30, as in the plain version,
+// so p = exp(-1e30 - lse), which is 0 unless the row sees no key at all
+// (causal with q_offset < 0).  Such a row's lse is -1e30 (flash_fwd gives
+// it the mean of V) and its p is 1 on every key, as in the plain
+// version's backward; the loops then take in every key for it.  On the
+// served and trained paths (q_offset = 0) every row sees key 0 and the
+// result does not change by a bit.
 #include "common.cuh"
 
 namespace repro {
@@ -42,6 +49,7 @@ namespace fbwd {
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
 constexpr int THREADS = 256;    // 16 x 16: (ty, tx)
+constexpr float NEG_INF = -1e30f;
 
 template <int D>
 struct DqSmem {
@@ -139,8 +147,13 @@ __device__ __forceinline__ void tile_p_ds(const float (*q)[D + 1], const float (
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kpos = k0 + tx + 16 * j;
-      const bool valid = kpos < Skv && qraw < Sq && (!causal || kpos <= qraw + q_offset);
-      p[i][j] = valid ? expf(s[i][j] * scale - lse[r]) : 0.f;
+      // two exps, not one exp of a selected score: selecting s * scale
+      // first would round it before the subtraction that it otherwise
+      // fuses into, and move a seen key's p by an ulp
+      const bool seen = !causal || kpos <= qraw + q_offset;
+      p[i][j] = kpos < Skv && qraw < Sq
+                    ? (seen ? expf(s[i][j] * scale - lse[r]) : expf(NEG_INF - lse[r]))
+                    : 0.f;
       ds[i][j] = p[i][j] * (dp[i][j] - delta[r]) * scale;
     }
   }
@@ -171,8 +184,10 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_stats(sm.lse, sm.delta, lse + (long long)b * Sq * H,
              delta + (long long)b * Sq * H, q0, Sq, H, h);
 
+  // a tile whose first row sees no key takes in every key (see above)
   int kv_end = Skv;
-  if (causal) kv_end = max(0, min(Skv, min(q0 + BQ, Sq) - 1 + q_offset + 1));
+  if (causal && q0 + q_offset >= 0)
+    kv_end = max(0, min(Skv, min(q0 + BQ, Sq) - 1 + q_offset + 1));
 
   float acc[4][NC];
 #pragma unroll
@@ -240,8 +255,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows<D, BK>(sm.k, k + kv_off, ks, k0, Skv);
   load_rows<D, BK>(sm.v, v + kv_off, ks, k0, Skv);
 
-  // the first query tile with a row that can see key k0
-  const int q_start = causal ? max(0, k0 - q_offset) / BQ * BQ : 0;
+  // the first query tile with a row that can see key k0; with q_offset
+  // < 0 the first rows see no key and take in every key (see above)
+  const int q_start = causal && q_offset >= 0 ? max(0, k0 - q_offset) / BQ * BQ : 0;
 
   float dk_acc[4][NC], dv_acc[4][NC];
 #pragma unroll

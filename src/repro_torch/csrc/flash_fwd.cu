@@ -19,7 +19,10 @@
 // shared memory.  Query head h reads KV head h / (H / Hkv) directly (no
 // KV repeat).  Under the causal mask the loop stops after the last key
 // any row of the tile can see (q_offset included), so tiles wholly above
-// the diagonal are never loaded; keys past Skv are never read.
+// the diagonal are never loaded; keys past Skv are never read.  A row
+// that sees no key (causal, i + q_offset < 0) gets the plain version's
+// answer, the mean of V (attend_unseen); on the served and trained
+// paths every row sees key 0 and that pass changes nothing.
 #include "attention.cuh"
 
 namespace repro {
@@ -56,6 +59,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   load_q<D>(sm, qrow);
   attend<D>(sm, kv, kv_end, scale, st);
+  bool empty[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) empty[r] = qrow[r] != nullptr && st.m[r] == NEG_INF;
+  attend_unseen<D>(sm, kv, Skv, empty, st);
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     const int i = q0 + warp * RW + r;

@@ -32,6 +32,10 @@
 //             rows (j >= n_valid) attend only filled keys: garbage the
 //             caller discards, never a read outside the pools or the
 //             block table.
+// Every row of both kernels sees key 0 (a decode slot attends its
+// length + 1 >= 1 keys, a chunk row at start + j >= 0 sees its causal
+// prefix), so no row is left with no visible key: flash_fwd's pass for
+// such rows (attend_unseen in attention.cuh) is not needed here.
 #include "attention.cuh"
 
 namespace repro {

@@ -28,7 +28,7 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     # x, w, out, rows, d, eps, stream
     "rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
@@ -51,11 +51,17 @@ SIGNATURES = {
     # B, Sq, Skv, H, Hkv, D, causal, q_offset, scale, stream
     "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, B, S, H, Hkv, D, cache_len, scale, stream
+    "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # a, b, out, E, M, N, K, a strides (e, m, k), b strides (e, k, n), stream
+    "moe_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                      _P],
 }
 
 # launches per kernel; a wrapper adds one only where its kernel launched
 LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "paged_decode": 0,
-            "paged_prefill": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "paged_prefill": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "moe_gemm": 0, "decode_attention": 0}
 
 _lib = None
 _lock = threading.Lock()

@@ -1,6 +1,8 @@
-"""Paged decode and paged chunk-prefill attention: the CUDA kernels
-(``csrc/paged_attention.cu``) for CUDA tensors, the plain versions
-(``ref.paged_decode_ref``, ``ref.paged_prefill_ref``) for CPU tensors."""
+"""Decode attention over a contiguous cache, paged decode and paged
+chunk-prefill attention: the CUDA kernels (``csrc/decode_attention.cu``,
+``csrc/paged_attention.cu``) for CUDA tensors, the plain versions
+(``ref.decode_ref``, ``ref.paged_decode_ref``, ``ref.paged_prefill_ref``)
+for CPU tensors."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +12,33 @@ from repro_torch.kernels.decode_attention import ref
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16                 # query heads per KV head in one decode block
+
+
+def decode_attention(q, k, v, cache_len, *, scale=None):
+    """q: (B, 1, H, D); k, v: (B, S, Hkv, D); cache_len: one number for
+    every row (an int, or a one-element tensor read once on the host),
+    at least 1.  Keys at or past ``cache_len`` are never read."""
+    if q.device.type == "cpu":
+        return ref.decode_ref(q, k, v, cache_len, scale=scale)
+    b, one, h, d = q.shape
+    _, s, hkv, _ = k.shape
+    if d not in HEAD_DIMS or h % hkv or h // hkv > MAX_GROUP or one != 1:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} over "
+                         f"{hkv} KV heads (one query row, head dim in "
+                         f"{HEAD_DIMS}, at most {MAX_GROUP} heads per KV "
+                         f"head)")
+    n = int(cache_len)
+    if n < 1:
+        raise ValueError(f"decode_attention: cache_len {n} < 1")
+    build.refuse_autograd("decode_attention", q, k, v)
+    build.check(q, "decode_attention q", torch.bfloat16)
+    build.check(k, "decode_attention k", torch.bfloat16, (b, s, hkv, d))
+    build.check(v, "decode_attention v", torch.bfloat16, (b, s, hkv, d))
+    out = torch.empty_like(q)
+    build.launch("decode_attention", "decode_attention_bf16", q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, s, h, hkv, d, n, float(scale or d ** -0.5))
+    return out
 
 
 def _check_pool(q, k_pages, v_pages, block_table, what):

@@ -7,11 +7,12 @@ takes the plain version on any device (the comparisons on the card);
 ``impl="cuda"`` insists on the kernel and raises for a CPU tensor.
 There is no fallback from a kernel to its plain version.
 
-``flash_attention`` and ``rmsnorm`` are differentiable on every route:
-the kernels through their ``torch.autograd.Function``s (flash attention
-with the ``flash_bwd`` kernels as its backward, rmsnorm with a plain
-float32 backward), the plain versions through ``ref.chunked``'s custom
-backward and autograd.
+``flash_attention``, ``rmsnorm`` and ``moe_gemm`` are differentiable on
+every route: the kernels through their ``torch.autograd.Function``s
+(flash attention with the ``flash_bwd`` kernels as its backward, rmsnorm
+with a plain float32 backward, the grouped GEMM with two launches of its
+own kernel), the plain versions through ``ref.chunked``'s custom backward
+and autograd.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from repro_torch.kernels.decode_attention import kernel as _dec
 from repro_torch.kernels.decode_attention import ref as _dec_ref
 from repro_torch.kernels.flash_attention import ops as _fa
 from repro_torch.kernels.flash_attention import ref as _fa_ref
+from repro_torch.kernels.moe_gemm import ops as _moe
+from repro_torch.kernels.moe_gemm import ref as _moe_ref
 from repro_torch.kernels.rmsnorm import ops as _rn
 from repro_torch.kernels.rmsnorm import ref as _rn_ref
 
@@ -44,6 +47,12 @@ def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
                                q_offset=q_offset)
 
 
+def decode_attention(q, k, v, cache_len, *, scale=None, impl=None):
+    if _plain(impl, q):
+        return _dec_ref.decode_ref(q, k, v, cache_len, scale=scale)
+    return _dec.decode_attention(q, k, v, cache_len, scale=scale)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
                            scale=None, impl=None):
     if _plain(impl, q):
@@ -66,3 +75,9 @@ def rmsnorm(x, weight, *, eps=1e-5, impl=None):
     if _plain(impl, x) or x.device.type == "cpu":
         return _rn_ref.rmsnorm_ref(x, weight, eps=eps)
     return _rn.rmsnorm(x, weight, eps=eps)
+
+
+def moe_gemm(x, w, *, impl=None):
+    if _plain(impl, x) or x.device.type == "cpu":
+        return _moe_ref.moe_gemm_ref(x, w)
+    return _moe.moe_gemm(x, w)

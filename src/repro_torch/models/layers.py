@@ -1,5 +1,6 @@
-"""Transformer layers of the dense decoder: RMSNorm, RoPE, GQA attention
-(prefill, paged decode, paged chunk prefill), SwiGLU, embed and logits.
+"""Transformer layers of the attention-only decoders: RMSNorm, RoPE, GQA
+attention (prefill, contiguous decode, paged decode, paged chunk
+prefill), the SwiGLU or GeLU MLP, embed and (optionally tied) logits.
 
 Each layer has ``*_defs(cfg)`` (the PDef schema, with the JAX package's
 key names and logical axes) and ``*_apply(cfg, params, ...)`` (the math
@@ -83,14 +84,17 @@ def _project_qkv(cfg, p, x):
 
 
 def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
-                    cache=None, paging: Optional[PagedView] = None,
-                    impl=None):
+                    cache=None, cache_index=None,
+                    paging: Optional[PagedView] = None, impl=None):
     """Self-attention.  Without ``cache``: the prompt prefill, returning
-    (out, (k, v)).  With ``cache`` (the page pools ``{"k", "v"}`` of one
-    layer) and ``paging``: paged decode (s == 1) or paged chunk prefill
-    (s > 1).  The port writes the new KV into the pools in place (the
-    JAX engine donates its pool, so the effect is the same) and returns
-    (out, (k_pool, v_pool))."""
+    (out, (k, v)).  With ``cache`` (one layer's ``{"k", "v"}``) and
+    ``paging`` (the cache is then the page pools): paged decode (s == 1)
+    or paged chunk prefill (s > 1).  With a contiguous cache (B, S, kv,
+    hd) and no ``paging``: decode of one token per row at the int
+    ``cache_index``.  The port writes the new KV into the cache in place
+    (the JAX package returns an updated copy and its engine donates the
+    old one, so the effect is the same) and returns (out, (k, v) of the
+    cache)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
@@ -99,8 +103,12 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
     if cache is None:                                   # prompt prefill
         out = ops.flash_attention(q, k, v, causal=causal, impl=impl)
         new_kv = (k, v)
-    elif paging is None:
-        raise NotImplementedError("contiguous-cache decode is not ported")
+    elif paging is None:                                # contiguous decode
+        ck, cv = cache["k"], cache["v"]
+        ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
+        cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
+        out = ops.decode_attention(q, ck, cv, cache_index + 1, impl=impl)
+        new_kv = (ck, cv)
     else:
         ck, cv = cache["k"], cache["v"]
         page_size = ck.shape[1]
@@ -135,25 +143,33 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
     return out, new_kv
 
 
-def mlp_defs(cfg: ModelConfig):
-    d, f = cfg.d_model, cfg.d_ff
-    return {"w_in": PDef((d, f), ("embed", "ff")),
-            "w_out": PDef((f, d), ("ff", "embed")),
-            "w_gate": PDef((d, f), ("embed", "ff"))}
+def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    defs = {"w_in": PDef((d, f), ("embed", "ff")),
+            "w_out": PDef((f, d), ("ff", "embed"))}
+    if cfg.mlp_type == "swiglu":
+        defs["w_gate"] = PDef((d, f), ("embed", "ff"))
+    return defs
 
 
 def mlp_apply(cfg: ModelConfig, p, x):
-    """SwiGLU."""
+    """SwiGLU, or GeLU (the tanh approximation, ``jax.nn.gelu``'s
+    default)."""
     h = x @ p["w_in"].to(x.dtype)
-    g = x @ p["w_gate"].to(x.dtype)
-    return (F.silu(g) * h) @ p["w_out"].to(x.dtype)
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["w_out"].to(x.dtype)
 
 
 def embed_defs(cfg: ModelConfig):
-    return {"tok": PDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
-                        init="normal", scale=0.02),
-            "head": PDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab")),
-            "final_norm": norm_defs(cfg)}
+    defs = {"tok": PDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                        init="normal", scale=0.02)}
+    if not cfg.tie_embeddings:
+        defs["head"] = PDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    defs["final_norm"] = norm_defs(cfg)
+    return defs
 
 
 def embed_apply(cfg: ModelConfig, p, tokens, dtype):
@@ -162,4 +178,6 @@ def embed_apply(cfg: ModelConfig, p, tokens, dtype):
 
 def logits_apply(cfg: ModelConfig, p, x, impl=None):
     x = norm_apply(cfg, p["final_norm"], x, impl=impl)
+    if cfg.tie_embeddings:
+        return x @ p["tok"].to(x.dtype).T
     return x @ p["head"].to(x.dtype)

@@ -1,5 +1,5 @@
 """Model facade: schema, init, train loss, prefill, chunk prefill, paged
-decode.
+and contiguous decode.
 
 As in the JAX package, parameters and caches are explicit trees (nested
 dicts of tensors) passed to every call; the ``Model`` holds the config
@@ -42,11 +42,25 @@ class Model(nn.Module):
     def n_params(self) -> int:
         return P.count_params(self.param_defs())
 
+    def n_active_params(self) -> int:
+        """Parameters one token runs through: a MoE position counts its
+        top-k experts only."""
+        cfg = self.cfg
+        total = self.n_params()
+        if cfg.moe is None:
+            return total
+        mc = cfg.moe
+        per_expert = mc.d_ff_expert * cfg.d_model * (
+            3 if cfg.mlp_type == "swiglu" else 2)
+        n_moe = sum(1 for i in range(cfg.n_layers)
+                    if transformer._pos_is_moe(cfg, i % cfg.pattern_len))
+        return total - (mc.n_experts - mc.top_k) * per_expert * n_moe
+
     # -------------------------------------------------------------- train
     def loss(self, params, batch: Dict, *, remat=True,
              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
-        """Mean next-token cross-entropy: (loss, {"loss", "xent",
-        "moe_aux"}); ``moe_aux`` is 0 for the dense decoder.
+        """Mean next-token cross-entropy plus the MoE aux loss: (loss,
+        {"loss", "xent", "moe_aux"}); ``moe_aux`` is 0 without MoE.
 
         The gold logit is gathered, not contracted with a one-hot as the
         JAX package does (there the contraction stays local under a
@@ -56,27 +70,27 @@ class Model(nn.Module):
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype)
-        x, _ = transformer.stack_apply(cfg, params["blocks"], x,
-                                       positions=positions, mode="train",
-                                       remat=remat, impl=self.impl)
+        x, _, aux = transformer.stack_apply(cfg, params["blocks"], x,
+                                            positions=positions, mode="train",
+                                            remat=remat, impl=self.impl)
         logits = layers.logits_apply(cfg, params["embed"], x,
                                      impl=self.impl).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             batch["labels"].long()[..., None])[..., 0]
         xent = (lse - gold).mean()
-        aux = torch.zeros((), dtype=torch.float32, device=xent.device)
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
     # ------------------------------------------------------------ forward
     def _trunk(self, params, tokens, positions, *, mode, compute_dtype,
-               caches=None, paging=None):
+               caches=None, cache_index=None, paging=None):
         cfg = self.cfg
         x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype)
-        x, new_caches = transformer.stack_apply(
+        x, new_caches, _ = transformer.stack_apply(
             cfg, params["blocks"], x, positions=positions, caches=caches,
-            mode=mode, paging=paging, impl=self.impl)
+            cache_index=cache_index, mode=mode, paging=paging,
+            impl=self.impl)
         return layers.logits_apply(cfg, params["embed"], x,
                                    impl=self.impl), new_caches
 
@@ -116,15 +130,23 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, params, caches, tokens, cache_index, *,
                     compute_dtype=torch.bfloat16, paging=None):
-        """One token per slot.  tokens (B, 1); cache_index (B,) per-slot
-        positions; caches the page pools of ``paged_cache_defs``.
-        Returns (logits (B, V), caches)."""
+        """One token per row.  tokens (B, 1).  With ``paging``: caches
+        are the page pools of ``paged_cache_defs`` and ``cache_index`` a
+        (B,) tensor of per-slot positions.  Without: caches are the
+        contiguous ``{"p{i}": {"k", "v"}}`` of (reps, B, S, kv, hd) that
+        ``prefill`` returns (a prompt right-padded to S) and
+        ``cache_index`` one position for every row, an int (a one-element
+        tensor is read once on the host).  The new KV is written in
+        place.  Returns (logits (B, V), caches)."""
+        s = tokens.shape[1]
         if paging is None:
-            raise NotImplementedError("only paged decode is ported")
-        positions = (cache_index.long()[:, None]
-                     + torch.arange(tokens.shape[1], device=tokens.device))
+            cache_index = int(cache_index)
+            positions = cache_index + torch.arange(s, device=tokens.device)
+        else:
+            positions = (cache_index.long()[:, None]
+                         + torch.arange(s, device=tokens.device))
         logits, caches = self._trunk(params, tokens, positions,
                                      mode="decode", caches=caches,
-                                     paging=paging,
+                                     cache_index=cache_index, paging=paging,
                                      compute_dtype=compute_dtype)
         return logits[:, -1], caches

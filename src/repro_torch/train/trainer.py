@@ -65,6 +65,8 @@ class Trainer:
                 loss = float(metrics["loss"])          # waits for the step
                 dt = time.perf_counter() - t0
                 rec = {"step": i, "loss": loss,
+                       "xent": float(metrics["xent"]),
+                       "moe_aux": float(metrics["moe_aux"]),
                        "grad_norm": float(metrics["grad_norm"]),
                        "step_time_s": dt}
                 self.history.append(rec)

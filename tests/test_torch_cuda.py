@@ -9,7 +9,10 @@ Without a CUDA device each test skips with its reason.  Tolerance:
 kernel tests (one rounding of a bf16 output after f32 sums taken in
 another order).  flash_bwd's gradients are also held as whole tensors,
 ||kernel - plain|| <= 1e-2 * ||plain||, which holds the bulk of small
-gradients that the per-element limit lets through.
+gradients that the per-element limit lets through.  The grouped GEMM
+sums D products per output: |kernel - plain| <= 2e-2 * (1 + |plain|)
+after scaling both by 1 / sqrt(D), the size of such a sum of unit
+products.
 """
 import pytest
 
@@ -19,6 +22,8 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import kernel as moe_kernel  # noqa: E402
+from repro_torch.kernels.moe_gemm import ref as moe_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 
 TOL = 2e-2
@@ -199,3 +204,144 @@ def test_raw_wrappers_refuse_grad_and_strided_grads_are_made_dense(dev):
     out = ops.flash_attention(q, k, k).reshape(1, 16, 256) @ w
     out.sum().backward()
     assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
+
+
+# ---------------------------------------------------------------------------
+# head dim 64 (granite-moe-1b-a400m: 16 heads over 8 KV heads)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,hkv", [(1, 300, 16, 8), (2, 129, 16, 8)])
+def test_attention_kernels_at_head_dim_64(dev, b, sq, h, hkv):
+    q, k, v, do = _bwd_inputs(dev, b, sq, sq, h, hkv, 64)
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
+    ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=True)
+    _close(out, ref_out)
+    _close(lse, ref_lse, 1e-3)
+    got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa_ref.bwd(q, k, v, out, lse, do, causal=True)
+    for g, w in zip(got, want):
+        _close(g, w)
+        assert float((g.float() - w.float()).norm() / w.float().norm()) \
+            <= REL_L2_TOL
+    kp, vp = _pool(dev, hkv=hkv, d=64)
+    bt = torch.randperm(39, device=dev)[:36].add(1).to(torch.int32).reshape(3, 12)
+    lens = torch.tensor([1, 100, 192], dtype=torch.int32, device=dev)
+    qd = _rnd(dev, 3, 1, h, 64, seed=7)
+    _close(ops.paged_decode_attention(qd, kp, vp, bt, lens),
+           dec_ref.paged_decode_ref(qd, kp, vp, bt, lens))
+    qc = _rnd(dev, 1, 24, h, 64, seed=8)
+    st = torch.tensor([100], dtype=torch.int32, device=dev)
+    nv = torch.tensor([20], dtype=torch.int32, device=dev)
+    got = ops.paged_prefill_attention(qc, kp, vp, bt[:1], st, nv)
+    want = dec_ref.paged_prefill_ref(qc, kp, vp, bt[:1], st, nv)
+    _close(got[:, :20], want[:, :20])
+
+
+# ---------------------------------------------------------------------------
+# rows that see no key (causal, q_offset < 0)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,qo", [
+    (2, 70, 90, 8, 2, 128, -3), (1, 130, 100, 16, 8, 64, -70),
+    (1, 33, 65, 2, 2, 64, -40)])
+def test_rows_that_see_no_key(dev, b, sq, skv, h, hkv, d, qo):
+    """The first -q_offset query rows see no key: forward (the mean of V,
+    lse -1e30) and backward as the plain version, which is the JAX
+    reference's (scores masked at -1e30, not dropped).  Such a row has
+    p = 1 on every key, so its dq (and the dk it adds to every key) is a
+    sum of Skv terms of size ~1 that cancel: the plain version's bf16
+    rounding of ds (2^-9 each) moves it by more than the per-element
+    limit (its own float32 run shows it).  The kernels keep ds in f32, so
+    they are held per element against the plain version run in float32
+    on the same inputs, and as whole tensors against the bf16 one."""
+    q, k, v, do = _bwd_inputs(dev, b, sq, skv, h, hkv, d)
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=True, q_offset=qo)
+    ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=True, q_offset=qo)
+    _close(out, ref_out)
+    _close(lse, ref_lse, 1e-3)
+    assert bool((lse[:, :-qo] == -1e30).all())
+    mean_v = v.float().mean(1).repeat_interleave(h // hkv, dim=1)
+    _close(out[:, 0], mean_v)
+    got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True, q_offset=qo)
+    want = fa_ref.bwd(q, k, v, out, lse, do, causal=True, q_offset=qo)
+    want32 = fa_ref.bwd(q.float(), k.float(), v.float(), out.float(), lse,
+                        do.float(), causal=True, q_offset=qo)
+    for g, w, w32 in zip(got, want, want32):
+        _close(g, w32)
+        assert float((g.float() - w.float()).norm() / w.float().norm()) \
+            <= REL_L2_TOL
+
+
+# ---------------------------------------------------------------------------
+# decode attention over a contiguous cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (8, 8, 64),
+                                     (16, 1, 128)])
+@pytest.mark.parametrize("cache_len", [1, 37, 700])
+def test_decode_attention_kernel(dev, h, hkv, d, cache_len):
+    q = _rnd(dev, 3, 1, h, d, seed=1)
+    k, v = _rnd(dev, 3, 1024, hkv, d, seed=2), _rnd(dev, 3, 1024, hkv, d, seed=3)
+    build.reset_launches()
+    got = ops.decode_attention(q, k, v, cache_len)
+    assert build.LAUNCHES["decode_attention"] == 1
+    _close(got, dec_ref.decode_ref(q, k, v, cache_len))
+    # keys past cache_len are never read: poisoning them changes nothing
+    k[:, cache_len:] = float("nan")
+    v[:, cache_len:] = float("nan")
+    assert torch.equal(ops.decode_attention(q, k, v, cache_len), got)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, k, v, 0)
+
+
+# ---------------------------------------------------------------------------
+# the grouped expert GEMM
+# ---------------------------------------------------------------------------
+
+
+def _moe_close(got, want, d):
+    s = d ** -0.5
+    _close(got.float() * s, want.float() * s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,t,d,f", [
+    (4, 1, 64, 96), (4, 5, 300, 96), (4, 130, 64, 96), (3, 77, 129, 33),
+    (32, 8, 1024, 512), (32, 160, 1024, 512), (32, 80, 512, 1024)])
+def test_moe_gemm_kernel(dev, e, t, d, f):
+    x, w = _rnd(dev, e, t, d, seed=1), _rnd(dev, e, d, f, seed=2)
+    build.reset_launches()
+    got = ops.moe_gemm(x, w)
+    assert build.LAUNCHES["moe_gemm"] == 1 and got.shape == (e, t, f)
+    _moe_close(got, moe_ref.moe_gemm_ref(x, w), d)
+    # strided operands: the transposed views the backward passes
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    wt = w.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(moe_kernel.moe_gemm(xt, wt), got)
+    # and a view that no 16-byte load can take
+    xs = _rnd(dev, e, t, d + 1, seed=3)[..., 1:]
+    _moe_close(moe_kernel.moe_gemm(xs, w), moe_ref.moe_gemm_ref(xs, w), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,t,d,f", [(4, 130, 64, 96), (3, 77, 129, 33),
+                                     (32, 320, 1024, 512)])
+def test_moe_gemm_backward_launches_the_kernel_twice(dev, e, t, d, f):
+    x, w = _rnd(dev, e, t, d, seed=1), _rnd(dev, e, d, f, seed=2)
+    dy = _rnd(dev, e, t, f, seed=3)
+    grads = []
+    for impl in (None, "ref"):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = ops.moe_gemm(xl, wl, impl=impl)
+        build.reset_launches()
+        grads.append(torch.autograd.grad(out, (xl, wl), dy))
+        if impl is None:
+            assert build.LAUNCHES["moe_gemm"] == 2
+    _moe_close(grads[0][0], grads[1][0], f)          # dX sums over F
+    _moe_close(grads[0][1], grads[1][1], t)          # dW sums over T

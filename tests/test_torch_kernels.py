@@ -359,6 +359,57 @@ def test_paged_prefill_rows_equal_flash_chunked_bitwise(h, hkv, start, valid):
     assert torch.equal(out[:, :valid], whole[:, :valid])
 
 
+@pytest.mark.parametrize("smax,fill", [(96, 96), (96, 40), (64, 1),
+                                       (600, 517)])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_matches_jax_ref_and_pallas(smax, fill, h, hkv, dt):
+    """The facade's contiguous decode (the plain version on the CPU)
+    against the JAX ref and the Pallas decode kernel in interpret mode,
+    which walks the cache in blocks of 512 and skips those past the
+    fill (600 positions: a ragged second block)."""
+    _, jdt, tdt, tol = DTYPES[dt]
+    q, k, v = _qkv(2, 1, smax, h, hkv, 64, seed=5)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, jdt, tdt) for a in (q, k, v))
+    out = ops.decode_attention(qt, kt, vt, fill)
+    assert out.dtype == tdt and out.shape == qt.shape
+    _close(out, jdec.decode_ref(qj, kj, vj, fill), tol)
+    _close(out, jops.decode_attention(qj, kj, vj, fill, impl="interpret"),
+           tol)
+
+
+# ---------------------------------------------------------------------------
+# rows that see no key (causal, negative q_offset)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rows_that_see_no_key_match_jax_chunked(dt):
+    """At q_offset = -3 the first three query rows see no key.  The JAX
+    reference masks their scores at -1e30, so each such row's output is
+    the mean of V; the plain version (which the CUDA kernels are held to
+    on the card) gives the same forward and gradients."""
+    _, jdt, tdt, tol = DTYPES[dt]
+    b, sq, skv, h, hkv, d = 2, 20, 24, 4, 2, 32
+    q, k, v = _qkv(b, sq, skv, h, hkv, d, seed=6)
+    do = np.random.default_rng(7).standard_normal((b, sq, h, d), np.float32)
+    (qj, qt), (kj, kt), (vj, vt), (dj, dtt) = (
+        _both(a, jdt, tdt) for a in (q, k, v, do))
+    kw = dict(causal=True, q_offset=-3)
+    jout, jvjp = jax.vjp(lambda *a: jfa.chunked(*a, **kw), qj, kj, vj)
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    out = ops.flash_attention(*leaves, **kw)
+    _close(out.detach(), jout, tol)
+    mean_v = v.mean(axis=1).repeat(h // hkv, axis=1)         # (b, h, d)
+    for i in range(3):
+        _close(out[:, i].detach(), mean_v, tol)
+    for g, jg in zip(torch.autograd.grad(out, leaves, dtt), jvjp(dj)):
+        _close(g, jg, tol)
+    # the raw forward's lse for such a row is -1e30, as the reference's
+    _, lse = tfa.fwd(qt, kt, vt, **kw)
+    assert bool((lse[:, :3] == -1e30).all())
+
+
 # ---------------------------------------------------------------------------
 # facade dispatch
 # ---------------------------------------------------------------------------
@@ -380,9 +431,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
 def test_kernel_sources_are_present_and_hashed():
     names = {p.name for p in build.CSRC.glob("*.cu")}
     assert {"rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu",
-            "paged_attention.cu"} <= names
-    assert {"flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"} <= set(build.SIGNATURES)
-    assert {"flash_bwd_dq", "flash_bwd_dkv"} <= set(build.LAUNCHES)
+            "paged_attention.cu", "decode_attention.cu",
+            "moe_gemm.cu"} <= names
+    assert {"flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+            "decode_attention_bf16", "moe_gemm_bf16"} <= set(build.SIGNATURES)
+    assert {"flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+            "moe_gemm"} <= set(build.LAUNCHES)
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path()          # stable for one tree

@@ -20,7 +20,8 @@ from repro.configs import registry as jreg  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro.configs.base import MoEConfig as JMoEConfig  # noqa: E402
+from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models.layers import PagedView, apply_rope  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
@@ -57,6 +58,18 @@ def test_smoke_config_is_a_field_for_field_copy():
     assert treg.get("yi-6b").n_params() == jreg.get("yi-6b").n_params()
     with pytest.raises(KeyError):
         treg.get("qwen2-72b")
+    # MoEConfig is copied whole, fields and defaults in order
+    assert [(f.name, f.default) for f in dataclasses.fields(MoEConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(JMoEConfig)]
+    for arch in ("yi-6b", "granite-moe-1b-a400m", "arctic-480b"):
+        for get in ("get", "smoke"):
+            t, j = getattr(treg, get)(arch), getattr(jreg, get)(arch)
+            for f in dataclasses.fields(ModelConfig):
+                a, b = getattr(t, f.name), getattr(j, f.name)
+                if f.name == "moe" and a is not None:
+                    a, b = dataclasses.astuple(a), dataclasses.astuple(b)
+                assert a == b, (arch, get, f.name)
+            assert t.n_params() == j.n_params(), (arch, get)
 
 
 def test_param_defs_mirror_the_jax_schema():
@@ -216,3 +229,70 @@ def test_prefill_chunk_matches_jax(params, dtype, start, n_valid):
         np.testing.assert_allclose(_np(tnew["p0"][n][:, 1:]),
                                    _np(jnew["p0"][n][:, 1:]),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the contiguous prefill-then-decode path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_contiguous_decode_steps_match_jax(params, dtype):
+    """Right-padded prefill (the JAX ``_contiguous_greedy`` recipe), then
+    decode steps at a scalar ``cache_index`` writing the contiguous cache
+    in place: logits and caches against the JAX package's."""
+    jp, tp = params
+    toks = np.random.default_rng(5).integers(0, CFG.vocab_size, (2, 16))
+    toks[:, 9:] = 0
+    last = np.array([8, 8])
+    jl, jc = JModel(JCFG).prefill(jp, {"tokens": jnp.asarray(toks)},
+                                  compute_dtype=JDT[dtype],
+                                  last_index=jnp.asarray(last))
+    tl, tc = Model(CFG).prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                compute_dtype=dtype,
+                                last_index=torch.from_numpy(last))
+    for i in range(4):
+        nxt = np.argmax(_np(jl), -1)[:, None]
+        jl, jc = JModel(JCFG).decode_step(jp, jc, jnp.asarray(nxt),
+                                          jnp.int32(9 + i),
+                                          compute_dtype=JDT[dtype])
+        cache = tc
+        tl, tc = Model(CFG).decode_step(tp, tc, torch.from_numpy(nxt),
+                                        torch.tensor(9 + i),
+                                        compute_dtype=dtype)
+        assert tc is cache                 # written in place
+        np.testing.assert_allclose(_np(tl), _np(jl), rtol=TOL[dtype],
+                                   atol=TOL[dtype], err_msg=f"step {i}")
+    for n in ("k", "v"):
+        np.testing.assert_allclose(_np(tc["p0"][n]), _np(jc["p0"][n]),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_contiguous_greedy_stream_equals_the_paged_engine():
+    """The port against itself in float32: each prompt alone through the
+    contiguous path gives the stream the paged engine gives it."""
+    from repro_torch.serve import Engine, EngineConfig
+    tp = Model(CFG).init(torch.Generator().manual_seed(1), device="cpu")
+    prompts, gen, cap = [[5, 9, 2, 7, 1], [3, 3, 8], [11, 4, 6, 2, 9, 13, 7]], 7, 32
+    eng = Engine(CFG, EngineConfig(n_slots=2, page_size=4, max_seq_len=cap,
+                                   max_prompt_len=8),
+                 params=tp, device="cpu", compute_dtype=torch.float32)
+    reqs = [eng.submit(p, max_new_tokens=gen) for p in prompts]
+    eng.run()
+    model = Model(CFG)
+    for prompt, req in zip(prompts, reqs):
+        toks = torch.zeros((1, cap), dtype=torch.long)
+        toks[0, :len(prompt)] = torch.tensor(prompt)
+        logits, cache = model.prefill(tp, {"tokens": toks},
+                                      compute_dtype=torch.float32,
+                                      last_index=torch.tensor([len(prompt) - 1]))
+        # the engine's pool holds bf16 KV: so does this cache
+        cache = P.tree_map(lambda t: t.to(torch.bfloat16), cache)
+        out = [int(torch.argmax(logits[0]))]
+        for i in range(gen - 1):
+            logits, cache = model.decode_step(
+                tp, cache, torch.tensor([[out[-1]]]), len(prompt) + i,
+                compute_dtype=torch.float32)
+            out.append(int(torch.argmax(logits[0])))
+        assert out == req.tokens, (prompt, out, req.tokens)

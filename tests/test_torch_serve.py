@@ -310,6 +310,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "models" / "moe.py", port / "kernels" / "moe_gemm" / "ops.py",
+            port / "kernels" / "moe_gemm" / "kernel.py",
+            port / "kernels" / "moe_gemm" / "ref.py",
+            port / "configs" / "granite_moe_1b_a400m.py",
+            port / "configs" / "arctic_480b.py"} <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
