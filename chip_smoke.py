@@ -8,7 +8,8 @@ Phases, each printing its own lines:
 1. device  - ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build   - nvcc builds every kernel from ``src/repro_torch/csrc``;
 3. kernels - each CUDA kernel against its plain PyTorch version at the
-             shapes the served and trained paths give it, in bf16: max
+             shapes the served, trained and synced paths give it (bf16
+             within tolerances, int8 quantize exactly): max
              error against the stated tolerance, and CUDA-event medians
              of the kernel, the plain version and one PyTorch library
              call, beside the least time the card could take.  The
@@ -33,7 +34,16 @@ Phases, each printing its own lines:
              bf16 compute, remat) with the launch counts read around the
              run and a checkpoint saved at step 2, restored into a fresh
              Trainer and stepped on to 4; then granite-moe-1b-a400m at
-             full width and all 24 layers trained 4 steps, batch 4 x 4096.
+             full width and all 24 layers trained 4 steps, batch 4 x 4096;
+6. comm    - granite-moe-1b-a400m at full width and 8 of its 24 layers,
+             4 steps of 4 x 4096 tokens: on one device with grad_accum=4,
+             then on four ranks of the one card (spawned processes, gloo,
+             a (pod=2, data=2) mesh, one row each) under hierarchical
+             sync and under int8 error-feedback sync (both comm_strict):
+             losses against the one-device run, the quantize kernels'
+             launches per step, a traced compressed step on rank 0, and
+             one sync of a gradient of the largest leaf's shape against
+             its exact mean.
 
 Then the ``kernels`` JSON line, the card's line, and the result line.
 Any failure raises and exits non-zero; without CUDA, or without the port
@@ -42,6 +52,7 @@ beside this file, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -49,9 +60,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s
+# peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s,
+# float32 flop/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
+F32_FLOPS_S = 67e12
 # kernel vs plain version, bf16 outputs: |a - b| <= TOL * (1 + |b|).  Both
 # round once to bf16 after f32 sums taken in another order (and the plain
 # attention rounds p to bf16 before p @ v, the kernel does not), so they
@@ -87,6 +100,21 @@ STREAM_LOGIT_TOL = 3e-2
 # sums with atomics, so the last bits may differ)
 RESUME_RTOL = 1e-4
 
+# the comm phase (four ranks on one card, gloo): hier's losses against one
+# device's grad_accum=4 run over the same rows (only the float32 order of
+# the sync's sums differs, and a flipped bf16 rounding or MoE route can
+# follow from it)
+COMM_RTOL = 1e-4
+# hier-int8's losses against hier's at steps 1-3: int8 with error
+# feedback moves each synced gradient value by at most one quantum of its
+# block (1/127 of its absmax), and AdamW's step is bounded by the learning
+# rate whatever the gradient, so three steps move the loss far less than 1%
+COMPRESS_RTOL = 1e-2
+COMM_LAYERS = 8             # of granite's 24: four ranks of all 24 need ~150 GB
+COMM_STEPS = 4
+COMM_TIMEOUT_S = 300        # each collective (gloo's own timeout)
+COMM_DEADLINE_S = 900       # the whole phase, children included
+
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:27",
     "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:86",
@@ -96,6 +124,8 @@ REPLACES = {
     "flash_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:249",
     "moe_gemm": "src/repro/kernels/moe_gemm/kernel.py:39",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:62",
+    "quantize": "src/repro/kernels/quantize/kernel.py:40",
+    "dequantize": "src/repro/kernels/quantize/kernel.py:61",
 }
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
@@ -106,6 +136,8 @@ SOURCES = {
     "flash_bwd_dkv": "src/repro_torch/csrc/flash_bwd.cu",
     "moe_gemm": "src/repro_torch/csrc/moe_gemm.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "quantize": "src/repro_torch/csrc/quantize.cu",
+    "dequantize": "src/repro_torch/csrc/quantize.cu",
 }
 
 
@@ -155,8 +187,8 @@ def median_ms(cycles_per_ms, fn, n=10, reps=7):
     return times[len(times) // 2]
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
+def bound(nbytes, flops, flops_s=BF16_FLOPS_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flops_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -373,12 +405,16 @@ def kernel_phase(torch, dev):
     unseen_rows(torch, dev, rows_out, rnd)
     rows_out["moe_gemm"] = moe_gemm_row(torch, dev, rnd, cpm)
     rows_out["decode_attention"] = decode_attention_row(torch, dev, rnd, cpm)
+    rows_out.update(quantize_rows(torch, dev, cpm))
 
     for name, r in rows_out.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        tol = r.get("tol", f"{TOL} x (1+|ref|)")
         print(f"[kernels] {name}: {r['shape']}: max_abs_err "
-              f"{r['max_abs_err']:.3g} (tol {TOL} x (1+|ref|)) "
+              f"{r['max_abs_err']:.3g} (tol {tol}) "
               f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {r['library_ms']:.4f} ms  bound {r['bound'][0]:.4f} "
+              f"library {lib}  bound {r['bound'][0]:.4f} "
               f"ms ({r['bound'][1]})")
     return rows_out
 
@@ -606,6 +642,72 @@ def decode_attention_row(torch, dev, rnd, cpm):
     return row
 
 
+def quantize_rows(torch, dev, cpm):
+    """The int8 quantize and dequantize kernels against their plain
+    versions, exactly (``torch.equal``), at the largest payloads of the
+    comm phase's compressed sync: quantize gets a rank's shard of
+    granite's largest leaf (8 x 32 x 1024 x 512 values, halved over the
+    data axis) as (262144, 256) rows; dequantize gets both pods' codes of
+    it at once, (524288, 256), and is also held at (262144, 256).  Each
+    input has a zero row (scale 1.0) and a row of ties at .5 (amax 127,
+    scale 1.0).  No single PyTorch call computes the scales, so quantize
+    has no library time; ``torch.mul`` of the int8 codes and the scales
+    computes dequantize in one call."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quantize import ref as q_ref
+
+    g = torch.Generator(device=dev).manual_seed(77)
+    out, errs = {}, [0.0, 0.0]
+    for rows in (262144, 524288):
+        x = torch.randn((rows, 256), generator=g, device=dev) * 1e-3
+        x[5] = 0.0
+        x[1] = torch.rand(256, generator=g, device=dev) * 200 - 100
+        x[1, :6] = torch.tensor([127.0, 2.5, 3.5, -0.5, -1.5, 0.5])
+        codes, scales = ops.quantize_int8(x)
+        want_c, want_s = q_ref.quantize_int8_ref(x, block=256)
+        check(torch.equal(codes, want_c) and torch.equal(scales, want_s),
+              f"quantize ({rows}, 256) differs from the plain version")
+        check(codes[1, :6].tolist() == [127, 2, 4, 0, -2, 0]
+              and float(scales[5]) == 1.0,
+              "quantize rounds ties or zero rows unlike the reference")
+        deq = ops.dequantize_int8(codes, scales)
+        want_d = q_ref.dequantize_int8_ref(codes, scales)
+        check(torch.equal(deq, want_d),
+              f"dequantize ({rows}, 256) differs from the plain version")
+        n = x.numel()
+        err = max(float((codes.int() - want_c.int()).abs().max()),
+                  float((scales - want_s).abs().max()))
+        errs[0] = max(errs[0], err)
+        errs[1] = max(errs[1], float((deq - want_d).abs().max()))
+        if rows == 262144:
+            # per value: abs, max, divide, round, clamp (2): 6 f32 operations
+            out["quantize"] = dict(
+                max_abs_err=0.0, tol="exact",
+                ms=median_ms(cpm, lambda: ops.quantize_int8(x)),
+                plain_ms=median_ms(cpm, lambda: q_ref.quantize_int8_ref(
+                    x, block=256)),
+                library_ms=None,
+                bound=bound(4 * n + n + 4 * rows, 6 * n, F32_FLOPS_S),
+                shape="x (262144, 256) f32 -> int8 codes, f32 scales; also "
+                      "held at (524288, 256)")
+        else:
+            sc = scales[:, None]
+            out["dequantize"] = dict(
+                max_abs_err=0.0, tol="exact",
+                ms=median_ms(cpm, lambda: ops.dequantize_int8(codes,
+                                                              scales)),
+                plain_ms=median_ms(cpm, lambda: q_ref.dequantize_int8_ref(
+                    codes, scales)),
+                library_ms=median_ms(cpm, lambda: torch.mul(codes, sc)),
+                bound=bound(n + 4 * rows + 4 * n, n, F32_FLOPS_S),
+                shape="codes (524288, 256) int8, scales f32 -> f32; also "
+                      "held at (262144, 256)")
+        del x, codes, scales, deq, want_c, want_s, want_d
+    out["quantize"]["max_abs_err"] = errs[0]
+    out["dequantize"]["max_abs_err"] = errs[1]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve yi-6b and granite-moe-1b-a400m through the Engine
 # ---------------------------------------------------------------------------
@@ -831,13 +933,15 @@ def grad_check(torch, dev, arch):
     torch.cuda.empty_cache()
 
 
-def step_table(prof, step_s):
+def step_table(prof, step_s, tag="train"):
     """Device time of one traced train step by kernel, and the share of
     the step's host-clock time in which the card ran none (one stream,
     so kernels do not overlap).  Only device rows count: an operator row
     (``aten::mm``, the ``FlashAttention`` Function) repeats the time of
-    the kernels it launched, and CUPTI's "Command Buffer Full" records a
-    full launch queue, not device work."""
+    the kernels it launched, a user annotation on the device (gloo's
+    ``gloo:all_gather`` around its copies) the time of what it spans,
+    and CUPTI's "Command Buffer Full" records a full launch queue, not
+    device work."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
@@ -846,15 +950,16 @@ def step_table(prof, step_s):
 
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and e.key != "Command Buffer Full"),
                   key=dev_us, reverse=True)
     busy = max(sum(dev_us(e) for e in rows) / 1e6, 1e-9)
-    print(f"[train] traced step: {step_s * 1e3:.1f} ms on the host clock "
+    print(f"[{tag}] traced step: {step_s * 1e3:.1f} ms on the host clock "
           f"(under the profiler), card busy {busy * 1e3:.1f} ms, idle "
           f"share {max(0.0, 1 - busy / step_s):.3f}; device time by "
           f"kernel:")
     for e in rows[:12]:
-        print(f"[train]   {dev_us(e) / 1e3:10.2f} ms "
+        print(f"[{tag}]   {dev_us(e) / 1e3:10.2f} ms "
               f"{100 * dev_us(e) / 1e6 / busy:5.1f}%  {e.count:6d} calls  "
               f"{e.key[:70]}")
 
@@ -1001,6 +1106,293 @@ def train_phase(torch, dev, build):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: data-parallel training with hierarchical int8 gradient sync
+# ---------------------------------------------------------------------------
+
+
+def _comm_setup():
+    """granite-moe-1b-a400m at COMM_LAYERS layers, train_4k (seq 4096) at
+    a global batch of 4, and the two strategies of the comm phase."""
+    import dataclasses
+
+    from repro_torch.configs import (SHAPES, ShardingStrategy, WorkloadShape,
+                                     registry)
+
+    cfg = dataclasses.replace(registry.get("granite-moe-1b-a400m"),
+                              n_layers=COMM_LAYERS)
+    shape = WorkloadShape("train_4k", "train", SHAPES["train_4k"].seq_len, 4)
+    strategies = {
+        "hier": ShardingStrategy(name="hier", hierarchical_collectives=True,
+                                 comm_strict=True),
+        "hier-int8": ShardingStrategy(
+            name="hier-int8", hierarchical_collectives=True,
+            compress_cross_pod=True, compress_pods=2, compress_block=256,
+            comm_strict=True)}
+    return cfg, shape, strategies
+
+
+def _function_sync(torch, dist, mesh, strategy, dev):
+    """One random stacked gradient of the largest leaf's shape, (1, 8, 32,
+    1024, 512) float32 on each rank (its own seed), through ``sync_grads``
+    under ``strategy`` with a zero residual: the largest error against the
+    exact mean and its bound (2 max|exact| / 127, the JAX test's), and the
+    residual identity's largest violation beyond rtol 1e-4, atol 1e-6:
+    the pods' new residuals sum to what they sent (their pod-mean
+    payloads) less what crossed (2 x the synced mean)."""
+    from repro_torch import comm
+    from repro_torch.models.params import PDef
+
+    shape = (1, 8, 32, 1024, 512)
+
+    def chunk(r):
+        g = torch.Generator(device=dev).manual_seed(1000 + r)
+        return torch.randn(shape, generator=g, device=dev)
+
+    defs = {"w_in": PDef(shape[1:], (None, "expert", "embed", "ff"))}
+    policy = comm.resolve_policy(strategy, mesh)
+    synced, ef = comm.sync_grads(
+        {"w_in": chunk(mesh.rank)}, defs, mesh, policy, strategy,
+        residual={"w_in": torch.zeros(shape, device=dev)})
+    synced, ef = synced["w_in"], ef["w_in"][0]
+    exact = sum(chunk(r)[0] for r in range(mesh.size)) / mesh.size
+    err = float((synced - exact).abs().max())
+    lim = 2 * float(exact.abs().max()) / 127
+    del exact
+    rows = torch.empty((2,) + ef.shape)
+    dist.all_gather_into_tensor(rows, ef.cpu()[None], group=mesh.group("pod"))
+    # each pod's payload as the sync forms it: its two chunks x 2/4, summed
+    sent = [chunk(2 * p)[0] * 0.5 + chunk(2 * p + 1)[0] * 0.5
+            for p in range(2)]
+    lhs = rows[0].to(dev) + rows[1].to(dev)
+    rhs = (sent[0] + sent[1]) - 2 * synced
+    excess = float(((lhs - rhs).abs() - (1e-6 + 1e-4 * rhs.abs())).max())
+    return err, lim, excess
+
+
+def comm_rank(rank, init_file, queue):
+    """One of the comm phase's four ranks: its own process, on card 0,
+    in a gloo process group of four as rank ``rank`` of a (pod=2, data=2)
+    mesh.  Trains under each strategy, then syncs one large gradient, and
+    puts what it measured on ``queue``.  Any failure raises: the process
+    exits non-zero and the parent fails."""
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import comm
+    from repro_torch.comm import collectives
+    from repro_torch.configs import TrainConfig
+    from repro_torch.dist import mesh as dmesh
+    from repro_torch.kernels import build
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model
+    from repro_torch.train import Trainer
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    timeout = timedelta(seconds=COMM_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=4, timeout=timeout)
+    mesh = dmesh.make_mesh((2, 2), ("pod", "data"), timeout=timeout)
+    cfg, shape, strategies = _comm_setup()
+    out = {"rank": rank, "coords": mesh.coords, "runs": {},
+           "n_leaves": len(P.tree_leaves(Model(cfg).param_defs()))}
+    launches = {k: 0 for k in build.LAUNCHES}
+    for name, strategy in strategies.items():
+        build.reset_launches()
+        collectives.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, TrainConfig(), shape, mesh=mesh, strategy=strategy,
+                     seed=0, device=dev)
+        tr.init_or_resume()
+        sync_s, per_step, ef_max = [], [], []
+        real = comm.sync_grads
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = real(*a, **kw)
+            torch.cuda.synchronize()
+            sync_s.append(time.perf_counter() - t)
+            return res
+
+        comm.sync_grads = timed
+        try:
+            for i in range(COMM_STEPS):
+                before = dict(build.LAUNCHES)
+                if rank == 0 and name == "hier-int8" and i == COMM_STEPS - 1:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        tr.run(1, log_every=0)
+                    torch.cuda.synchronize()
+                    print(f"[comm] rank 0, {name}, step {i} traced:",
+                          flush=True)
+                    step_table(prof, tr.history[-1]["step_time_s"], "comm")
+                    sys.stdout.flush()
+                    del prof
+                else:
+                    tr.run(1, log_every=0)
+                per_step.append({k: build.LAUNCHES[k] - before[k]
+                                 for k in ("quantize", "dequantize")})
+                if "comm" in tr.state:
+                    ef_max.append(max(float(x.abs().max()) for x in
+                                      P.tree_leaves(tr.state["comm"])))
+        finally:
+            comm.sync_grads = real
+        torch.cuda.synchronize()
+        for k, v in build.LAUNCHES.items():
+            launches[k] += v
+        out["runs"][name] = {
+            "history": tr.history, "sync_s": sync_s, "per_step": per_step,
+            "ef_max": ef_max, "launches": dict(build.LAUNCHES),
+            "pod_bytes": collectives.PAYLOAD_BYTES.get("pod", 0) // COMM_STEPS,
+            "data_bytes": (collectives.PAYLOAD_BYTES.get("data", 0)
+                           // COMM_STEPS),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del tr
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["sync_check"] = _function_sync(torch, dist, mesh,
+                                       strategies["hier-int8"], dev)
+    dist.destroy_process_group()
+    queue.put(out)
+
+
+def comm_phase(torch, dev, build, smi):
+    """granite-moe-1b-a400m at full width and COMM_LAYERS of its 24
+    layers, 4 steps of 4 x 4096 tokens (``TrainConfig()``, seed 0):
+    first on this process's device with grad_accum=4 (one row per
+    microbatch, the chunks the ranks take), then on four ranks of one
+    card over gloo as a (pod=2, data=2) mesh, each rank one row, under
+    ``hier`` and ``hier-int8`` (both ``comm_strict``).  Returns the launch
+    counts of these runs (the ranks' summed)."""
+    import gc
+    import queue as queue_mod
+
+    import torch.multiprocessing as tmp
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.train import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, shape, strategies = _comm_setup()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ref = Trainer(cfg, TrainConfig(grad_accum=4), shape, seed=0, device=dev)
+    t = time.perf_counter()
+    ref.run(COMM_STEPS, log_every=0)
+    ref_hist = ref.history
+    ref_launches = dict(build.LAUNCHES)
+    print(f"[comm] {cfg.name} at {cfg.n_layers} of 24 layers, batch "
+          f"{shape.global_batch} x {shape.seq_len}, one device, grad_accum 4: "
+          f"{time.perf_counter() - t:.1f} s for {COMM_STEPS} steps, losses "
+          f"{[round(h['loss'], 5) for h in ref_hist]}, steps "
+          f"{[round(h['step_time_s'] * 1e3, 1) for h in ref_hist]} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    init_file = ROOT / "build" / f"comm_pg_{os.getpid()}"
+    init_file.unlink(missing_ok=True)
+    ctx = tmp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=comm_rank, args=(r, str(init_file), q))
+             for r in range(4)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        while len(results) < len(procs):
+            try:
+                r = q.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                check(not dead, f"a comm rank failed (exit codes {dead})")
+                check(time.perf_counter() - t < COMM_DEADLINE_S,
+                      f"the comm ranks did not finish in {COMM_DEADLINE_S} s")
+                continue
+            results[r["rank"]] = r
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        init_file.unlink(missing_ok=True)
+    check(all(p.exitcode == 0 for p in procs),
+          f"comm ranks exited with {[p.exitcode for p in procs]}")
+    res = [results[r] for r in range(4)]
+    print(f"[comm] 4 ranks on one card, gloo (CUDA payloads through host "
+          f"memory), (pod=2, data=2), each rank one row of each step, in "
+          f"{time.perf_counter() - t:.1f} s")
+
+    def losses(r, name):
+        return [h["loss"] for h in r["runs"][name]["history"]]
+
+    hier, int8 = losses(res[0], "hier"), losses(res[0], "hier-int8")
+    for r in res:
+        check(losses(r, "hier") == hier and losses(r, "hier-int8") == int8,
+              f"rank {r['rank']} has other losses than rank 0")
+    want = [h["loss"] for h in ref_hist]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(hier, want)]
+    print(f"[comm] hier losses {[round(x, 5) for x in hier]} against one "
+          f"device's {[round(x, 5) for x in want]}: largest relative gap "
+          f"{max(gaps):.3g} (tol {COMM_RTOL})")
+    check(max(gaps) <= COMM_RTOL, f"hier losses differ from one device's "
+          f"grad_accum=4 run by {gaps}")
+    check(int8[0] == hier[0], f"hier-int8's step-0 loss {int8[0]} is not "
+          f"hier's {hier[0]}")
+    cgaps = [abs(a - b) / abs(b) for a, b in zip(int8[1:], hier[1:])]
+    print(f"[comm] hier-int8 losses {[round(x, 5) for x in int8]}: step 0 "
+          f"equal to hier's; steps 1-3 relative gaps to hier "
+          f"{[round(x, 6) for x in cgaps]} (bound {COMPRESS_RTOL})")
+    check(max(cgaps) <= COMPRESS_RTOL, f"hier-int8 drifts from hier by "
+          f"{cgaps}")
+    n_leaves = res[0]["n_leaves"]
+    for r in res:
+        runs = r["runs"]
+        check(runs["hier-int8"]["ef_max"][0] > 0, f"rank {r['rank']}: the "
+              f"residual is zero after step 0")
+        check(all(s == {"quantize": n_leaves, "dequantize": n_leaves}
+                  for s in runs["hier-int8"]["per_step"]),
+              f"rank {r['rank']}: compressed steps launched "
+              f"{runs['hier-int8']['per_step']}, expected {n_leaves} of each")
+        check(all(s == {"quantize": 0, "dequantize": 0}
+                  for s in runs["hier"]["per_step"]),
+              f"rank {r['rank']}: hier launched the quantize kernels")
+        err, lim, excess = r["sync_check"]
+        check(err < lim, f"rank {r['rank']}: compressed sync error {err} "
+              f"over its bound {lim}")
+        check(excess <= 0, f"rank {r['rank']}: residual identity off by "
+              f"{excess} beyond rtol 1e-4, atol 1e-6")
+        for name, run in runs.items():
+            h = run["history"]
+            print(f"[comm] rank {r['rank']} {r['coords']} {name}: steps "
+                  f"{[round(x['step_time_s'] * 1e3, 1) for x in h]} ms, sync "
+                  f"(host) {[round(s * 1e3, 1) for s in run['sync_s']]} ms; "
+                  f"per step {run['pod_bytes']} B to the pod group, "
+                  f"{run['data_bytes']} B to the data group; peak "
+                  f"{run['peak_gb']:.2f} GB ({smi})")
+        print(f"[comm] rank {r['rank']}: sync of a (1, 8, 32, 1024, 512) "
+              f"float32 gradient under hier-int8: largest error {err:.4g} "
+              f"(bound {lim:.4g}); residual identity within tolerance")
+    print(f"[comm] {n_leaves} leaves: {n_leaves} quantize and {n_leaves} "
+          f"dequantize launches per compressed step on every rank, none "
+          f"under hier; residual max after step 0 "
+          f"{res[0]['runs']['hier-int8']['ef_max'][0]:.4g}")
+    total = {k: sum(r["launches"][k] for r in res) for k in build.LAUNCHES}
+    return [ref_launches, total]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1077,6 +1469,7 @@ def main() -> int:
     grad_check(torch, dev, "granite-moe-1b-a400m")
     runs.append(train_phase(torch, dev, build))
     runs.append(train_granite(torch, dev, build))
+    runs.extend(comm_phase(torch, dev, build, smi))
 
     kernels = []
     for name, r in rows.items():

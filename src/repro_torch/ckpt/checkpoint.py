@@ -11,6 +11,13 @@ asynchronous save (snapshot to host memory in the caller's thread,
 serialize on a worker thread), atomic publish by rename, and a terminal
 ``COMMIT`` marker written only after every artifact of a step is on
 disk: ``latest_step()`` ignores unmarked (torn) step directories.
+
+On a mesh of several ranks (``dist.mesh``) every rank calls ``save`` and
+``restore_latest``.  The comm layer's error-feedback residual
+(``comm/...``) is the one part of the state the ranks hold in pieces,
+each its own pod's row (``comm.ef_rows``): ``save`` gathers the rows
+over the ``pod`` group to the whole ``(pods, ...)`` array and rank 0
+writes; ``restore_latest`` gives each rank its rows back.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.comm.compress import ef_rows
 from repro_torch.models import params as P
 
 
@@ -70,16 +79,21 @@ def load_meta(path: str) -> Optional[Dict]:
         return json.load(f).get("__meta__")
 
 
-def restore_state(template, path: str, device=None):
+def restore_state(template, path: str, device=None, comm_rows=None):
     """Restore into the template's structure: every template leaf (a
     tensor, possibly on the ``meta`` device) must be in the checkpoint
-    with its shape.  Leaves come back as tensors of the template's dtype
-    on ``device`` (default: the CPU)."""
+    with its shape, except that the comm layer's residual (``comm/...``)
+    may be missing from an older checkpoint and then starts at zero, as
+    in the JAX package.  Leaves come back as tensors of the template's
+    dtype on ``device`` (default: the CPU); ``comm_rows``, a slice, keeps
+    only those rows of each ``comm/`` leaf."""
     with open(path + ".manifest.json") as f:
         manifest = json.load(f)
 
     def load(z, key, leaf):
         entry = manifest.get(key)
+        if entry is None and key.startswith("comm/"):
+            return place(torch.zeros(leaf.shape, dtype=leaf.dtype), key)
         if entry is None:
             raise ValueError(f"{key}: missing from checkpoint {path}")
         arr = z[entry["id"]]
@@ -92,7 +106,12 @@ def restore_state(template, path: str, device=None):
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        return t.to(device=device or "cpu", dtype=leaf.dtype)
+        return place(t.to(dtype=leaf.dtype), key)
+
+    def place(t, key):
+        if comm_rows is not None and key.startswith("comm/"):
+            t = t[comm_rows]
+        return t.to(device=device or "cpu")
 
     flat = _flatten(template)
     with np.load(path + ".npz") as z:
@@ -104,9 +123,18 @@ COMMIT_MARKER = "COMMIT"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3, mesh=None,
+                 strategy=None):
+        """``mesh`` and ``strategy``: the ranks that save and restore
+        together, and the residual's schema (``compress_pods``); without
+        a strategy every rank holds the whole residual."""
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._ef_pods = (max(strategy.compress_pods, 1)
+                         if strategy is not None else None)
+        self._ef_rows = (ef_rows(self.mesh, self._ef_pods)
+                         if strategy is not None else None)
         self._worker: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
@@ -114,11 +142,17 @@ class CheckpointManager:
         return os.path.join(self.dir, f"step_{step:08d}", "state")
 
     def save(self, state, step: int, meta: Optional[Dict] = None):
-        """Snapshot to host memory now; serialize on a worker thread.
-        The ``COMMIT`` marker is written strictly after every artifact of
-        the step directory is on disk."""
+        """Snapshot to host memory now; serialize on a worker thread (on
+        rank 0 of a mesh; every rank must call this).  The ``COMMIT``
+        marker is written strictly after every artifact of the step
+        directory is on disk."""
         # a copy: the trainer updates the device (or CPU) state in place
         host = P.tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+        if "comm" in host and self.mesh is not None:
+            host["comm"] = P.tree_map(self._whole_rows, host["comm"])
+        self.wait()
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         path = self._step_path(step)
 
         def work():
@@ -128,14 +162,26 @@ class CheckpointManager:
                 f.write(f"{step}\n")
             self._gc()
 
-        self.wait()
         self._worker = threading.Thread(target=work, daemon=True)
         self._worker.start()
 
+    def _whole_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """A rank's residual rows -> all ``(pods, ...)`` rows: gathered
+        over the ``pod`` group where each rank holds its pod's row."""
+        if self._ef_pods is None or rows.shape[0] == self._ef_pods:
+            return rows
+        out = rows.new_empty((self._ef_pods,) + rows.shape[1:])
+        dist.all_gather_into_tensor(out, rows, group=self.mesh.group("pod"))
+        return out
+
     def wait(self):
+        """Until the last save is on disk: on a mesh, every rank waits
+        for rank 0's writer."""
         if self._worker is not None:
             self._worker.join()
             self._worker = None
+        if self.mesh is not None:
+            dist.barrier()
 
     def latest_step(self) -> Optional[int]:
         """Newest committed step; torn (uncommitted) dirs are invisible."""
@@ -147,10 +193,13 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     def restore_latest(self, template, device=None):
+        """The newest committed state, or (None, None).  A rank of a
+        mesh gets the residual rows it holds (``comm.ef_rows``)."""
         step = self.latest_step()
         if step is None:
             return None, None
-        return restore_state(template, self._step_path(step), device), step
+        return restore_state(template, self._step_path(step), device,
+                             comm_rows=self._ef_rows), step
 
     def _gc(self):
         """Retention counts committed steps only; torn directories (a

@@ -3,9 +3,9 @@
 Copies of the fields and properties of the JAX package's
 ``configs/base.py`` that the dense and MoE decoders' serving and
 single-device training paths read: ``MoEConfig``, ``ModelConfig`` (with
-its optimizer choice), ``WorkloadShape`` with ``SHAPES``, and
-``TrainConfig``.  Field names and defaults match, so a config converts
-field for field.
+its optimizer choice), ``WorkloadShape`` with ``SHAPES``,
+``TrainConfig``, and ``ShardingStrategy`` with its named instances.
+Field names and defaults match, so a config converts field for field.
 """
 from __future__ import annotations
 
@@ -135,3 +135,68 @@ class TrainConfig:
     grad_accum: int = 1
     remat: bool = True
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class ShardingStrategy:
+    """Named sharding strategy.  The port reads its comm fields
+    (``comm/collectives.py``); tensor parallelism, FSDP and expert
+    parallelism have no rule tables in the port yet."""
+
+    name: str = "baseline"
+    # baseline : DP over data(+pod), TP over model, ZeRO-1 opt states.
+    # fsdp     : + params/grads sharded over data (ZeRO-3), seq-parallel
+    #            residual stream, EP experts, sharded KV caches.
+    fsdp_params: bool = False
+    seq_shard_activations: bool = False
+    expert_parallel: bool = True
+    # decode-time KV cache sequence sharding axis ("model" | "none")
+    kv_seq_axis: str = "model"
+    # hierarchical two-phase collective schedule over (pod, data):
+    # reduce-scatter inside each pod over the fast data axis, all-reduce
+    # the shards across pods over the slow pod axis, all-gather back
+    # (see comm/collectives.py)
+    hierarchical_collectives: bool = False
+    # int8 error-feedback compression on cross-pod gradient reduction
+    compress_cross_pod: bool = False
+    # logical pod count the compression schema is sized for: the
+    # error-feedback residual carries one row per pod payload, and its
+    # SHAPE must not depend on the live mesh (elastic remesh reshards
+    # the residual with the rest of the train state, so the schema is a
+    # function of the strategy alone; meshes whose pod tier differs
+    # sync uncompressed with a warning)
+    compress_pods: int = 2
+    # contiguous fp32 elements per int8 scale (quantization block)
+    compress_block: int = 256
+    # number of gradient-sync buckets (1 = one monolithic sync after
+    # the full backward).  >1 partitions the param tree into
+    # ~byte-balanced buckets in REVERSE-layer order and launches each
+    # bucket's cross-pod phase as soon as its gradients are final, so
+    # DCN time hides behind the remaining backward compute (see
+    # comm/bucketing.py; the JAX package's comm/overlap.py prices it)
+    comm_buckets: int = 1
+    # hierarchical MoE dispatch: shard experts over the pod tier too
+    # (``expert`` -> (pod, model)) and route dispatch/combine as
+    # pod-local exchange + cross-pod transfer of only the tokens whose
+    # expert lives in another pod (see models/moe.py; the port raises)
+    hierarchical_moe: bool = False
+    # error instead of falling back to flat sync when the mesh cannot
+    # honor the requested comm schedule (no pod tier, pod mismatch)
+    comm_strict: bool = False
+    # tensor parallelism over the model axis; when False the model axis
+    # becomes a second FSDP/data axis (pure ZeRO-3 over all 256 chips)
+    tensor_parallel: bool = True
+
+
+BASELINE = ShardingStrategy(name="baseline")
+OPTIMIZED = ShardingStrategy(
+    name="optimized", fsdp_params=True, seq_shard_activations=True,
+    expert_parallel=True, hierarchical_collectives=True)
+# beyond-paper: all 256 chips as one FSDP domain; params gathered bf16
+# per layer, activations fully local (1 batch row per chip at gb=256)
+ZERO3 = ShardingStrategy(
+    name="zero3", fsdp_params=True, seq_shard_activations=False,
+    expert_parallel=True, tensor_parallel=False)
+
+STRATEGIES = {"baseline": BASELINE, "optimized": OPTIMIZED,
+              "zero3": ZERO3}

@@ -56,12 +56,17 @@ SIGNATURES = {
     # a, b, out, E, M, N, K, a strides (e, m, k), b strides (e, k, n), stream
     "moe_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
                       _P],
+    # x, codes, scales, rows, block, stream
+    "quantize_int8_f32": [_P, _P, _P, _L, _I, _P],
+    # codes, scales, out, rows, block, stream
+    "dequantize_int8_f32": [_P, _P, _P, _L, _I, _P],
 }
 
 # launches per kernel; a wrapper adds one only where its kernel launched
 LAUNCHES = {"rmsnorm": 0, "flash_fwd": 0, "paged_decode": 0,
             "paged_prefill": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "moe_gemm": 0, "decode_attention": 0}
+            "moe_gemm": 0, "decode_attention": 0, "quantize": 0,
+            "dequantize": 0}
 
 _lib = None
 _lock = threading.Lock()

@@ -22,6 +22,8 @@ from repro_torch.kernels.flash_attention import ops as _fa
 from repro_torch.kernels.flash_attention import ref as _fa_ref
 from repro_torch.kernels.moe_gemm import ops as _moe
 from repro_torch.kernels.moe_gemm import ref as _moe_ref
+from repro_torch.kernels.quantize import kernel as _q
+from repro_torch.kernels.quantize import ref as _q_ref
 from repro_torch.kernels.rmsnorm import ops as _rn
 from repro_torch.kernels.rmsnorm import ref as _rn_ref
 
@@ -81,3 +83,18 @@ def moe_gemm(x, w, *, impl=None):
     if _plain(impl, x) or x.device.type == "cpu":
         return _moe_ref.moe_gemm_ref(x, w)
     return _moe.moe_gemm(x, w)
+
+
+def quantize_int8(x, *, impl=None):
+    """Block-scaled symmetric int8: x (n_blocks, block) f32 -> (codes
+    int8, scales f32 (n_blocks,)).  The cross-pod gradient compression
+    primitive (see repro_torch/comm/collectives.py)."""
+    if _plain(impl, x):
+        return _q_ref.quantize_int8_ref(x, block=x.shape[-1])
+    return _q.quantize_int8(x)
+
+
+def dequantize_int8(codes, scales, *, impl=None):
+    if _plain(impl, codes):
+        return _q_ref.dequantize_int8_ref(codes, scales)
+    return _q.dequantize_int8(codes, scales)

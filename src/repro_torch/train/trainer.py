@@ -1,6 +1,8 @@
-"""Training driver: data pipeline + train step + checkpoint/restart, on
-one device.  The port of the JAX package's ``train/trainer.py`` without
-a mesh: elastic ``remesh`` waits for the port's sharding."""
+"""The training loop: data pipeline + train step + checkpoint/restart.
+The port of the JAX package's ``train/trainer.py``: on one device, or on
+every rank of a data-parallel mesh (``dist.mesh``), where each rank
+draws the same global batch and its step keeps the rank's rows.
+Elastic ``remesh`` waits for a later slice."""
 from __future__ import annotations
 
 import time
@@ -10,7 +12,9 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt import CheckpointManager
-from repro_torch.configs.base import ModelConfig, TrainConfig, WorkloadShape
+from repro_torch.configs.base import (BASELINE, ModelConfig,
+                                      ShardingStrategy, TrainConfig,
+                                      WorkloadShape)
 from repro_torch.data import DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.dist import steps as dsteps
@@ -18,16 +22,22 @@ from repro_torch.dist import steps as dsteps
 
 class Trainer:
     """Runs on CUDA (the kernels) unless ``device`` says otherwise (the
-    plain versions on the CPU)."""
+    plain versions on the CPU).  ``mesh``: the data-parallel mesh this
+    rank belongs to (every rank builds its own Trainer with the same
+    arguments); ``strategy``: how its gradients sync."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
-                 shape: WorkloadShape, *, ckpt_dir: Optional[str] = None,
-                 seed: int = 0, device=None):
+                 shape: WorkloadShape, *, mesh=None,
+                 strategy: ShardingStrategy = BASELINE,
+                 ckpt_dir: Optional[str] = None, seed: int = 0, device=None):
         self.cfg, self.tcfg, self.shape = cfg, tcfg, shape
+        self.mesh, self.strategy = mesh, strategy
         self.seed = seed
         self.device = resolve_device(device)
-        self._step = dsteps.build_train_step(cfg, tcfg, shape)
-        self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        self._step = dsteps.build_train_step(cfg, tcfg, shape,
+                                             strategy=strategy, mesh=mesh)
+        self.ckpt = (CheckpointManager(ckpt_dir, mesh=mesh, strategy=strategy)
+                     if ckpt_dir else None)
         self.state = None
         self.start_step = 0
         self.history: List[Dict] = []
@@ -35,15 +45,17 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_or_resume(self):
         if self.ckpt is not None:
-            template = dsteps.abstract_train_state(self.cfg, self.tcfg)
+            template = dsteps.abstract_train_state(self.cfg, self.tcfg,
+                                                   self.strategy)
             restored, step = self.ckpt.restore_latest(template, self.device)
             if restored is not None:
                 self.state = restored
                 self.start_step = int(step)
                 return "resumed"
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.state = dsteps.init_train_state(self.cfg, self.tcfg, gen,
-                                             self.device)
+        self.state = dsteps.init_train_state(
+            self.cfg, self.tcfg, gen, self.device, strategy=self.strategy,
+            mesh=self.mesh)
         return "initialized"
 
     def _put_batch(self, batch):

@@ -12,7 +12,9 @@ another order).  flash_bwd's gradients are also held as whole tensors,
 gradients that the per-element limit lets through.  The grouped GEMM
 sums D products per output: |kernel - plain| <= 2e-2 * (1 + |plain|)
 after scaling both by 1 / sqrt(D), the size of such a sum of unit
-products.
+products.  The int8 quantize and dequantize kernels equal their plain
+versions exactly (``torch.equal``): the same IEEE divisions, rounding
+half to even, and an order-free maximum.
 """
 import pytest
 
@@ -24,6 +26,8 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import kernel as moe_kernel  # noqa: E402
 from repro_torch.kernels.moe_gemm import ref as moe_ref  # noqa: E402
+from repro_torch.kernels.quantize import kernel as q_kernel  # noqa: E402
+from repro_torch.kernels.quantize import ref as q_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 
 TOL = 2e-2
@@ -345,3 +349,63 @@ def test_moe_gemm_backward_launches_the_kernel_twice(dev, e, t, d, f):
             assert build.LAUNCHES["moe_gemm"] == 2
     _moe_close(grads[0][0], grads[1][0], f)          # dX sums over F
     _moe_close(grads[0][1], grads[1][1], t)          # dW sums over T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,block", [(37, 128), (1000, 256), (300, 64),
+                                        (9, 100), (5, 7), (3, 4096)])
+def test_quantize_kernels_equal_the_plain_versions_exactly(dev, rows, block):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = (torch.randn((rows, block), generator=g, device=dev)
+         * 10.0 ** (torch.rand((rows, 1), generator=g, device=dev) * 12 - 6))
+    x[min(5, rows - 1)] = 0.0                      # a zero row: scale 1.0
+    if rows > 2 and block >= 6:                    # amax 127: ties at .5
+        x[1] = torch.rand(block, generator=g, device=dev) * 200 - 100
+        x[1, :6] = torch.tensor([127.0, 2.5, 3.5, -0.5, -1.5, 0.5])
+    build.reset_launches()
+    codes, scales = q_kernel.quantize_int8(x)
+    want_c, want_s = q_ref.quantize_int8_ref(x, block=block)
+    assert torch.equal(codes, want_c) and torch.equal(scales, want_s)
+    if rows > 2 and block >= 6:
+        assert codes[1, :6].tolist() == [127, 2, 4, 0, -2, 0]
+    assert torch.equal(q_kernel.dequantize_int8(codes, scales),
+                       q_ref.dequantize_int8_ref(codes, scales))
+    assert build.LAUNCHES["quantize"] == 1
+    assert build.LAUNCHES["dequantize"] == 1
+    with pytest.raises(ValueError):
+        q_kernel.quantize_int8(x.double())
+    with pytest.raises(ValueError):
+        q_kernel.dequantize_int8(codes, scales[:-1])
+
+
+@pytest.mark.cuda
+def test_sync_on_the_card_equals_the_sync_on_the_cpu(dev, tmp_path):
+    """Four ranks on one card over gloo: the hierarchical and the int8
+    compressed ``sync_grads`` on CUDA tensors (the quantize kernels) give
+    the bits the same syncs give on CPU tensors (the plain versions)."""
+    import multiprocessing
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_comm_ranks as R
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=R.cuda_sync_rank,
+                         args=(r, str(tmp_path / "pg"), q))
+             for r in range(R.WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        res = [q.get(timeout=300) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    assert [p.exitcode for p in procs] == [0] * R.WORLD
+    for r in res:
+        assert r["hier"] == 0.0 and r["hier-int8"] == 0.0, r
+        assert r["hier_launches"] == (0, 0)
+        assert r["hier-int8_launches"] == (1, 1)
+
