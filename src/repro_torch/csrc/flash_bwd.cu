@@ -3,339 +3,521 @@
 // v, dO and f32 lse and delta = rowsum(out * dO) (computed by the
 // wrapper, as the JAX package computes it outside its pallas_calls).
 //
-// Replaces: src/repro/kernels/flash_attention/kernel.py, flash_bwd
+// Replaces: src/repro/kernels/flash_attention/kernel.py:249, flash_bwd
 // (_dq_kernel, pallas_call at :278; _dkv_kernel, pallas_call at :306).
 //
-// Bound on the H100: at yi-6b's training shape (4096 tokens, 32 query
-// heads over 4 KV heads of 128) the two kernels do five S x S x D
-// products per head (s and dp in each kernel, then dq, dk and dv),
-// halved by the causal mask: about 3.4e11 flops per batch row against
-// 0.2 GB of inputs and outputs, so the least time is set by the bf16
-// tensor-core rate.  These first kernels do their arithmetic on the f32
-// CUDA cores and make no attempt at that bound (wgmma and TMA are later
-// work).
+// Bound on the H100: the dq kernel does three S x S x D products per
+// query head (s = q k^T, dp = dO v^T, dq = ds k), the dk/dv kernel four
+// (s and dp again, dv = p^T dO, dk = ds^T q), halved by the causal mask.
+// At yi-6b's training shape (batch 2, 4096 tokens, 32 query heads over 4
+// KV heads of 128) that is 4.1e11 + 5.5e11 = 9.6e11 flops against about
+// 0.2 GB of inputs and outputs: compute-bound, 0.417 + 0.556 ms at the
+// 989 TFLOP/s bf16 tensor-core peak.
 //
 // Design: the TPU grids walked one sequential axis with the sums in
 // VMEM scratch (the kv axis for dq, the q axis for dk/dv).  On Hopper
 // blocks run in no order, so each sequential axis becomes a loop inside
-// one block that owns its output rows:
-//   dq:  one block per (query tile of 64 rows, query head, batch row);
-//        it walks the key tiles up to the causal limit.  Query head h
-//        reads KV head h / g.
-//   dkv: one block per (key tile of 64 keys, KV head, batch row); it
-//        walks the g query heads of its KV head and, for each, the
-//        query tiles that can see its keys.  Each block owns its dk and
-//        dv rows in registers, so there are no atomics, the result is
-//        deterministic and GQA needs no KV repeat.
-// Each (64 x 64) tile step stages its operands in shared memory as f32
-// (rows padded to D + 1 floats, so the 16 lanes that read one column of
-// 16 rows hit 16 banks); 256 threads each own a 4 x 4 patch of the
-// score tile (rows ty + 16 i, keys tx + 16 j) and then a 4 x D/16 patch
-// of the output tile.  p and ds stay f32, as in the Pallas kernels.
+// one block that owns its output rows, with no atomics: the result is
+// the same to the bit from run to run.
+//   dq:  one block per (64 query rows, query head, batch row), the last
+//        rows first (they see the most keys); it walks the key tiles of
+//        64 up to the causal limit.  Query head h reads KV head h / g.
+//   dkv: one block per (64 keys, KV head, batch row), the first keys
+//        first; it walks the g query heads of its KV head and, for each,
+//        the query tiles of 64 rows that can see its keys, so GQA needs
+//        no KV repeat.
+// A block is one warpgroup (4 warps); every product is a wgmma m64n64k16
+// (bf16 operands, f32 sums in registers), the block's 64 rows against 64
+// columns, each batch committed and waited for before the elementwise
+// work that reads it.  Warp w holds rows 16w..16w+15 of each
+// sum.  The dk/dv kernel takes the transposed scores s^T = k q^T, so p^T
+// and ds^T come out with the block's keys as rows, and their accumulator
+// fragments, rounded to bf16 in registers, are the A operands of dv +=
+// p^T dO and dk += ds^T q; ds is likewise the A operand of dq += ds k.
+// Nothing goes back through shared memory.  The other operands are read
+// by the tensor cores straight from shared memory through wgmma
+// descriptors: every tile is bf16 exactly as in device memory, in the
+// 128-byte swizzle (see sw below), which serves both as a K-major operand
+// (k, q, v, dO against the depth D) and, with the descriptor's transpose
+// bit, as an MN-major B operand (k for ds k, dO and q for the dk/dv
+// products).  The block's own rows (q, dO for dq; k, v for dk/dv) are
+// resident; the streamed tiles (k, v; or q, dO, lse, delta) pass through
+// a ring of two stages filled with cp.async, 16 bytes a thread (rows
+// past the end fill with zeros), one barrier a step, so the next tile's
+// copies overlap this tile's products.  Tiles are 64 rows, one wgmma's
+// M: at head dim 128 a block holds 97 KB of tiles and the dk/dv sums are
+// 128 floats a thread, so two blocks share an SM and one's elementwise
+// work overlaps the other's products.
+// A tile that every row sees whole skips the masks.  Times, and what
+// the design choices are worth (tools/flash_bwd_variants.py builds the
+// kernels without each), are in PERF.md.
+//
+// Rounding, as the reference: s and dp take bf16 q, k, dO and v as
+// stored; p is rounded to bf16 once, in registers, before dv += p^T dO,
+// and ds before dq += ds k and dk += ds^T q (ref.bwd, the twin of
+// src/repro/kernels/flash_attention/ref.py _bwd_impl:
+// p.astype(dout.dtype), ds.astype(kblk.dtype)).  The Pallas kernels keep
+// both in f32.  ds = p (dp - delta) scale itself is f32 from f32 p.
+//
 // Masks are those of the Pallas kernels: kpos < Skv, qraw < Sq and,
 // when causal, kpos <= qraw + q_offset.  Outside the first two p = 0;
 // a score hidden by the causal mask is -1e30, as in the plain version,
 // so p = exp(-1e30 - lse), which is 0 unless the row sees no key at all
 // (causal with q_offset < 0).  Such a row's lse is -1e30 (flash_fwd gives
 // it the mean of V) and its p is 1 on every key, as in the plain
-// version's backward; the loops then take in every key for it.  On the
-// served and trained paths (q_offset = 0) every row sees key 0 and the
-// result does not change by a bit.
+// version's backward; the loops then take in every key for it.  With
+// q_offset >= 0 every row sees key 0, a hidden p is exactly 0, and tiles
+// wholly above the diagonal are never loaded.
 #include "common.cuh"
 
 namespace repro {
 namespace fbwd {
 
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 256;    // 16 x 16: (ty, tx)
+constexpr int THREADS = 128;      // one warpgroup
+constexpr int ROWS = 64;          // query rows (dq) or keys (dk/dv) a block owns
+constexpr int STEP = 64;          // keys (dq) or query rows (dk/dv) a streamed tile holds
+static_assert(ROWS == 64 && STEP == 64, "every tile is 64 rows: one wgmma's M");
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
+// Shared memory of a block: two resident tiles and a ring of two stages
+// of two streamed tiles, each 64 x D bf16 (TILE elements), then for dk/dv
+// the two stages' lse and delta, in bytes.
 template <int D>
-struct DqSmem {
-  float q[BQ][D + 1];
-  float dO[BQ][D + 1];
-  float k[BK][D + 1];
-  float v[BK][D + 1];
-  float ds[BQ][BK + 1];
-  float lse[BQ];
-  float delta[BQ];
+struct Tile {
+  static constexpr int TILE = 64 * D;
+  static constexpr int DQ_SMEM = 6 * TILE * 2;
+  static constexpr int DKV_SMEM = 6 * TILE * 2 + 2 * 2 * STEP * 4;
 };
 
-template <int D>
-struct DkvSmem {
-  float k[BK][D + 1];
-  float v[BK][D + 1];
-  float q[BQ][D + 1];
-  float dO[BQ][D + 1];
-  float p[BQ][BK + 1];
-  float ds[BQ][BK + 1];
-  float lse[BQ];
-  float delta[BQ];
-};
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Rows [r0, r0 + R) of a bf16 tensor whose row r starts at
-// base + r * stride, as f32; rows at or past n load as zeros.
-template <int D, int R>
-__device__ __forceinline__ void load_rows(float (*dst)[D + 1], const bf16* base,
-                                          long long stride, int r0, int n) {
-  constexpr int VPR = D / 8;    // 16-byte vectors per row
-  for (int vi = threadIdx.x; vi < R * VPR; vi += THREADS) {
-    const int r = vi / VPR, c = (vi % VPR) * 8;
-    float f[8];
-    if (r0 + r < n) {
-      unpack8(*reinterpret_cast<const uint4*>(base + (long long)(r0 + r) * stride + c), f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[r][c + e] = f[e];
+// Asynchronous copies into shared memory; !valid fills with zeros.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This thread's copies have landed and are visible to the tensor cores'
+// reads (the async proxy); a barrier after it makes everyone's so.
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// A tile of 64 rows x D bf16 in shared memory is stored in the tensor
+// cores' 128-byte swizzle: column block c / 64 holds 64 rows of 128
+// bytes, and row r keeps its 16-byte chunk j at chunk j ^ (r % 8), so the
+// 8 rows of any 8 x 8 block (one 16-byte read each) fall in distinct
+// banks.  Element (r, c) is at sw(r, c).
+__device__ __forceinline__ int sw(int r, int c) {
+  return (c >> 6) * (64 * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// Rows [r0, r0 + 64) of a bf16 matrix whose row r starts at base + r *
+// stride into the tile s; rows at or past n fill with zeros.  Eight
+// threads copy a row's 128 bytes of one column block, 16 each, so a warp
+// reads 4 rows' 128 bytes and writes 512 contiguous bytes.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* base, long long stride,
+                                          int r0, int n) {
+  for (int i = threadIdx.x; i < 64 * D / 8; i += THREADS) {
+    const int cb = i / (64 * 8), r = (i / 8) % 64, c = cb * 64 + (i % 8) * 8;
+    const bool in = r0 + r < n;
+    cp16(s + sw(r, c), in ? base + (long long)(r0 + r) * stride + c : base, in);
   }
 }
 
-// lse and delta of query rows [r0, r0 + BQ) of head h ((B, Sq, H) f32,
-// already offset to batch row b); rows past Sq load as zeros.
-__device__ __forceinline__ void load_stats(float* lse_s, float* delta_s,
-                                           const float* lse, const float* delta,
-                                           int r0, int Sq, int H, int h) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const bool in = r0 + r < Sq;
-    const long long o = (long long)(r0 + r) * H + h;
-    lse_s[r] = in ? lse[o] : 0.f;
-    delta_s[r] = in ? delta[o] : 0.f;
+// wgmma shared-memory descriptor of a swizzled tile: the start address,
+// the byte step between 64-column blocks along N (LBO; MN-major only)
+// and between 8-row groups (SBO), in 16-byte units, and the 128-byte
+// swizzle.  The tile starts 1024-byte aligned, so a start inside a
+// swizzled row (a depth step of 16 in a K-major operand) needs no base
+// offset.
+__device__ __forceinline__ uint64_t desc(const bf16* p, int lbo, int sbo) {
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Depth 16 kk..16 kk + 15 of a tile as a K-major operand (its 64 rows
+// along M or N, its columns the depth) ...
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int kk) {
+  return desc(tile + (kk >> 2) * (64 * 64) + (kk & 3) * 16, 16, 1024);
+}
+
+// ... or rows 16 kk..16 kk + 15 and columns 64 nb..64 nb + 63 as an
+// MN-major B operand (its rows the depth, its columns N).
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk, int nb) {
+  return desc(tile + nb * (64 * 64) + 16 * kk * 64, 64 * 64 * 2, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Products issued since the last commit are one group; wait for it.
+// (Leaving a group in flight across the elementwise work or into the next
+// step makes ptxas serialize every wgmma: it cannot prove the registers
+// safe.)
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The 32 f32 sums a thread holds of a 64 x 64 wgmma product: c[j][e] is
+// row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2 for lane 4 g + t of
+// warp w, as mma.sync's m16n8 fragments side by side.
+#define FBWD_C32(c)                                                          \
+  "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),                \
+  "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),                \
+  "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),                \
+  "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),                \
+  "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]),                \
+  "+f"(c[5][0]), "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]),                \
+  "+f"(c[6][0]), "+f"(c[6][1]), "+f"(c[6][2]), "+f"(c[6][3]),                \
+  "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3])
+
+// c = a b^T (acc = 0) or c += a b^T over a depth of 16, a and b in
+// shared memory, both K-major.
+__device__ __forceinline__ void wg_ss(float (&c)[8][4], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FBWD_C32(c)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// c += a b over a depth of 16: a from registers (mma.sync's A fragment
+// of the warp's 16 rows), b in shared memory, MN-major.
+__device__ __forceinline__ void wg_rs(float (&c)[8][4], const uint32_t (&a)[4],
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FBWD_C32(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// c (the block's 64 rows x 64 columns) = a b^T over depth D: a the 64
+// rows of tile A, b the 64 rows of tile B.
+template <int D>
+__device__ __forceinline__ void wg_abt(float (&c)[8][4], const bf16* A, const bf16* B) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wg_ss(c, desc_k(A, kk), desc_k(B, kk), kk > 0);
+}
+
+// The f32 sums of a 64 x 64 product, rounded to bf16, as the A operand
+// of a depth-64 product: x[kk] holds depth 16 kk..16 kk + 15.
+__device__ __forceinline__ void to_a(uint32_t (&x)[4][4], const float (&f)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    x[kk][0] = pack(f[2 * kk][0], f[2 * kk][1]);
+    x[kk][1] = pack(f[2 * kk][2], f[2 * kk][3]);
+    x[kk][2] = pack(f[2 * kk + 1][0], f[2 * kk + 1][1]);
+    x[kk][3] = pack(f[2 * kk + 1][2], f[2 * kk + 1][3]);
   }
 }
 
-// p and ds of this thread's 4 x 4 patch of the (query tile q0, key tile
-// k0) score tile: s = q k^T * scale, dp = dO v^T, p = exp(s - lse),
-// ds = p (dp - delta) scale.
+// c (64 rows x D, in column blocks of 64) += x b: x from to_a, b the 64
+// x D tile B.
 template <int D>
-__device__ __forceinline__ void tile_p_ds(const float (*q)[D + 1], const float (*dO)[D + 1],
-                                          const float (*k)[D + 1], const float (*v)[D + 1],
-                                          const float* lse, const float* delta,
-                                          int q0, int k0, int Sq, int Skv, int causal,
-                                          int q_offset, float scale,
-                                          float (&p)[4][4], float (&ds)[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[4][4], dp[4][4];
+__device__ __forceinline__ void wg_xb(float (&c)[D / 64][8][4], const uint32_t (&x)[4][4],
+                                      const bf16* B) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
+    for (int nb = 0; nb < D / 64; ++nb) wg_rs(c[nb], x[kk], desc_mn(B, kk, nb));
+}
+
+// The block's 64 output rows of (.., D) bf16: this thread's rows row0 +
+// 16 w + g and + 8 (stored where below n) at base + row * stride.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, long long stride, int row0, int n,
+                                           const float (&c)[D / 64][8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = q[ty + 16 * i][d];
-      oa[i] = dO[ty + 16 * i][d];
-      kb[i] = k[tx + 16 * i][d];
-      vb[i] = v[tx + 16 * i][d];
-    }
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + 16 * (threadIdx.x >> 5) + g + 8 * half;
+    if (r >= n) continue;
+    bf16* row = base + (long long)r * stride + 2 * t;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nb = 0; nb < D / 64; ++nb)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-        dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, qraw = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kpos = k0 + tx + 16 * j;
-      // two exps, not one exp of a selected score: selecting s * scale
-      // first would round it before the subtraction that it otherwise
-      // fuses into, and move a seen key's p by an ulp
-      const bool seen = !causal || kpos <= qraw + q_offset;
-      p[i][j] = kpos < Skv && qraw < Sq
-                    ? (seen ? expf(s[i][j] * scale - lse[r]) : expf(NEG_INF - lse[r]))
-                    : 0.f;
-      ds[i][j] = p[i][j] * (dp[i][j] - delta[r]) * scale;
-    }
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 64 * nb + 8 * j) =
+            __floats2bfloat162_rn(c[nb][j][2 * half], c[nb][j][2 * half + 1]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__device__ __forceinline__ void zero(float (&c)[D / 64][8][4]) {
+#pragma unroll
+  for (int nb = 0; nb < D / 64; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nb][j][e] = 0.f;
+}
+
+// Two blocks an SM: at head dim 128 each holds 97 KB of tiles, and the
+// dk/dv kernel's 128 floats of sums a thread leave no room for a third.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
                     int causal, int q_offset, float scale) {
-  extern __shared__ float4 smem_raw[];
-  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(smem_raw);
-  constexpr int NC = D / 16;    // output columns per thread
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  using T = Tile<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdo = sq + T::TILE;
+  bf16* sk = sdo + T::TILE;       // [2] streamed k tiles
+  bf16* sv = sk + 2 * T::TILE;    // [2] streamed v tiles
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   // the last query tiles see the most keys: schedule them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
 
   const long long qs = (long long)H * D, ks = (long long)Hkv * D;
-  const bf16* qb = q + (long long)b * Sq * qs + (long long)h * D;
-  const bf16* ob = dout + (long long)b * Sq * qs + (long long)h * D;
   const bf16* kb = k + (long long)b * Skv * ks + (long long)hk * D;
   const bf16* vb = v + (long long)b * Skv * ks + (long long)hk * D;
-  load_rows<D, BQ>(sm.q, qb, qs, q0, Sq);
-  load_rows<D, BQ>(sm.dO, ob, qs, q0, Sq);
-  load_stats(sm.lse, sm.delta, lse + (long long)b * Sq * H,
-             delta + (long long)b * Sq * H, q0, Sq, H, h);
+  load_tile<D>(sq, q + (long long)b * Sq * qs + (long long)h * D, qs, q0, Sq);
+  load_tile<D>(sdo, dout + (long long)b * Sq * qs + (long long)h * D, qs, q0, Sq);
+
+  // this thread's two query rows (fragment rows g and g + 8) and their
+  // statistics; rows past Sq are masked
+  int qr[2];
+  float lse2[2], hid[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qr[i] = q0 + 16 * warp + g + 8 * i;
+    const long long o = ((long long)b * Sq + qr[i]) * H + h;
+    const float l = qr[i] < Sq ? lse[o] : 0.f;
+    dl[i] = qr[i] < Sq ? delta[o] : 0.f;
+    lse2[i] = l * LOG2E;
+    hid[i] = (NEG_INF - l) * LOG2E;   // exp2 of it: p of a causally hidden key
+  }
+  const float scale2 = scale * LOG2E;
 
   // a tile whose first row sees no key takes in every key (see above)
   int kv_end = Skv;
   if (causal && q0 + q_offset >= 0)
-    kv_end = max(0, min(Skv, min(q0 + BQ, Sq) - 1 + q_offset + 1));
+    kv_end = max(0, min(Skv, min(q0 + ROWS, Sq) - 1 + q_offset + 1));
+  const int nt = (kv_end + STEP - 1) / STEP;
 
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  if (nt > 0) {
+    load_tile<D>(sk, kb, ks, 0, Skv);
+    load_tile<D>(sv, vb, ks, 0, Skv);
+  }
+  cp_commit();
 
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();            // the previous tile's k, v and ds are consumed
-    load_rows<D, BK>(sm.k, kb, ks, k0, Skv);
-    load_rows<D, BK>(sm.v, vb, ks, k0, Skv);
+  float acc[D / 64][8][4];
+  zero<D>(acc);
+
+  for (int it = 0; it < nt; ++it) {
+    cp_wait_all();
+    // tile it (and q, dO) have landed for every thread, and every warp is
+    // done with tile it - 1: its stage takes tile it + 1 while this one runs
     __syncthreads();
-    float p[4][4], ds[4][4];
-    tile_p_ds<D>(sm.q, sm.dO, sm.k, sm.v, sm.lse, sm.delta, q0, k0, Sq, Skv,
-                 causal, q_offset, scale, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sm.ds[ty + 16 * i][tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    // dq[r][c] += sum_j ds[r][j] k[j][c]
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float kv[NC], dsv[4];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = sm.k[j][tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sm.ds[ty + 16 * i][j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
+    if (it + 1 < nt) {
+      const int nxt = (it + 1) & 1;
+      load_tile<D>(sk + nxt * T::TILE, kb, ks, (it + 1) * STEP, Skv);
+      load_tile<D>(sv + nxt * T::TILE, vb, ks, (it + 1) * STEP, Skv);
+      cp_commit();
     }
+    const int k0 = it * STEP;
+    const bf16* skt = sk + (it & 1) * T::TILE;
+    const bf16* svt = sv + (it & 1) * T::TILE;
+    float s[8][4], dp[8][4];
+    wg_fence();
+    wg_abt<D>(s, sq, skt);
+    wg_abt<D>(dp, sdo, svt);
+    wg_commit_wait();
+    // ds = p (dp - delta) scale, over s's registers; a tile that every
+    // row sees whole needs no mask
+    if ((!causal || k0 + STEP - 1 <= q0 + q_offset) && k0 + STEP <= Skv &&
+        q0 + ROWS <= Sq) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          s[j][e] = exp2f(fmaf(s[j][e], scale2, -lse2[i])) * (dp[j][e] - dl[i]) * scale;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const bool seen = !causal || kpos <= qr[i] + q_offset;
+          const float x = seen ? fmaf(s[j][e], scale2, -lse2[i]) : hid[i];
+          const float p = kpos < Skv && qr[i] < Sq ? exp2f(x) : 0.f;
+          s[j][e] = p * (dp[j][e] - dl[i]) * scale;
+        }
+    }
+    uint32_t x[4][4];
+    to_a(x, s);
+    wg_fence();
+    wg_xb<D>(acc, x, skt);
+    wg_commit_wait();
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qraw = q0 + ty + 16 * i;
-    if (qraw < Sq) {
-      bf16* row = dq + ((long long)b * Sq + qraw) * qs + (long long)h * D;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) row[tx + 16 * c] = __float2bfloat16(acc[i][c]);
-    }
-  }
+  cp_wait_all();               // nothing left in flight (nt = 0 waited for none)
+  store_rows<D>(dq + (long long)b * Sq * qs + (long long)h * D, qs, q0, Sq, acc);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
                      int H, int Hkv, int causal, int q_offset, float scale) {
-  extern __shared__ float4 smem_raw[];
-  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(smem_raw);
-  constexpr int NC = D / 16;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  using T = Tile<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sv = sk + T::TILE;
+  bf16* ring = sv + T::TILE;                                   // [2] x (q, dO)
+  float* stats = reinterpret_cast<float*>(ring + 4 * T::TILE);  // [2] x (lse, delta)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   // the first key tiles are seen by the most queries: blocks are handed
   // out in index order, so they come first
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y, b = blockIdx.z, g = H / Hkv;
+  const int k0 = blockIdx.x * ROWS;
+  const int hk = blockIdx.y, b = blockIdx.z, G = H / Hkv;
 
   const long long qs = (long long)H * D, ks = (long long)Hkv * D;
   const long long kv_off = (long long)b * Skv * ks + (long long)hk * D;
-  load_rows<D, BK>(sm.k, k + kv_off, ks, k0, Skv);
-  load_rows<D, BK>(sm.v, v + kv_off, ks, k0, Skv);
+  const bf16* qb = q + (long long)b * Sq * qs;
+  const bf16* ob = dout + (long long)b * Sq * qs;
+  const float* lseb = lse + (long long)b * Sq * H;
+  const float* deltab = delta + (long long)b * Sq * H;
+  load_tile<D>(sk, k + kv_off, ks, k0, Skv);
+  load_tile<D>(sv, v + kv_off, ks, k0, Skv);
 
   // the first query tile with a row that can see key k0; with q_offset
   // < 0 the first rows see no key and take in every key (see above)
-  const int q_start = causal && q_offset >= 0 ? max(0, k0 - q_offset) / BQ * BQ : 0;
+  const int q_start = causal && q_offset >= 0 ? max(0, k0 - q_offset) / STEP * STEP : 0;
+  const int nq = Sq > q_start ? (Sq - q_start + STEP - 1) / STEP : 0;
+  const int n_it = G * nq;      // (query head, query tile) steps, head-major
 
-  float dk_acc[4][NC], dv_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  for (int j = 0; j < g; ++j) {
-    const int h = hk * g + j;
-    const bf16* qb = q + (long long)b * Sq * qs + (long long)h * D;
-    const bf16* ob = dout + (long long)b * Sq * qs + (long long)h * D;
-    for (int q0 = q_start; q0 < Sq; q0 += BQ) {
-      __syncthreads();          // the previous tile's q, dO, p and ds are consumed
-      load_rows<D, BQ>(sm.q, qb, qs, q0, Sq);
-      load_rows<D, BQ>(sm.dO, ob, qs, q0, Sq);
-      load_stats(sm.lse, sm.delta, lse + (long long)b * Sq * H,
-                 delta + (long long)b * Sq * H, q0, Sq, H, h);
-      __syncthreads();
-      float p[4][4], ds[4][4];
-      tile_p_ds<D>(sm.q, sm.dO, sm.k, sm.v, sm.lse, sm.delta, q0, k0, Sq, Skv,
-                   causal, q_offset, scale, p, ds);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          sm.p[ty + 16 * i][tx + 16 * jj] = p[i][jj];
-          sm.ds[ty + 16 * i][tx + 16 * jj] = ds[i][jj];
-        }
-      __syncthreads();
-      // key row kr = ty + 16 i:  dv[kr] += sum_r p[r][kr] dO[r],
-      //                          dk[kr] += sum_r ds[r][kr] q[r]
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pv[4], dsv[4], ov[NC], qv[NC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = sm.p[r][ty + 16 * i];
-          dsv[i] = sm.ds[r][ty + 16 * i];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          ov[c] = sm.dO[r][tx + 16 * c];
-          qv[c] = sm.q[r][tx + 16 * c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv_acc[i][c] = fmaf(pv[i], ov[c], dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(dsv[i], qv[c], dk_acc[i][c]);
-          }
-      }
+  // stage the query tile of step it: rows, dO rows, lse and delta
+  auto issue = [&](int it) {
+    const int j = it / nq, h = hk * G + j, q0 = q_start + (it - j * nq) * STEP;
+    bf16* sq = ring + (it & 1) * 2 * T::TILE;
+    load_tile<D>(sq, qb + (long long)h * D, qs, q0, Sq);
+    load_tile<D>(sq + T::TILE, ob + (long long)h * D, qs, q0, Sq);
+    float* st = stats + (it & 1) * 2 * STEP;
+    for (int i = threadIdx.x; i < 2 * STEP; i += THREADS) {
+      const int r = i % STEP;
+      const bool in = q0 + r < Sq;
+      const float* src = i < STEP ? lseb : deltab;
+      cp4(st + i, in ? src + (long long)(q0 + r) * H + h : src, in);
     }
+    cp_commit();
+  };
+  if (n_it > 0) issue(0);       // commits k, v and step 0 as one group
+
+  // this thread's two keys (fragment rows g and g + 8)
+  const int kp[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  const float scale2 = scale * LOG2E;
+
+  float dk_acc[D / 64][8][4], dv_acc[D / 64][8][4];
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_wait_all();
+    // step it (and k, v) have landed for every thread, and every warp is
+    // done with step it - 1: its stage takes step it + 1 while this one runs
+    __syncthreads();
+    if (it + 1 < n_it) issue(it + 1);
+    const int q0 = q_start + (it % nq) * STEP;
+    const bf16* sq = ring + (it & 1) * 2 * T::TILE;
+    const bf16* sdo = sq + T::TILE;
+    const float* slse = stats + (it & 1) * 2 * STEP;
+    const float* sdelta = slse + STEP;
+    // s^T = k q^T and dp^T = v dO^T
+    float p[8][4], ds[8][4];
+    wg_fence();
+    wg_abt<D>(p, sk, sq);
+    wg_abt<D>(ds, sv, sdo);
+    wg_commit_wait();
+    // p^T, then ds^T = p^T (dp^T - delta) scale, over their registers
+    // a tile whose keys every row sees needs no mask
+    if ((!causal || k0 + ROWS - 1 <= q0 + q_offset) && k0 + ROWS <= Skv &&
+        q0 + STEP <= Sq) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          p[j][e] = exp2f(fmaf(p[j][e], scale2, -slse[c] * LOG2E));
+          ds[j][e] = p[j][e] * (ds[j][e] - sdelta[c]) * scale;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1), qraw = q0 + c, kpos = kp[e >> 1];
+          const float l = slse[c];
+          const bool seen = !causal || kpos <= qraw + q_offset;
+          const float x = seen ? fmaf(p[j][e], scale2, -l * LOG2E) : (NEG_INF - l) * LOG2E;
+          p[j][e] = kpos < Skv && qraw < Sq ? exp2f(x) : 0.f;
+          ds[j][e] = p[j][e] * (ds[j][e] - sdelta[c]) * scale;
+        }
+    }
+    uint32_t xp[4][4], xds[4][4];
+    to_a(xp, p);
+    to_a(xds, ds);
+    wg_fence();
+    wg_xb<D>(dv_acc, xp, sdo);
+    wg_xb<D>(dk_acc, xds, sq);
+    wg_commit_wait();
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty + 16 * i;
-    if (kpos < Skv) {
-      const long long o = kv_off + (long long)kpos * ks;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        dk[o + tx + 16 * c] = __float2bfloat16(dk_acc[i][c]);
-        dv[o + tx + 16 * c] = __float2bfloat16(dv_acc[i][c]);
-      }
-    }
-  }
+  cp_wait_all();
+  store_rows<D>(dk + kv_off, ks, k0, Skv, dk_acc);
+  store_rows<D>(dv + kv_off, ks, k0, Skv, dv_acc);
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int Sq, int Skv,
               int H, int Hkv, int causal, int q_offset, float scale, cudaStream_t s) {
-  const int smem = (int)sizeof(DqSmem<D>);
+  const int smem = Tile<D>::DQ_SMEM;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
   flash_bwd_dq_kernel<D><<<grid, THREADS, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dq, Sq, Skv, H, Hkv, causal,
@@ -348,11 +530,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                int Skv, int H, int Hkv, int causal, int q_offset, float scale,
                cudaStream_t s) {
-  const int smem = (int)sizeof(DkvSmem<D>);
+  const int smem = Tile<D>::DKV_SMEM;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Skv + BK - 1) / BK, Hkv, B);
+  const dim3 grid((Skv + ROWS - 1) / ROWS, Hkv, B);
   flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Skv, H, Hkv,

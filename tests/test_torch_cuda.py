@@ -130,6 +130,17 @@ BWD_SHAPES = [
     (1, 33, 65, 2, 2, 64, True),        # odd sizes, offset
     (2, 64, 192, 6, 2, 64, False),      # non-causal, cross shape
     (1, 200, 200, 4, 4, 128, True),     # several tiles each way
+    # lengths off the kernels' 64-row tiles, and g = 1, 2 and 8 at both
+    # head dims
+    (1, 129, 129, 8, 1, 128, True),     # g = 8
+    (1, 300, 300, 8, 8, 128, True),     # g = 1
+    (2, 129, 300, 4, 2, 128, True),     # g = 2, offset 171
+    (2, 300, 300, 4, 4, 64, True),      # g = 1
+    (1, 300, 129, 16, 2, 64, False),    # g = 8, non-causal, Skv < Sq
+    (1, 129, 300, 4, 2, 64, True),      # g = 2, offset 171
+    # non-causal cross shapes with Skv > Sq
+    (1, 129, 300, 8, 1, 128, False),
+    (2, 100, 300, 4, 2, 64, False),
 ]
 
 
@@ -142,8 +153,9 @@ def _bwd_inputs(dev, b, sq, skv, h, hkv, d):
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", BWD_SHAPES)
 def test_flash_bwd_kernels(dev, b, sq, skv, h, hkv, d, causal):
     """dq, dk, dv of the kernels against ``ref.bwd`` on the same out and
-    lse.  The kernels keep p and ds in float32 and the plain version
-    rounds them to bf16, as the JAX ref does: within the bf16 tolerance."""
+    lse.  Both round p and ds to bf16 before the products that take them,
+    as the JAX ref does, and sum in float32 in another order: within the
+    bf16 tolerance."""
     q, k, v, do = _bwd_inputs(dev, b, sq, skv, h, hkv, d)
     qo = skv - sq
     out, lse = fa_kernel.flash_fwd(q, k, v, causal=causal, q_offset=qo)
@@ -159,6 +171,24 @@ def test_flash_bwd_kernels(dev, b, sq, skv, h, hkv, d, causal):
         _close(g, w)
         rel = float((g.float() - w.float()).norm() / w.float().norm())
         assert rel <= REL_L2_TOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", [
+    (2, 300, 300, 8, 2, 128, True), (1, 129, 300, 16, 8, 64, False)])
+def test_flash_bwd_kernels_are_deterministic(dev, b, sq, skv, h, hkv, d,
+                                             causal):
+    """Each block owns its output rows and sums in a fixed order (no
+    atomics): two runs on the same inputs give the same bits."""
+    q, k, v, do = _bwd_inputs(dev, b, sq, skv, h, hkv, d)
+    qo = skv - sq if causal else 0
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=causal, q_offset=qo)
+    first = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=causal,
+                                q_offset=qo)
+    second = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=causal,
+                                 q_offset=qo)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
@@ -257,11 +287,11 @@ def test_rows_that_see_no_key(dev, b, sq, skv, h, hkv, d, qo):
     lse -1e30) and backward as the plain version, which is the JAX
     reference's (scores masked at -1e30, not dropped).  Such a row has
     p = 1 on every key, so its dq (and the dk it adds to every key) is a
-    sum of Skv terms of size ~1 that cancel: the plain version's bf16
-    rounding of ds (2^-9 each) moves it by more than the per-element
-    limit (its own float32 run shows it).  The kernels keep ds in f32, so
-    they are held per element against the plain version run in float32
-    on the same inputs, and as whole tensors against the bf16 one."""
+    sum of Skv terms of size ~1 that cancel, and the bf16 rounding of ds
+    (2^-9 each) moves it by more than the per-element limit would allow
+    against a float32 run.  The kernels round ds to bf16 where the plain
+    version does, so they are held per element and as whole tensors
+    against the plain version in bf16."""
     q, k, v, do = _bwd_inputs(dev, b, sq, skv, h, hkv, d)
     out, lse = fa_kernel.flash_fwd(q, k, v, causal=True, q_offset=qo)
     ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=True, q_offset=qo)
@@ -272,10 +302,8 @@ def test_rows_that_see_no_key(dev, b, sq, skv, h, hkv, d, qo):
     _close(out[:, 0], mean_v)
     got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True, q_offset=qo)
     want = fa_ref.bwd(q, k, v, out, lse, do, causal=True, q_offset=qo)
-    want32 = fa_ref.bwd(q.float(), k.float(), v.float(), out.float(), lse,
-                        do.float(), causal=True, q_offset=qo)
-    for g, w, w32 in zip(got, want, want32):
-        _close(g, w32)
+    for g, w in zip(got, want):
+        _close(g, w)
         assert float((g.float() - w.float()).norm() / w.float().norm()) \
             <= REL_L2_TOL
 
