@@ -15,9 +15,10 @@ Phases, each printing its own lines:
              call, beside the least time the card could take.  The
              attention kernels are held at yi-6b's head dim 128 and
              granite's 64, flash attention also on query rows that see
-             no key (a negative query offset); flash_bwd's kernels also
-             give their achieved TFLOP/s and the same bits on a second
-             run;
+             no key (a negative query offset), and flash_fwd's output
+             also in relative L2; flash attention's
+             kernels also give their achieved TFLOP/s beside SDPA's at
+             the training shapes and the same bits on a second run;
 4. serve   - yi-6b at full width and depth (random weights from a seeded
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
@@ -69,8 +70,9 @@ BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
 # kernel vs plain version, bf16 outputs: |a - b| <= TOL * (1 + |b|).  Both
 # round once to bf16 after f32 sums taken in another order (and the plain
-# attention rounds p to bf16 before p @ v, the kernel does not), so they
-# differ by a few bf16 ulps (2^-8 relative each).
+# attention rounds p to bf16 before p @ v, as flash_fwd does and
+# paged_prefill does not), so they differ by a few bf16 ulps (2^-8
+# relative each).
 TOL = 2e-2
 # lse is f32 on both sides: only the summation order differs
 LSE_TOL = 1e-3
@@ -81,6 +83,13 @@ LSE_TOL = 1e-3
 # relative each), from f32 values summed in another order, and both
 # round the output once.
 REL_L2_TOL = 1e-2
+# flash_fwd's out, whole tensor: ||kernel - plain|| <= FWD_REL_L2_TOL *
+# ||plain||.  With randn inputs |out| is ~0.04 at 4096 keys, where the
+# element check above allows ~2/3 of a value.  Each side rounds p and out
+# to bf16 (2^-9 relative each) from f32 values summed in another order,
+# so two correct versions lie about two such roundings (3.9e-3) apart at
+# most; this file prints the measured error at each shape.
+FWD_REL_L2_TOL = 4e-3
 # teacher-forced logits through 32 layers: both bf16 paths (kernels and
 # plain versions) round activations at other places in every layer, so
 # they drift apart by the bf16 noise of the model itself.  The kernel
@@ -258,16 +267,10 @@ def kernel_phase(torch, dev):
     check(ok, "flash_fwd out differs from the plain version")
     e_lse = float((lse - ref_lse).abs().max())
     check(e_lse <= LSE_TOL, f"flash_fwd lse differs by {e_lse}")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = S * (S + 1) // 2
+    fwd_rel_l2(out, ref_out, "(1,512)")
+    fwd_rate(torch, cpm, "q (1,512,32,128) kv (1,512,4,128) causal", q, k, v)
     rows_out["flash_fwd"] = dict(
         max_abs_err=e, lse_err=e_lse,
-        ms=median_ms(cpm, lambda: ops.flash_attention(q, k, v, causal=True)),
-        plain_ms=median_ms(cpm, lambda: fa_ref.chunked(q, k, v, causal=True)),
-        library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        bound=bound((2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4,
-                    4 * pairs * H * D),
         shape="q (1,512,32,128), kv (1,512,4,128) bf16, causal")
 
     # paged decode: 8 slots of ragged lengths up to 1024, page 16
@@ -343,11 +346,26 @@ def kernel_phase(torch, dev):
     check(ok, "flash_fwd out at (2, 4096) differs from the plain version")
     e_lse = float((lse - ref_lse).abs().max())
     check(e_lse <= LSE_TOL, f"flash_fwd lse at (2, 4096) differs by {e_lse}")
+    fwd_rel_l2(out, ref_out, "(2,4096)")
+    again = fa_kernel.flash_fwd(q, k, v, causal=True)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          "flash_fwd gave other bits on a second run of the same inputs")
+    del again, ref_out, ref_lse
+    # the row: yi-6b's training shape, where the forward costs most
     fwd_row = rows_out["flash_fwd"]
     fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], e)
     fwd_row["lse_err"] = max(fwd_row["lse_err"], e_lse)
-    fwd_row["shape"] += "; held at (1,512) and (2,4096)"
-    del ref_out, ref_lse
+    fwd_row["shape"] = ("q (2,4096,32,128), kv (2,4096,4,128) bf16, causal; "
+                        "held at (1,512) and (2,4096)")
+    ms, lib = fwd_rate(torch, cpm, "q (2,4096,32,128) kv (2,4096,4,128) "
+                       "causal", q, k, v)
+    pairs = S * (S + 1) // 2                 # (query, key) pairs under the mask
+    fwd_row.update(
+        ms=ms, library_ms=lib,
+        plain_ms=median_ms(cpm, lambda: fa_ref.chunked(q, k, v, causal=True),
+                           n=2, reps=3),
+        bound=bound((2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4,
+                    4 * B2 * pairs * H * D))
     got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
     want = fa_ref.bwd(q, k, v, out, lse, do, causal=True)
     errs, rels = [], []
@@ -386,7 +404,6 @@ def kernel_phase(torch, dev):
         torch.autograd.grad(o, (qt, kt, vt), dot)
 
     library = median_ms(cpm, sdpa_fwd_bwd) - median_ms(cpm, sdpa_fwd)
-    pairs = S * (S + 1) // 2                 # (query, key) pairs under the mask
     matmul = 2 * B2 * pairs * H * D          # flops of one S x S x D product
     in_bytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * lse.numel() * 4
     print(f"[kernels] flash_bwd: the whole backward does 5 products (s, dp, "
@@ -429,6 +446,45 @@ def kernel_phase(torch, dev):
     return rows_out
 
 
+def fwd_rel_l2(out, ref_out, shape):
+    """Hold flash_fwd's whole output against the plain version's in
+    relative L2 (FWD_REL_L2_TOL) and print the error."""
+    r = rel_l2(out, ref_out)
+    check(r <= FWD_REL_L2_TOL, f"flash_fwd out at {shape} differs from the "
+          f"plain version by {r:.3g} in relative L2 (tol {FWD_REL_L2_TOL})")
+    print(f"[kernels] flash_fwd {shape}: relative L2 error of out against "
+          f"the plain version {r:.3g} (tol {FWD_REL_L2_TOL})")
+
+
+def fwd_rate(torch, cpm, shape, q, k, v):
+    """Time flash_fwd and SDPA's forward (no grad, causal, GQA without a
+    KV repeat, on the (B, H, S, D) transposes) at one shape and print
+    each one's time, achieved TFLOP/s of the two products under the
+    causal mask and share of their bound at the bf16 peak.  Returns
+    (kernel ms, SDPA ms)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    b, s, h, d = q.shape
+    flops = 2 * 2 * b * (s * (s + 1) // 2) * h * d
+    least = flops / BF16_FLOPS_S * 1e3
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+    t = median_ms(cpm, lambda: fa_kernel.flash_fwd(q, k, v, causal=True))
+    lib = median_ms(cpm, sdpa)
+    parts = [f"{name} {x:.4f} ms = {flops / x / 1e9:.1f} TFLOP/s "
+             f"({least / x:.3f} of the bound)"
+             for name, x in (("flash_fwd", t), ("SDPA forward", lib))]
+    print(f"[kernels] flash_fwd {shape}: {flops:.4g} flops, bound "
+          f"{least:.4f} ms; " + "; ".join(parts)
+          + f"; flash_fwd {t / lib:.2f}x SDPA")
+    return t, lib
+
+
 def bwd_rate(shape, t_dq, t_dkv, matmul, library=None):
     """flash_bwd's two kernels at one shape: each one's time, achieved
     TFLOP/s (3 and 4 products of ``matmul`` flops) and share of its bound
@@ -469,8 +525,12 @@ def head_dim_64(torch, dev, rows_out, rnd, cpm):
     check(ok, "flash_fwd at head dim 64 differs from the plain version")
     e_lse = float((lse - ref_lse).abs().max())
     check(e_lse <= LSE_TOL, f"flash_fwd lse at head dim 64 differs by {e_lse}")
+    fwd_rel_l2(out, ref_out, "(4,4096) head dim 64")
     _fold(rows_out["flash_fwd"], e, "; and q (4,4096,16,64), kv (4,4096,8,64)")
-    del ref_out, ref_lse
+    again = fa_kernel.flash_fwd(q, k, v, causal=True)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          "flash_fwd at head dim 64 gave other bits on a second run")
+    del again, ref_out, ref_lse
     got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
     want = fa_ref.bwd(q, k, v, out, lse, do, causal=True)
     rels = []
@@ -484,8 +544,8 @@ def head_dim_64(torch, dev, rows_out, rnd, cpm):
               e, "")
     del got, want
     delta = (out.float() * do.float()).sum(-1)
-    t_fwd = median_ms(cpm, lambda: fa_kernel.flash_fwd(q, k, v, causal=True),
-                      n=3, reps=5)
+    t_fwd, _ = fwd_rate(torch, cpm, "q (4,4096,16,64) kv (4,4096,8,64) "
+                        "causal", q, k, v)
     t_dq = median_ms(cpm, lambda: fa_kernel.flash_bwd_dq(
         q, k, v, do, lse, delta, causal=True), n=3, reps=5)
     t_dkv = median_ms(cpm, lambda: fa_kernel.flash_bwd_dkv(

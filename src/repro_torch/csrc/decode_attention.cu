@@ -50,7 +50,7 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     const int gi = warp * RW + r;
-    if (gi < g) store_row<D>(st, r, out + ((long long)b * H + hk * g + gi) * D, nullptr);
+    if (gi < g) store_row<D>(st, r, out + ((long long)b * H + hk * g + gi) * D);
   }
 }
 

@@ -34,8 +34,7 @@
 //             block table.
 // Every row of both kernels sees key 0 (a decode slot attends its
 // length + 1 >= 1 keys, a chunk row at start + j >= 0 sees its causal
-// prefix), so no row is left with no visible key: flash_fwd's pass for
-// such rows (attend_unseen in attention.cuh) is not needed here.
+// prefix), so no row is left with no visible key.
 #include "attention.cuh"
 
 namespace repro {
@@ -70,7 +69,7 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     const int gi = warp * RW + r;
-    if (gi < g) store_row<D>(st, r, out + ((long long)b * H + hk * g + gi) * D, nullptr);
+    if (gi < g) store_row<D>(st, r, out + ((long long)b * H + hk * g + gi) * D);
   }
 }
 
@@ -112,7 +111,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     const int ri = r0 + warp * RW + r;
     if (ri < n_rows) {
       const int j = ri / g, h = hk * g + ri % g;
-      store_row<D>(st, r, out + (((long long)b * C + j) * H + h) * D, nullptr);
+      store_row<D>(st, r, out + (((long long)b * C + j) * H + h) * D);
     }
   }
 }

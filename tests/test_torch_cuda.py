@@ -65,15 +65,78 @@ def test_rmsnorm_kernel(dev, rows, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", [
     (2, 70, 90, 8, 2, 128, True), (1, 33, 65, 2, 2, 64, True),
-    (2, 64, 192, 6, 2, 64, False), (1, 17, 17, 8, 1, 128, True)])
+    (2, 64, 192, 6, 2, 64, False), (1, 17, 17, 8, 1, 128, True),
+    # the kernel's tile edges: 64 query rows a warpgroup, 64 keys a step
+    (1, 63, 63, 8, 1, 128, True),       # g = 8
+    (2, 64, 64, 8, 8, 64, True),        # g = 1
+    (1, 65, 1000, 16, 2, 128, True),    # g = 8, offset 935
+    (2, 130, 130, 8, 2, 64, True),      # g = 4
+    (1, 63, 1000, 8, 1, 64, False),
+    (1, 65, 257, 8, 2, 128, False),
+    (2, 130, 1000, 4, 4, 128, False),
+    (1, 64, 130, 16, 2, 64, False)])
 def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
     q, k, v = (_rnd(dev, b, s, n, d, seed=i) for i, (s, n) in
                enumerate([(sq, h), (skv, hkv), (skv, hkv)]))
     qo = skv - sq
+    build.reset_launches()
     out, lse = fa_kernel.flash_fwd(q, k, v, causal=causal, q_offset=qo)
+    assert build.LAUNCHES["flash_fwd"] == 1
     ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=causal, q_offset=qo)
     _close(out, ref_out)
     _close(lse, ref_lse, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,qo", [
+    (2, 300, 300, 8, 1, 128, True, 0), (1, 130, 257, 16, 2, 64, False, 0),
+    (1, 200, 130, 8, 2, 64, True, -70)])
+def test_flash_fwd_kernel_is_deterministic(dev, b, sq, skv, h, hkv, d, causal,
+                                           qo):
+    """Each block owns its output rows and sums in a fixed order (no
+    atomics): two runs on the same inputs give the same bits."""
+    q, k, v = (_rnd(dev, b, s, n, d, seed=i) for i, (s, n) in
+               enumerate([(sq, h), (skv, hkv), (skv, hkv)]))
+    kw = dict(causal=causal, q_offset=qo)
+    first = fa_kernel.flash_fwd(q, k, v, **kw)
+    second = fa_kernel.flash_fwd(q, k, v, **kw)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_launches_once_a_layer_and_forward(dev):
+    """A 2-layer ``Model.loss`` with remat at head dim 64: the forward
+    launches flash_fwd once a layer, and the backward once more a layer
+    (the checkpointed block's forward runs again), with one dq and one
+    dk/dv launch a layer."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, WorkloadShape, yi_6b
+    from repro_torch.data import synthetic_batch
+    from repro_torch.dist.steps import init_train_state
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(yi_6b.SMOKE, d_model=256, n_heads=4,
+                              n_kv_heads=2, n_layers=2)
+    assert cfg.head_dim == 64
+    params = init_train_state(cfg, TrainConfig(), device=dev)["params"]
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
+             synthetic_batch(cfg, WorkloadShape("t", "train", 128, 2)).items()}
+    leaves = P.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    build.reset_launches()
+    loss, _ = Model(cfg).loss(params, batch, remat=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd"] == cfg.n_layers
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_fwd"] == 2 * cfg.n_layers
+    assert build.LAUNCHES["flash_bwd_dq"] == cfg.n_layers
+    assert build.LAUNCHES["flash_bwd_dkv"] == cfg.n_layers
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def _pool(dev, n_pages=40, page=16, hkv=2, d=128):

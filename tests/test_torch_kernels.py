@@ -7,6 +7,8 @@ mode on the same numpy inputs, at the tolerances of test_kernels.py
 rounding of the output, a few bf16 ulps).  The CUDA kernels are held
 against the plain versions in test_torch_cuda.py.
 """
+import shutil
+
 import numpy as np
 import pytest
 
@@ -123,6 +125,43 @@ def test_flash_chunked_matches_jax_ref_and_pallas(shape, dt):
                                rtol=2e-5, atol=2e-5)
     _close(tfa.naive(qt, kt, vt, causal=causal, q_offset=qo),
            jfa.naive(qj, kj, vj, causal=causal, q_offset=qo), tol)
+
+
+@pytest.mark.parametrize("sq,skv,causal,qo", [
+    (130, 200, True, 70),
+    (200, 130, True, -70),              # rows 0..69 see no key
+    (96, 257, False, 0),
+])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hkv", [(2, 2), (8, 2), (8, 1)])     # g 1, 4, 8
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_fwd_ref_at_the_kernel_tiles_matches_jax_ref_and_pallas(
+        sq, skv, causal, qo, d, h, hkv, dt):
+    """The plain forward at the CUDA kernel's geometry (a step of 64 keys
+    at head dim 64, 128 at head dim 128), on shapes that cross several
+    64-row tiles with ragged ends, against the JAX ref at the same block
+    and the Pallas forward with 64 x 64 blocks.  Out at the file's
+    tolerance, lse within 2e-5 (float32 on every side).  A row that sees
+    no key is held against the JAX ref only: the Pallas kernel skips the
+    tiles above its tile's diagonal, so such a row averages only the keys
+    of the tiles it does not skip."""
+    _, jdt, tdt, tol = DTYPES[dt]
+    q, k, v = _qkv(1, sq, skv, h, hkv, d, seed=3)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, jdt, tdt) for a in (q, k, v))
+    kw = dict(causal=causal, q_offset=qo)
+    step = 128 if d == 128 else 64
+    out, lse = tfa.fwd(qt, kt, vt, block_kv=step, **kw)
+    assert out.dtype == tdt and out.shape == qt.shape
+    assert lse.dtype == torch.float32 and lse.shape == (1, sq, h)
+    _close(out, jfa.chunked(qj, kj, vj, block_kv=step, **kw), tol)
+    pal, pal_lse = jfa_kernel.flash_fwd(qj, kj, vj, bq=64, bkv=64,
+                                        interpret=True, **kw)
+    seen = slice(max(0, -qo) if causal else 0, sq)
+    _close(out[:, seen], pal[:, seen], tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(pal_lse), rtol=2e-5,
+                               atol=2e-5)
+    if causal and qo < 0:
+        assert bool((lse[:, :-qo] == -1e30).all())
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -428,11 +467,25 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
         ops.rmsnorm(x, w, impl="pallas")
 
 
-def test_kernel_sources_are_present_and_hashed():
+def test_kernel_sources_are_present_and_hashed(tmp_path, monkeypatch):
     names = {p.name for p in build.CSRC.glob("*.cu")}
     assert {"rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu",
             "paged_attention.cu", "decode_attention.cu",
             "moe_gemm.cu"} <= names
+    # the tensor-core attention kernels share one header, which the
+    # library's hash covers with the sources
+    header = build.CSRC / "wgmma.cuh"
+    assert header.is_file()
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        assert '#include "wgmma.cuh"' in (build.CSRC / src).read_text()
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    monkeypatch.setattr(build, "CSRC", copy)
+    before = build.library_path()
+    with open(copy / "wgmma.cuh", "a") as f:
+        f.write("\n")
+    assert build.library_path() != before
+    monkeypatch.undo()
     assert {"flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
             "decode_attention_bf16", "moe_gemm_bf16"} <= set(build.SIGNATURES)
     assert {"flash_bwd_dq", "flash_bwd_dkv", "decode_attention",

@@ -4,21 +4,25 @@ worth on the card: the kernels as they are, and each rebuilt without one
 choice, timed in one run at yi-6b's and granite-moe-1b-a400m's training
 shapes (causal).
 
-    python3 tools/flash_bwd_variants.py
+    python3 tools/flash_bwd_variants.py [--parent DIR]
 
 Each variant is a textual edit of the source, built beside the kernels:
 
 * ``masked``: every tile through the masked elementwise path (no fast
-  path for tiles that every row sees whole).
+  path for tiles that every row sees whole);
+* ``parent`` (with ``--parent DIR``): ``DIR/flash_bwd.cu`` as it is, with
+  the headers in DIR before those of ``csrc/``: an older tree's kernels,
+  e.g. ``git show HEAD~1:src/repro_torch/csrc/flash_bwd.cu``.
 
 Every variant must give the same bits as the kernels (the same sums in
 the same order); the script fails otherwise.  It prints each kernel's
-registers and spills (``-Xptxas -v``), its CUDA-event time (as
+registers, spills and ptxas's C75xx notes on wgmma (``-Xptxas -v``), its CUDA-event time (as
 ``chip_smoke.py`` takes it) and achieved TFLOP/s, beside the card's name
 and power limit.  Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -38,41 +42,61 @@ VARIANTS = {
 SHAPES = [(2, 4096, 32, 4, 128), (4, 4096, 16, 8, 64)]   # B, S, H, Hkv, D
 
 
-def build_variants(build):
-    out = ROOT / "build" / "flash_bwd_variants"
-    src = (build.CSRC / "flash_bwd.cu").read_text()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        d = out / name
-        d.mkdir(parents=True, exist_ok=True)
+def build_variants(build, source, variants, fns, parent=None):
+    """Build ``csrc/<source>`` once per variant of ``variants`` (name ->
+    textual edits), each with ``errors.cu`` and the headers beside it,
+    all with one nvcc each, started together; with ``parent`` (a
+    directory) also ``parent/<source>`` as variant ``parent``.  Returns
+    name -> the loaded library with the C entry points ``fns`` bound."""
+    out = ROOT / "build" / f"{Path(source).stem}_variants"
+    src = (build.CSRC / source).read_text()
+    texts = {}
+    for name, edits in variants.items():
         text = src
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"variant {name}: {old!r} is not in "
-                                   f"flash_bwd.cu")
+                                   f"{source}")
             text = text.replace(old, new)
-        (d / "flash_bwd.cu").write_text(text)
-        for f in ("common.cuh", "errors.cu"):
-            shutil.copy(build.CSRC / f, d / f)
+        texts[name] = (text, [])
+    if parent is not None:
+        parent = Path(parent)
+        texts["parent"] = ((parent / source).read_text(),
+                           sorted(parent.glob("*.cuh")))
+    procs = {}
+    for name, (text, headers) in texts.items():
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f in [*build.CSRC.glob("*.cuh"), build.CSRC / "errors.cu",
+                  *headers]:
+            shutil.copy(f, d / f.name)
+        (d / source).write_text(text)
         procs[name] = (d, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-shared",
-             str(d / "flash_bwd.cu"), str(d / "errors.cu"),
-             "-o", str(d / "lib.so")],
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared", str(d / source),
+             str(d / "errors.cu"), "-o", str(d / "lib.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (d, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"variant {name} did not build:\n{log}")
-        regs = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
-                if "Used" in ln or "spill stores" in ln]
-        print(f"[variants] {name}: {'; '.join(regs)}", flush=True)
+        notes = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
+                 if "Used" in ln or "spill stores" in ln or "C75" in ln]
+        print(f"[variants] {name}: {'; '.join(notes)}", flush=True)
         so = ctypes.CDLL(str(d / "lib.so"))
-        for fn in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
+        for fn in fns:
             getattr(so, fn).argtypes = build.SIGNATURES[fn]
             getattr(so, fn).restype = ctypes.c_int
         libs[name] = so
     return libs
+
+
+def card(torch):
+    """The card's name and power limit, and torch's version."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    return f"{smi}; torch {torch.__version__}"
 
 
 def main() -> int:
@@ -82,14 +106,17 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fa
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a directory holding an older "
+                    "flash_bwd.cu to build and hold beside the kernels")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_bwd_variants: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"[variants] {smi}; torch {torch.__version__}", flush=True)
-    libs = build_variants(build)
+    print(f"[variants] {card(torch)}", flush=True)
+    libs = build_variants(build, "flash_bwd.cu", VARIANTS,
+                          ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"),
+                          args.parent)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cpm = cs.sleep_cycles_per_ms(torch)
@@ -104,8 +131,8 @@ def main() -> int:
         out, lse = fa.flash_fwd(q, k, v, causal=True)
         delta = (out.float() * do.float()).sum(-1)
         mm = 2 * B * (S * (S + 1) // 2) * H * D
-        first = None
-        for name, so in libs.items():
+        kernel = None                    # the shipped kernels' bits
+        for name, so in libs.items():      # "kernel" first
             dq = torch.empty_like(q)
             dk, dv = torch.empty_like(k), torch.empty_like(v)
             args = (B, S, S, H, HKV, D, 1, 0, D ** -0.5, stream)
@@ -124,9 +151,9 @@ def main() -> int:
             run_dkv()
             torch.cuda.synchronize()
             got = (dq, dk, dv)
-            if first is None:
-                first = tuple(t.clone() for t in got)
-            cs.check(all(torch.equal(a, b) for a, b in zip(first, got)),
+            if name == "kernel":
+                kernel = tuple(t.clone() for t in got)
+            cs.check(all(torch.equal(a, b) for a, b in zip(kernel, got)),
                      f"variant {name} gives other bits than the kernels")
             t_dq, t_dkv = cs.median_ms(cpm, run_dq), cs.median_ms(cpm, run_dkv)
             print(f"[variants] {name} q ({B},{S},{H},{D}) kv "
