@@ -18,7 +18,14 @@ Phases, each printing its own lines:
              no key (a negative query offset), and flash_fwd's output
              also in relative L2; flash attention's
              kernels also give their achieved TFLOP/s beside SDPA's at
-             the training shapes and the same bits on a second run;
+             the training shapes and the same bits on a second run, as
+             do paged decode (split across blocks: both head dims beside
+             SDPA on the gathered KV) and the grouped expert GEMM (T 8,
+             160 and 5120 and the backward's dX and dW, each beside
+             torch.bmm); decode over a contiguous cache gives the same
+             bits as paged decode over the same keys (one split kernel),
+             and paged prefill the bits it gave before the decode kernels
+             were split (tools/attention_bits.py);
 4. serve   - yi-6b at full width and depth (random weights from a seeded
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
@@ -285,6 +292,8 @@ def kernel_phase(torch, dev):
     got = ops.paged_decode_attention(qd, kp, vp, bt, lens)
     e, ok = err_within(got, dec_ref.paged_decode_ref(qd, kp, vp, bt, lens), TOL)
     check(ok, "paged_decode differs from the plain version")
+    check(torch.equal(got, ops.paged_decode_attention(qd, kp, vp, bt, lens)),
+          "paged_decode gave other bits on a second run of the same inputs")
     kg = kp[bt.long()].reshape(B, MAXP * PAGE, HKV, D).transpose(1, 2)
     vg = vp[bt.long()].reshape(B, MAXP * PAGE, HKV, D).transpose(1, 2)
     mask = (torch.arange(MAXP * PAGE, device=dev)[None, :]
@@ -300,6 +309,7 @@ def kernel_phase(torch, dev):
         bound=bound(2 * filled * HKV * D * 2 + 2 * qd.numel() * 2
                     + bt.numel() * 4, 4 * filled * H * D),
         shape="q (8,1,32,128), pools (1025,16,4,128) bf16, lengths 1..1024")
+    paged_decode_rate(torch, rows_out["paged_decode"], "yi-6b", B * HKV, MAXP)
 
     # paged prefill: a 256-row chunk at start 0 and at start 256
     C = 256
@@ -429,6 +439,8 @@ def kernel_phase(torch, dev):
                    rows_out["flash_bwd_dkv"]["ms"], matmul, library))
 
     head_dim_64(torch, dev, rows_out, rnd, cpm)
+    parent_bits(torch, dev)
+    decode_paths_agree(torch, dev, rnd)
     unseen_rows(torch, dev, rows_out, rnd)
     rows_out["moe_gemm"] = moe_gemm_row(torch, dev, rnd, cpm)
     rows_out["decode_attention"] = decode_attention_row(torch, dev, rnd, cpm)
@@ -500,6 +512,57 @@ def bwd_rate(shape, t_dq, t_dkv, matmul, library=None):
             + f"; both {t_dq + t_dkv:.4f} ms{lib}")
 
 
+def paged_decode_rate(torch, row, label, slots_heads, maxp, page=16):
+    """Print paged decode's time beside SDPA on the gathered KV and its
+    byte bound, with the split plan the wrapper launched."""
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    n, pps = dec_kernel.plan_splits(
+        maxp, page, slots_heads,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"[kernels] paged_decode {label} (8 slots, lengths 1..1024): "
+          f"kernel {row['ms']:.4f} ms in {n} splits of {pps * page} keys, "
+          f"SDPA on the gathered KV {row['library_ms']:.4f} ms "
+          f"({row['ms'] / row['library_ms']:.2f}x), bound "
+          f"{row['bound'][0]:.5f} ms ({row['bound'][0] / row['ms']:.3f} of "
+          f"it)")
+
+
+def parent_bits(torch, dev):
+    """paged_prefill runs the `attend` core, which the split of the decode
+    kernels left alone: it must give the bits it gave before
+    (tools/attention_bits.py holds that tree's digests at this file's
+    shapes)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import attention_bits
+    from repro_torch.kernels import ops
+    differ = attention_bits.differ_from_parent(torch, dev, ops)
+    check(not differ, f"paged_prefill gives other bits than before the "
+          f"decode kernels were split: {differ}")
+    print(f"[kernels] paged_prefill: the same bits as before the decode "
+          f"kernels were split, at {len(attention_bits.PARENT)} shapes "
+          f"(tools/attention_bits.py)")
+
+
+def decode_paths_agree(torch, dev, rnd):
+    """The engine decodes through paged_decode and the contiguous path
+    through decode_attention: one split kernel behind two KV addressers.
+    A row's keys, split alike, must give the same bits through both: a
+    yi-6b-wide (8, 1024) cache against the same keys in a page pool (the
+    serve phase then holds the two paths' greedy streams together)."""
+    from repro_torch.kernels import ops
+    B, S, H, HKV, D, PAGE = 8, 1024, 32, 4, 128, 16
+    k, v, q = rnd(B, S, HKV, D), rnd(B, S, HKV, D), rnd(B, 1, H, D)
+    bt = torch.arange(B * S // PAGE, dtype=torch.int32, device=dev).reshape(B, -1)
+    pages = (k.reshape(-1, PAGE, HKV, D), v.reshape(-1, PAGE, HKV, D))
+    for n in (1, 333, 700, 1024):
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        check(torch.equal(ops.decode_attention(q, k, v, n),
+                          ops.paged_decode_attention(q, *pages, bt, lens)),
+              f"decode_attention and paged_decode differ at cache_len {n}")
+    print("[kernels] decode_attention and paged_decode: the same bits over "
+          "the same keys, cache_len 1, 333, 700, 1024")
+
+
 def _fold(row, err, note):
     """Count one more shape's error into a kernel's row."""
     row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -511,6 +574,7 @@ def head_dim_64(torch, dev, rows_out, rnd, cpm):
     query heads over 8 KV heads): flash forward and backward at its
     training shape (batch 4 x 4096), paged decode and prefill at its
     serving shapes."""
+    import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -570,12 +634,27 @@ def head_dim_64(torch, dev, rows_out, rnd, cpm):
     lens = torch.tensor([1, 17, 100, 256, 511, 700, 1000, 1024],
                         dtype=torch.int32, device=dev)
     qd = rnd(B, 1, H, D)
-    e, ok = err_within(ops.paged_decode_attention(qd, kp, vp, bt, lens),
-                       dec_ref.paged_decode_ref(qd, kp, vp, bt, lens), TOL)
+    got = ops.paged_decode_attention(qd, kp, vp, bt, lens)
+    e, ok = err_within(got, dec_ref.paged_decode_ref(qd, kp, vp, bt, lens), TOL)
     check(ok, "paged_decode at head dim 64 differs from the plain version")
+    check(torch.equal(got, ops.paged_decode_attention(qd, kp, vp, bt, lens)),
+          "paged_decode at head dim 64 gave other bits on a second run")
     _fold(rows_out["paged_decode"], e, "; and at (8,1,16,64) over 8 KV heads")
     t_dec = median_ms(cpm, lambda: ops.paged_decode_attention(qd, kp, vp, bt,
                                                               lens))
+    kg = kp[bt.long()].reshape(B, MAXP * PAGE, HKV, D).transpose(1, 2)
+    vg = vp[bt.long()].reshape(B, MAXP * PAGE, HKV, D).transpose(1, 2)
+    mask = (torch.arange(MAXP * PAGE, device=dev)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    filled = int(lens.sum())
+    paged_decode_rate(torch, dict(
+        ms=t_dec,
+        library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True)),
+        bound=bound(2 * filled * HKV * D * 2 + 2 * qd.numel() * 2
+                    + bt.numel() * 4, 4 * filled * H * D)),
+        "granite", B * HKV, MAXP)
+    del kg, vg
     qc = rnd(1, 256, H, D)
     st = torch.tensor([256], dtype=torch.int32, device=dev)
     nv = torch.tensor([180], dtype=torch.int32, device=dev)
@@ -637,13 +716,36 @@ def moe_gemm_row(torch, dev, rnd, cpm):
     path gives it (32 experts, D 1024, F 512): a decode tick's 8 rows
     per expert (8 slots x capacity 1), a legacy prefill's 160 (a
     512-token group's capacity), a train step's 5120 (4 groups x 1280);
-    the backward's two products at the train shape.  The row is the
-    train shape's."""
+    the backward's two products at the train shape, on the transposed
+    views the autograd Function passes.  Each beside torch.bmm on the
+    same operands (a transposed view made contiguous first, outside the
+    timing), with its achieved TFLOP/s and share of its bound, and the
+    same bits on a second run.  The row is the train shape's forward."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_gemm import kernel as moe_kernel
     from repro_torch.kernels.moe_gemm import ref as moe_ref
 
     E, D, F_ = 32, 1024, 512
+
+    def rate(label, a, b, got):
+        """Time the kernel and torch.bmm on a @ b and print both."""
+        check(torch.equal(got, moe_kernel.moe_gemm(a, b)),
+              f"moe_gemm {label} gave other bits on a second run")
+        e, m, k = a.shape
+        flops = 2 * e * m * k * b.shape[2]
+        ac, bc = a.contiguous(), b.contiguous()
+        row = dict(
+            ms=median_ms(cpm, lambda: moe_kernel.moe_gemm(a, b)),
+            library_ms=median_ms(cpm, lambda: torch.bmm(ac, bc)),
+            bound=bound((a.numel() + b.numel() + got.numel()) * 2, flops))
+        t, lib, (least, by) = row["ms"], row["library_ms"], row["bound"]
+        print(f"[kernels] moe_gemm {label} ({e},{m},{k}) x ({e},{k},"
+              f"{b.shape[2]}): kernel {t:.4f} ms = {flops / t / 1e9:.1f} "
+              f"TFLOP/s ({least / t:.3f} of the bound), torch.bmm {lib:.4f} "
+              f"ms = {flops / lib / 1e9:.1f} TFLOP/s ({t / lib:.2f}x), bound "
+              f"{least:.4f} ms ({by})")
+        return row
+
     errs = []
     for label, T in (("decode", 8), ("legacy prefill", 160), ("train", 5120)):
         x, w = rnd(E, T, D), rnd(E, D, F_)
@@ -652,17 +754,8 @@ def moe_gemm_row(torch, dev, rnd, cpm):
                            TOL)
         check(ok, f"moe_gemm at T {T} differs from the plain version")
         errs.append(e)
-        row = dict(
-            ms=median_ms(cpm, lambda: moe_kernel.moe_gemm(x, w)),
-            plain_ms=median_ms(cpm, lambda: moe_ref.moe_gemm_ref(x, w)),
-            library_ms=median_ms(cpm, lambda: torch.bmm(x, w)),
-            bound=bound((E * T * D + E * D * F_ + E * T * F_) * 2,
-                        2 * E * T * D * F_))
-        print(f"[kernels] moe_gemm {label} (32,{T},1024) x (32,1024,512): "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"torch.bmm {row['library_ms']:.4f} ms, bound "
-              f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), "
-              f"{2 * E * T * D * F_ / row['ms'] / 1e9:.1f} TFLOP/s")
+        row = rate(label, x, w, got)
+        row["plain_ms"] = median_ms(cpm, lambda: moe_ref.moe_gemm_ref(x, w))
     dy = rnd(E, T, F_)
     grads = []
     for impl in (None, "ref"):
@@ -677,13 +770,9 @@ def moe_gemm_row(torch, dev, rnd, cpm):
         check(ok and r <= REL_L2_TOL, f"moe_gemm backward {name} differs from "
               f"the plain version's autograd (relative L2 {r:.3g})")
         errs.append(e)
+    rate("backward dX = dY W^T", dy, w.transpose(1, 2), grads[0][0])
+    rate("backward dW = X^T dY", x.transpose(1, 2), dy, grads[0][1])
     del grads
-    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
-    t_dx = median_ms(cpm, lambda: moe_kernel.moe_gemm(dy, wt))
-    t_dw = median_ms(cpm, lambda: moe_kernel.moe_gemm(xt, dy))
-    print(f"[kernels] moe_gemm backward at the train shape: dX = dY W^T "
-          f"{t_dx:.4f} ms, dW = X^T dY {t_dw:.4f} ms (same flops as the "
-          f"forward)")
     row["max_abs_err"] = max(errs)
     row["shape"] = ("x (32,5120,1024), w (32,1024,512) bf16; held at T 8, "
                     "160, 5120 and the backward's dX, dW (errors x 1/sqrt(depth))")
@@ -701,9 +790,11 @@ def decode_attention_row(torch, dev, rnd, cpm):
     errs = []
     for label, H, HKV, D in (("granite", 16, 8, 64), ("yi-6b", 32, 4, 128)):
         q, k, v = rnd(B, 1, H, D), rnd(B, S, HKV, D), rnd(B, S, HKV, D)
-        e, ok = err_within(ops.decode_attention(q, k, v, L),
-                           dec_ref.decode_ref(q, k, v, L), TOL)
+        got = ops.decode_attention(q, k, v, L)
+        e, ok = err_within(got, dec_ref.decode_ref(q, k, v, L), TOL)
         check(ok, f"decode_attention ({label}) differs from the plain version")
+        check(torch.equal(got, ops.decode_attention(q, k, v, L)),
+              f"decode_attention ({label}) gave other bits on a second run")
         errs.append(e)
         g = H // HKV
         qt = q.transpose(1, 2)

@@ -13,69 +13,47 @@
 //
 // Design: the TPU grid (batch, KV head, kv block) walked the cache's
 // blocks in order with the running max, normalizer and accumulator in
-// VMEM, skipping blocks past the fill.  Here one block per (KV head,
-// batch row) walks the keys in a loop (attention.cuh, through the
-// ContigKV addresser), 32 positions per tile, with one row per query
-// head of the group, so each K/V tile is loaded once for all g heads.
-// The loop stops at cache_len: keys at or past it are never read, so a
-// decode step's cost follows the filled cache, not the allocated one.
-// cache_len >= 1 (the wrapper checks), so every row sees key 0.
+// VMEM, skipping blocks past the fill.  Here the keys are split across
+// blocks as paged decode splits them (attention.cuh's split::, through
+// the ContigKV addresser): the grid is (split, KV head, batch row), a
+// split a run of whole KEY_BLOCK-key blocks, n_split picked by the caller
+// from static shapes as for paged decode (the cache's width in key
+// blocks, B * Hkv and the SM count); a second kernel merges each row's
+// splits in split order.  A split that starts at or past cache_len
+// writes an empty partial and reads nothing, so a decode step's cost
+// follows the filled cache, not the allocated one.  A row's keys split
+// at the same positions in a contiguous cache and in a page pool give
+// the same bits through both kernels, so the contiguous path and the
+// paged engine decode alike.  cache_len >= 1 (the wrapper checks).
 #include "attention.cuh"
 
 namespace repro {
 
-template <int D>
-__global__ void __launch_bounds__(attn::MAX_WARPS * 32)
-decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                        int H, int Hkv, int cache_len, float scale) {
-  using namespace attn;
-  __shared__ Smem<D> sm;
-  const int hk = blockIdx.x, b = blockIdx.y, g = H / Hkv;
-  const int warp = threadIdx.x >> 5;
-  const ContigKV kv{k + ((long long)b * S * Hkv + hk) * D,
-                    v + ((long long)b * S * Hkv + hk) * D, (long long)Hkv * D};
-
-  Rows<D> st;
-  const bf16* qrow[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int gi = warp * RW + r;
-    const bool active = gi < g;
-    qrow[r] = active ? q + ((long long)b * H + hk * g + gi) * D : nullptr;
-    st.limit[r] = active ? 0x7fffffff : -1;
-  }
-  load_q<D>(sm, qrow);
-  attend<D>(sm, kv, min(cache_len, S), scale, st);
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int gi = warp * RW + r;
-    if (gi < g) store_row<D>(st, r, out + ((long long)b * H + hk * g + gi) * D);
-  }
-}
+constexpr int KEY_BLOCK = 16;   // a split is whole blocks of this many keys
 
 }  // namespace repro
 
+// ws: B * H * n_split * (D + 2) f32 of scratch; the cache's
+// ceil(S / KEY_BLOCK) key blocks are cut into n_split splits of
+// ceil(blocks / n_split) blocks.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
-                                     void* out, int B, int S, int H, int Hkv, int D,
-                                     int cache_len, float scale, void* stream) {
+                                     void* out, void* ws, int B, int S, int H, int Hkv,
+                                     int D, int cache_len, int n_split, float scale,
+                                     void* stream) {
   using namespace repro;
   if (B <= 0) return (int)cudaGetLastError();
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > attn::ROWS || B > 65535 || cache_len < 1)
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > attn::ROWS || B > 65535 || Hkv > 65535 ||
+      H > 65535 || cache_len < 1 || S < 1 || n_split <= 0)
     return (int)cudaErrorInvalidValue;
-  const int g = H / Hkv;
-  const dim3 grid(Hkv, B);
-  const dim3 block(32 * ((g + attn::RW - 1) / attn::RW));
+  const attn::split::ContigSource src{(const bf16*)k, (const bf16*)v, Hkv, D, S, cache_len};
+  const int blocks = (S + KEY_BLOCK - 1) / KEY_BLOCK;
+  const int split_keys = max(1, (blocks + n_split - 1) / n_split) * KEY_BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 128)
-    decode_attention_kernel<128><<<grid, block, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, S, H, Hkv,
-        cache_len, scale);
-  else if (D == 64)
-    decode_attention_kernel<64><<<grid, block, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, S, H, Hkv,
-        cache_len, scale);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return attn::split::launch<128>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                    n_split, split_keys, scale, s);
+  if (D == 64)
+    return attn::split::launch<64>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                   n_split, split_keys, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

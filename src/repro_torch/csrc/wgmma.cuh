@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the port's tensor-core attention
-// kernels (flash_fwd.cu, flash_bwd.cu): asynchronous copies into shared
-// memory, bf16 tiles in the 128-byte swizzle, wgmma descriptors, and
-// m64n64k16 products by one warpgroup with f32 sums in registers.
+// Hopper building blocks shared by the port's tensor-core kernels
+// (flash_fwd.cu, flash_bwd.cu, moe_gemm.cu): asynchronous copies into
+// shared memory, bf16 tiles in the 128-byte swizzle, wgmma descriptors,
+// and m64n64k16, m64n128k16 and m64n256k16 products by one warpgroup
+// with f32 sums in registers.
 //
 // A warpgroup is 4 warps that issue each wgmma together.  Its product
 // is 64 rows x 64 columns; warp w of the warpgroup holds rows
@@ -43,6 +44,18 @@ __device__ __forceinline__ void cp_commit() {
 // reads (the async proxy); a barrier after it makes everyone's so.
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// All but this thread's N latest groups of copies have landed.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Writes to shared memory by this thread's copies or stores are visible
+// to the tensor cores' reads (the async proxy) after a barrier.
+__device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
@@ -180,6 +193,66 @@ __device__ __forceinline__ void wg_rs(float (&c)[8][4], const uint32_t (&a)[4],
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WG_C32(c)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Commit the products issued since the last commit as one group; wait
+// until at most N groups are in flight.  A group left in flight must not
+// share registers with any instruction issued meanwhile (see above).
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The 64 f32 sums a thread holds of a 64 x 128 product, laid out as
+// WG_C32's for columns 8 j..8 j + 7, j < 16.
+#define WG_C4(c, j) "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+#define WG_C16(c, j) WG_C4(c, j), WG_C4(c, j + 1), WG_C4(c, j + 2), WG_C4(c, j + 3)
+#define WG_C64(c) WG_C16(c, 0), WG_C16(c, 4), WG_C16(c, 8), WG_C16(c, 12)
+// ... and the 128 of a 64 x 256 product, j < 32
+#define WG_C128(c) \
+  WG_C64(c), WG_C16(c, 16), WG_C16(c, 20), WG_C16(c, 24), WG_C16(c, 28)
+
+// c += a b over a depth of 16, 64 rows x 128 columns, both operands in
+// shared memory: TA = 0 takes a K-major A (desc_k), 1 an MN-major one
+// (desc_mn, its 64 rows one column block); likewise TB for B, whose 128
+// columns are 16 8-row groups (K-major) or two column blocks (MN-major).
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss128(float (&c)[16][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : WG_C64(c)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// ... and 64 rows x 256 columns (B's 256 columns: 32 8-row groups, or
+// four column blocks)
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss256(float (&c)[32][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "
+      "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : WG_C128(c)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // c (the block's 64 rows x 64 columns) = a b^T over depth D: a the 64

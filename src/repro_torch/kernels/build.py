@@ -35,10 +35,10 @@ SIGNATURES = {
     # q, k, v, out, lse, B, Sq, Skv, H, Hkv, D, causal, q_offset, scale, stream
     "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _P],
-    # q, k_pages, v_pages, block_table, lengths, out,
-    # B, H, Hkv, D, page, pages_per_slot, scale, stream
-    "paged_decode_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _P],
+    # q, k_pages, v_pages, block_table, lengths, out, workspace,
+    # B, H, Hkv, D, page, pages_per_slot, n_split, scale, stream
+    "paged_decode_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _F, _P],
     # q, k_pages, v_pages, block_table, start, n_valid, out,
     # B, C, H, Hkv, D, page, pages_per_slot, scale, stream
     "paged_prefill_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -51,8 +51,10 @@ SIGNATURES = {
     # B, Sq, Skv, H, Hkv, D, causal, q_offset, scale, stream
     "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _F, _P],
-    # q, k, v, out, B, S, H, Hkv, D, cache_len, scale, stream
-    "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, workspace, B, S, H, Hkv, D, cache_len, n_split, scale,
+    # stream
+    "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _P],
     # a, b, out, E, M, N, K, a strides (e, m, k), b strides (e, k, n), stream
     "moe_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
                       _P],

@@ -155,6 +155,98 @@ def test_paged_decode_kernel(dev, h, hkv):
            dec_ref.paged_decode_ref(q, kp, vp, bt, lens))
 
 
+def _split_pool(dev, b, maxp, hkv, d, page=16, seed=11):
+    """Pools of b slots of maxp pages each, every slot its own pages
+    (page 0 unused), in a shuffled block table."""
+    n_pages = b * maxp + 1
+    kp = _rnd(dev, n_pages, page, hkv, d, seed=seed)
+    vp = _rnd(dev, n_pages, page, hkv, d, seed=seed + 1)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bt = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)[:b * maxp]
+          ).to(torch.int32).reshape(b, maxp)
+    return kp, vp, bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,d", [
+    (8, 8, 128), (16, 8, 128), (32, 4, 128), (16, 1, 128),   # g = 1, 2, 8, 16
+    (8, 8, 64), (16, 8, 64), (64, 8, 64), (16, 1, 64)])
+def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
+    """Slots of 80 pages (many splits): lengths 1, page - 1, page, page +
+    1, a split boundary - 1, + 0 and + 1 (the wrapper's plan), and the
+    full slot; the same bits twice, one launch a call, and pool entries
+    past each slot's length (later pages and the rest of its last page)
+    never read: poisoned with NaN, they change nothing."""
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    b, maxp, page = 8, 80, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, pps = dec_kernel.plan_splits(maxp, page, b * hkv, sms)
+    assert n_split > 1
+    edge = pps * page
+    kp, vp, bt = _split_pool(dev, b, maxp, hkv, d)
+    lens = torch.tensor([1, page - 1, page, page + 1, edge - 1, edge,
+                         edge + 1, maxp * page], dtype=torch.int32, device=dev)
+    q = _rnd(dev, b, 1, h, d, seed=12)
+    build.reset_launches()
+    got = ops.paged_decode_attention(q, kp, vp, bt, lens)
+    assert build.LAUNCHES["paged_decode"] == 1
+    _close(got, dec_ref.paged_decode_ref(q, kp, vp, bt, lens))
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, bt, lens), got)
+    for i, n in enumerate(lens.tolist()):
+        pages = bt[i].long()
+        kp[pages[-(-n // page):]] = float("nan")
+        vp[pages[-(-n // page):]] = float("nan")
+        if n % page:
+            kp[pages[n // page], n % page:] = float("nan")
+            vp[pages[n // page], n % page:] = float("nan")
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, bt, lens), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_decode_kernel_with_more_splits_than_filled_pages(dev, d):
+    """Short slots in wide block tables: most splits start past their
+    slot's length and write empty partials, which the merge skips."""
+    b, maxp, page, h, hkv = 4, 96, 16, 16, 2
+    kp, vp, bt = _split_pool(dev, b, maxp, hkv, d, seed=21)
+    lens = torch.tensor([1, 2, 17, 40], dtype=torch.int32, device=dev)
+    q = _rnd(dev, b, 1, h, d, seed=22)
+    got = ops.paged_decode_attention(q, kp, vp, bt, lens)
+    _close(got, dec_ref.paged_decode_ref(q, kp, vp, bt, lens))
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (16, 1, 64)])
+def test_decode_attention_gives_paged_decodes_bits(dev, h, hkv, d):
+    """One split kernel behind two KV addressers: a contiguous cache and
+    a page pool holding the same keys give the same bits, at every
+    cache_len (the engine and the contiguous path decode alike)."""
+    b, s, page = 3, 1000, 16
+    k, v = _rnd(dev, b, s + 8, hkv, d, seed=31), _rnd(dev, b, s + 8, hkv, d, seed=32)
+    q = _rnd(dev, b, 1, h, d, seed=33)
+    bt = torch.arange(b * (s + 8) // page, dtype=torch.int32,
+                      device=dev).reshape(b, -1)
+    kp, vp = k.reshape(-1, page, hkv, d), v.reshape(-1, page, hkv, d)
+    for n in (1, 63, 64, 65, 500, 1000):
+        lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+        assert torch.equal(ops.decode_attention(q, k, v, n),
+                           ops.paged_decode_attention(q, kp, vp, bt, lens))
+
+
+@pytest.mark.cuda
+def test_paged_prefill_keeps_its_bits(dev):
+    """paged_prefill (the `attend` core, which the split decode kernels
+    left alone) gives the bits it gave before the decode kernels were
+    split across blocks, at chip_smoke.py's shapes
+    (tools/attention_bits.py holds the older tree's digests)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import attention_bits
+    assert attention_bits.differ_from_parent(torch, dev, ops) == []
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("start,n_valid", [(0, 24), (16, 10), (100, 24),
                                            (170, 20)])
@@ -440,6 +532,44 @@ def test_moe_gemm_backward_launches_the_kernel_twice(dev, e, t, d, f):
             assert build.LAUNCHES["moe_gemm"] == 2
     _moe_close(grads[0][0], grads[1][0], f)          # dX sums over F
     _moe_close(grads[0][1], grads[1][1], t)          # dW sums over T
+
+
+def _moe_grads(x, w, dy):
+    """dX and dW through the kernel's autograd Function and through
+    autograd of the plain version."""
+    grads = []
+    for impl in (None, "ref"):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        grads.append(torch.autograd.grad(ops.moe_gemm(xl, wl, impl=impl),
+                                         (xl, wl), dy))
+    return grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,t,d,f", [
+    (32, 5120, 1024, 512),              # granite's train step
+    # ragged edges on every axis, at 128- and 256-column tiles
+    (2, 129, 72, 264), (32, 300, 136, 264), (5, 130, 8, 130)])
+def test_moe_gemm_kernel_forward_and_backward_views(dev, e, t, d, f):
+    """The forward and the backward's two products on transposed views
+    (dX = dY W^T, dW = X^T dY) against the plain version and its
+    autograd, per element after scaling by 1 / sqrt(depth) and in
+    relative L2, and the same bits on a second run."""
+    x, w = _rnd(dev, e, t, d, seed=1), _rnd(dev, e, d, f, seed=2)
+    dy = _rnd(dev, e, t, f, seed=3)
+    got = moe_kernel.moe_gemm(x, w)
+    want = moe_ref.moe_gemm_ref(x, w)
+    _moe_close(got, want, d)
+    assert float((got.float() - want.float()).norm()
+                 / want.float().norm()) <= REL_L2_TOL
+    assert torch.equal(moe_kernel.moe_gemm(x, w), got)
+    (dx, dw), (dx_ref, dw_ref) = _moe_grads(x, w, dy)
+    for a, b, depth in ((dx, dx_ref, f), (dw, dw_ref, t)):
+        _moe_close(a, b, depth)
+        assert float((a.float() - b.float()).norm()
+                     / b.float().norm()) <= REL_L2_TOL
+    assert torch.equal(moe_kernel.moe_gemm(dy, w.transpose(1, 2)), dx)
+    assert torch.equal(moe_kernel.moe_gemm(x.transpose(1, 2), dy), dw)
 
 
 @pytest.mark.cuda

@@ -329,13 +329,20 @@ def test_decode_ref_matches_jax_ref(smax, fill, h, hkv):
                                 jnp.asarray(v), fill), 2e-5)
 
 
-@pytest.mark.parametrize("fills", [[64, 33, 1], [40, 17, 16], [1, 1, 2]])
+@pytest.mark.parametrize("fills", [
+    [64, 33, 1], [40, 17, 16], [1, 1, 2],
+    # slots over many pages (40 a slot), filled across where the CUDA
+    # kernel's splits of whole pages fall (every 4 pages, 64 keys, at
+    # these shapes: decode_attention.kernel.plan_splits), and the full slot
+    [63, 64, 65], [640, 129, 448]])
 @pytest.mark.parametrize("h,hkv", [(4, 2), (8, 8), (8, 1)])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_paged_decode_matches_jax_ref_and_pallas(fills, h, hkv, dt):
     _, jdt, tdt, tol = DTYPES[dt]
-    page, maxp, d = 16, 4, 32
-    kp, vp, bt = _pool(16, page, hkv, d, fills, maxp)
+    page, d = 16, 32
+    maxp = 4 if max(fills) <= 64 else 40
+    n_pages = max(16, 1 + sum(-(-f // page) for f in fills))
+    kp, vp, bt = _pool(n_pages, page, hkv, d, fills, maxp)
     q = np.random.default_rng(2).standard_normal((3, 1, h, d), np.float32)
     (qj, qt), (kj, kt), (vj, vt) = (_both(a, jdt, tdt) for a in (q, kp, vp))
     lens = np.asarray(fills, np.int32)
@@ -347,6 +354,33 @@ def test_paged_decode_matches_jax_ref_and_pallas(fills, h, hkv, dt):
     _close(out, jops.paged_decode_attention(qj, kj, vj, jnp.asarray(bt),
                                             jnp.asarray(lens),
                                             impl="interpret"), tol)
+
+
+@pytest.mark.parametrize("maxp,page,slots_heads,sms", [
+    (64, 16, 32, 132), (64, 16, 64, 132), (40, 16, 6, 132), (1, 16, 8, 132),
+    (0, 16, 8, 132), (100, 1, 1, 132), (7, 3, 1000, 132), (65, 16, 2, 16)])
+def test_paged_decode_split_plan_covers_every_key_once(maxp, page,
+                                                       slots_heads, sms):
+    """The CUDA paged decode cuts each slot's block-table row into
+    n_split splits of pages_per_split whole pages (the kernel takes
+    ceil(maxp / n_split) itself): every key position of the row lies in
+    exactly one split, no split is empty by construction, and the plan
+    is a function of static shapes alone (no lengths)."""
+    from repro_torch.kernels.decode_attention import kernel as tdk
+    n, pps = tdk.plan_splits(maxp, page, slots_heads, sms)
+    assert (n, pps) == tdk.plan_splits(maxp, page, slots_heads, sms)
+    assert n >= 1 and pps == max(1, -(-maxp // n))
+    seen = np.zeros(maxp * page, np.int32)
+    for s in range(n):
+        lo, hi = s * pps * page, min((s + 1) * pps * page, maxp * page)
+        assert lo % page == 0 and (hi % page == 0 or hi == maxp * page)
+        assert maxp == 0 or lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert n <= max(1, maxp)
+    # each split holds at least MIN_SPLIT_KEYS keys unless the row is short
+    if maxp * page >= tdk.MIN_SPLIT_KEYS and n > 1:
+        assert pps * page >= tdk.MIN_SPLIT_KEYS
 
 
 def _prefill_case(h, hkv, start, valid, chunk=8, page=8, maxp=4, d=32, b=2):

@@ -96,7 +96,7 @@ def arch(request):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("t", [1, 5, 130])
+@pytest.mark.parametrize("t", [1, 5, 130, 300])   # 300: three 128-row tiles
 @pytest.mark.parametrize("d", [64, 300])
 @pytest.mark.parametrize("dt,tol", [("f32", 2e-5), ("bf16", 2e-2)])
 def test_moe_gemm_ref_matches_jax_ref_and_pallas(t, d, dt, tol):
