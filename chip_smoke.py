@@ -23,9 +23,12 @@ Phases, each printing its own lines:
              SDPA on the gathered KV) and the grouped expert GEMM (T 8,
              160 and 5120 and the backward's dX and dW, each beside
              torch.bmm); decode over a contiguous cache gives the same
-             bits as paged decode over the same keys (one split kernel),
-             and paged prefill the bits it gave before the decode kernels
-             were split (tools/attention_bits.py);
+             bits as paged decode over the same keys (one split kernel);
+             paged prefill (a 256-row chunk at both head dims, beside SDPA
+             on the gathered KV) also in relative L2, the same bits twice
+             and against flash_fwd over the same keys; and flash_fwd gives
+             the bits it gave before its kernel body was shared with
+             paged prefill (tools/attention_bits.py);
 4. serve   - yi-6b at full width and depth (random weights from a seeded
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
@@ -76,10 +79,10 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
 # kernel vs plain version, bf16 outputs: |a - b| <= TOL * (1 + |b|).  Both
-# round once to bf16 after f32 sums taken in another order (and the plain
-# attention rounds p to bf16 before p @ v, as flash_fwd does and
-# paged_prefill does not), so they differ by a few bf16 ulps (2^-8
-# relative each).
+# round once to bf16 after f32 sums taken in another order (and the
+# attention kernels round p where their plain versions do: to bf16 before
+# p @ v in flash_fwd and paged_prefill, not at all in the decode kernels),
+# so they differ by a few bf16 ulps (2^-8 relative each).
 TOL = 2e-2
 # lse is f32 on both sides: only the summation order differs
 LSE_TOL = 1e-3
@@ -90,12 +93,13 @@ LSE_TOL = 1e-3
 # relative each), from f32 values summed in another order, and both
 # round the output once.
 REL_L2_TOL = 1e-2
-# flash_fwd's out, whole tensor: ||kernel - plain|| <= FWD_REL_L2_TOL *
-# ||plain||.  With randn inputs |out| is ~0.04 at 4096 keys, where the
-# element check above allows ~2/3 of a value.  Each side rounds p and out
-# to bf16 (2^-9 relative each) from f32 values summed in another order,
-# so two correct versions lie about two such roundings (3.9e-3) apart at
-# most; this file prints the measured error at each shape.
+# flash_fwd's out, whole tensor, and paged_prefill's real rows:
+# ||kernel - plain|| <= FWD_REL_L2_TOL * ||plain||.  With randn inputs
+# |out| is ~0.04 at 4096 keys, where the element check above allows ~2/3
+# of a value.  Each side rounds p and out to bf16 (2^-9 relative each)
+# from f32 values summed in another order, so two correct versions lie
+# about two such roundings (3.9e-3) apart at most; this file prints the
+# measured error at each shape.
 FWD_REL_L2_TOL = 4e-3
 # teacher-forced logits through 32 layers: both bf16 paths (kernels and
 # plain versions) round activations at other places in every layer, so
@@ -311,39 +315,12 @@ def kernel_phase(torch, dev):
         shape="q (8,1,32,128), pools (1025,16,4,128) bf16, lengths 1..1024")
     paged_decode_rate(torch, rows_out["paged_decode"], "yi-6b", B * HKV, MAXP)
 
-    # paged prefill: a 256-row chunk at start 0 and at start 256
-    C = 256
-    MAXP1 = 1024 // PAGE
-    bt1 = bt[:1]
-    errs = []
-    for start, n_valid in ((0, 200), (256, 180)):
-        qc = rnd(1, C, H, D)
-        st = torch.tensor([start], dtype=torch.int32, device=dev)
-        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
-        got = ops.paged_prefill_attention(qc, kp, vp, bt1, st, nv)
-        want = dec_ref.paged_prefill_ref(qc, kp, vp, bt1, st, nv)
-        e, ok = err_within(got[:, :n_valid], want[:, :n_valid], TOL)
-        check(ok, f"paged_prefill at start {start} differs")
-        errs.append(e)
-    fill = start + n_valid
-    kg1 = kp[bt1.long()].reshape(1, MAXP1 * PAGE, HKV, D).transpose(1, 2)
-    vg1 = vp[bt1.long()].reshape(1, MAXP1 * PAGE, HKV, D).transpose(1, 2)
-    qpos = start + torch.arange(C, device=dev)
-    kpos = torch.arange(MAXP1 * PAGE, device=dev)
-    cmask = ((kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < fill))[None, None]
-    # keys each row sees: its causal prefix, cut at the fill
-    seen = sum(min(start + j + 1, fill) for j in range(C))
-    rows_out["paged_prefill"] = dict(
-        max_abs_err=max(errs),
-        ms=median_ms(cpm, lambda: ops.paged_prefill_attention(qc, kp, vp, bt1, st,
-                                                         nv)),
-        plain_ms=median_ms(cpm, lambda: dec_ref.paged_prefill_ref(
-            qc, kp, vp, bt1, st, nv)),
-        library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
-            qc.transpose(1, 2), kg1, vg1, attn_mask=cmask, enable_gqa=True)),
-        bound=bound(2 * fill * HKV * D * 2 + 2 * qc.numel() * 2,
-                    4 * seen * H * D),
-        shape="q (1,256,32,128) at start 256, n_valid 180, page 16")
+    # paged prefill: a 256-row chunk at start 0 and at start 256, timed
+    # at start 256
+    rows_out["paged_prefill"] = paged_prefill_row(
+        torch, dev, rnd, cpm, "yi-6b", H, kp, vp, bt[:1], ((0, 200), (256, 180)))
+    rows_out["paged_prefill"]["shape"] = (
+        "q (1,256,32,128) at start 256, n_valid 180, page 16")
 
     # flash forward and backward at yi-6b's published 4K training context
     # and the Trainer's batch of 2
@@ -527,19 +504,93 @@ def paged_decode_rate(torch, row, label, slots_heads, maxp, page=16):
           f"it)")
 
 
+def paged_prefill_row(torch, dev, rnd, cpm, label, h, kp, vp, bt1, fills):
+    """paged_prefill of a 256-row chunk of ``h`` query heads over the
+    slot's pages ``bt1`` at each (start, n_valid) of ``fills``: within
+    TOL per element and FWD_REL_L2_TOL in relative L2 of the plain
+    version over the real rows, the same bits twice, every row finite
+    (padding rows too: the engine writes their K/V into the null page),
+    and the real rows within TOL of flash_fwd over the same keys gathered
+    (q_offset = start).  Timed at the last fill beside the plain version
+    and SDPA on the gathered KV; returns the kernels row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    _, page, hkv, d = kp.shape
+    C, maxp = 256, bt1.shape[1]
+    kg = kp[bt1.long()].reshape(1, maxp * page, hkv, d)
+    vg = vp[bt1.long()].reshape(1, maxp * page, hkv, d)
+    errs = []
+    for start, n_valid in fills:
+        qc = rnd(1, C, h, d)
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+        got = ops.paged_prefill_attention(qc, kp, vp, bt1, st, nv)
+        want = dec_ref.paged_prefill_ref(qc, kp, vp, bt1, st, nv)
+        where = f"paged_prefill {label} at start {start}"
+        e, ok = err_within(got[:, :n_valid], want[:, :n_valid], TOL)
+        check(ok, f"{where} differs from the plain version")
+        r = rel_l2(got[:, :n_valid], want[:, :n_valid])
+        check(r <= FWD_REL_L2_TOL, f"{where} differs from the plain version "
+              f"by {r:.3g} in relative L2 (tol {FWD_REL_L2_TOL})")
+        check(torch.equal(got, ops.paged_prefill_attention(qc, kp, vp, bt1, st,
+                                                           nv)),
+              f"{where} gave other bits on a second run of the same inputs")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{where} has rows that are not finite")
+        fill = start + n_valid
+        flash, _ = fa_kernel.flash_fwd(qc, kg[:, :fill].contiguous(),
+                                       vg[:, :fill].contiguous(), causal=True,
+                                       q_offset=start)
+        e_fa, ok = err_within(got[:, :n_valid], flash[:, :n_valid], TOL)
+        check(ok, f"{where} differs from flash_fwd over the same keys")
+        print(f"[kernels] {where}, n_valid {n_valid}: max error {e:.3g} and "
+              f"relative L2 {r:.3g} against the plain version (tol {TOL}, "
+              f"{FWD_REL_L2_TOL}) over the real rows; the same bits twice; "
+              f"against flash_fwd over the gathered keys max error "
+              f"{e_fa:.3g}, bit-equal "
+              f"{torch.equal(got[:, :n_valid], flash[:, :n_valid])}")
+        errs.append(e)
+    # the keys each row sees: its causal prefix, cut at the fill
+    seen = sum(min(start + j + 1, fill) for j in range(C))
+    qpos = start + torch.arange(C, device=dev)
+    kpos = torch.arange(maxp * page, device=dev)
+    cmask = ((kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < fill))[None, None]
+    kt, vt = kg.transpose(1, 2), vg.transpose(1, 2)
+    row = dict(
+        max_abs_err=max(errs),
+        ms=median_ms(cpm, lambda: ops.paged_prefill_attention(qc, kp, vp, bt1, st,
+                                                              nv)),
+        plain_ms=median_ms(cpm, lambda: dec_ref.paged_prefill_ref(
+            qc, kp, vp, bt1, st, nv)),
+        library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
+            qc.transpose(1, 2), kt, vt, attn_mask=cmask, enable_gqa=True)),
+        bound=bound(2 * fill * hkv * d * 2 + 2 * qc.numel() * 2,
+                    4 * seen * h * d))
+    print(f"[kernels] paged_prefill {label} q (1,256,{h},{d}) at start 256, "
+          f"n_valid 180, page {page}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, SDPA on the gathered KV "
+          f"{row['library_ms']:.4f} ms ({row['ms'] / row['library_ms']:.2f}x), "
+          f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]}, "
+          f"{row['bound'][0] / row['ms']:.3f} of it)")
+    return row
+
+
 def parent_bits(torch, dev):
-    """paged_prefill runs the `attend` core, which the split of the decode
-    kernels left alone: it must give the bits it gave before
+    """flash_fwd's kernel body is the template paged prefill shares
+    (flash_fwd.cuh): flash_fwd must give the bits it gave before
     (tools/attention_bits.py holds that tree's digests at this file's
-    shapes)."""
+    three flash_fwd shapes)."""
     sys.path.insert(0, str(ROOT / "tools"))
     import attention_bits
-    from repro_torch.kernels import ops
-    differ = attention_bits.differ_from_parent(torch, dev, ops)
-    check(not differ, f"paged_prefill gives other bits than before the "
-          f"decode kernels were split: {differ}")
-    print(f"[kernels] paged_prefill: the same bits as before the decode "
-          f"kernels were split, at {len(attention_bits.PARENT)} shapes "
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    differ = attention_bits.differ_from_parent(torch, dev, fa_kernel)
+    check(not differ, f"flash_fwd gives other bits than before its body was "
+          f"shared with paged prefill: {differ}")
+    print(f"[kernels] flash_fwd: the same bits as before its body was shared "
+          f"with paged prefill, at {len(attention_bits.PARENT)} shapes "
           f"(tools/attention_bits.py)")
 
 
@@ -655,19 +706,13 @@ def head_dim_64(torch, dev, rows_out, rnd, cpm):
                     + bt.numel() * 4, 4 * filled * H * D)),
         "granite", B * HKV, MAXP)
     del kg, vg
-    qc = rnd(1, 256, H, D)
-    st = torch.tensor([256], dtype=torch.int32, device=dev)
-    nv = torch.tensor([180], dtype=torch.int32, device=dev)
-    got = ops.paged_prefill_attention(qc, kp, vp, bt[:1], st, nv)
-    want = dec_ref.paged_prefill_ref(qc, kp, vp, bt[:1], st, nv)
-    e, ok = err_within(got[:, :180], want[:, :180], TOL)
-    check(ok, "paged_prefill at head dim 64 differs from the plain version")
-    _fold(rows_out["paged_prefill"], e, "; and at (1,256,16,64) over 8 KV heads")
-    t_pre = median_ms(cpm, lambda: ops.paged_prefill_attention(
-        qc, kp, vp, bt[:1], st, nv))
+    pre = paged_prefill_row(torch, dev, rnd, cpm, "granite", H, kp, vp, bt[:1],
+                            ((256, 180),))
+    _fold(rows_out["paged_prefill"], pre["max_abs_err"],
+          "; and at (1,256,16,64) over 8 KV heads")
     print(f"[kernels] head dim 64 serving shapes: paged_decode (8 slots, "
           f"lengths 1..1024) {t_dec:.4f} ms, paged_prefill (256 rows at start "
-          f"256, n_valid 180) {t_pre:.4f} ms")
+          f"256, n_valid 180) {pre['ms']:.4f} ms")
 
 
 def unseen_rows(torch, dev, rows_out, rnd):
@@ -888,24 +933,36 @@ def quantize_rows(torch, dev, cpm):
 # ---------------------------------------------------------------------------
 
 
-def serve_run(torch, dev, cfg, params, chunk, prompts, build):
+def serve_engine(cfg, params, dev, chunk):
+    """The serve phase's engine: 8 slots of page-16 pools, prompts up to
+    512 tokens, 1024 in all; chunked prefill when ``chunk``."""
     from repro_torch.serve import Engine, EngineConfig
     ecfg = EngineConfig(n_slots=8, page_size=16, max_prompt_len=512,
                         max_seq_len=1024, prefill_chunk=chunk)
-    eng = Engine(cfg, ecfg, params=params, device=dev)
+    return Engine(cfg, ecfg, params=params, device=dev)
+
+
+def serve_run(torch, dev, cfg, params, chunk, prompts, build):
+    """The prompts through ``serve_engine``, 32 new tokens each, with the
+    host time of each tick by kind (decode, and mixed: every running
+    slot's decode and a prompt chunk).  Returns the launch counts and
+    the token streams."""
+    eng = serve_engine(cfg, params, dev, chunk)
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
-    decode_ms = []
+    decode_ms, mixed_ms = [], []
     while True:
-        n_dec = eng.n_decode_steps
+        n_dec, n_mix = eng.n_decode_steps, eng.n_mixed_steps
         t = time.perf_counter()
         if not eng.step():
             break
         dt = (time.perf_counter() - t) * 1e3      # each tick ends on the host
         if eng.n_decode_steps > n_dec:
             decode_ms.append(dt)
+        elif eng.n_mixed_steps > n_mix:
+            mixed_ms.append(dt)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -916,14 +973,17 @@ def serve_run(torch, dev, cfg, params, chunk, prompts, build):
               f"request {r.rid} has tokens outside the vocabulary")
     ttft = sorted(r.ttft * 1e3 for r in reqs)
     decode_ms.sort()
+    mixed_ms.sort()
     n_tok = sum(len(r.tokens) for r in reqs)
     mode = f"chunked({chunk})" if chunk else "legacy"
+    mixed = (f"; mixed tick median {mixed_ms[len(mixed_ms) // 2]:.2f} ms over "
+             f"{len(mixed_ms)} ticks" if mixed_ms else "")
     print(f"[serve] {mode}: {len(reqs)} requests, {n_tok} tokens in "
           f"{elapsed:.3f} s = {n_tok / elapsed:.1f} tok/s; TTFT median "
           f"{ttft[len(ttft) // 2]:.1f} ms (min {ttft[0]:.1f}, max "
           f"{ttft[-1]:.1f}); decode tick median "
           f"{decode_ms[len(decode_ms) // 2]:.2f} ms over {len(decode_ms)} "
-          f"ticks; stats {eng.stats()}; launches {launches}")
+          f"ticks{mixed}; stats {eng.stats()}; launches {launches}")
     return launches, [r.tokens for r in reqs]
 
 
@@ -1595,9 +1655,10 @@ def main() -> int:
     lib = build.build()
     build.lib()
     print(f"[build] {lib.name} in {time.perf_counter() - t:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"[build]   {line.strip()}")
+    for part in lib.with_suffix(".log").read_text().split("== ")[1:]:
+        source, _, log = part.partition("\n")
+        for line in build.ptxas_report(log):
+            print(f"[build]   {source}: {line}")
 
     rows = kernel_phase(torch, dev)
     import numpy as np

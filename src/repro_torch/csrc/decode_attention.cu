@@ -42,8 +42,8 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
                                      void* stream) {
   using namespace repro;
   if (B <= 0) return (int)cudaGetLastError();
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > attn::ROWS || B > 65535 || Hkv > 65535 ||
-      H > 65535 || cache_len < 1 || S < 1 || n_split <= 0)
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > attn::split::MAX_G || B > 65535 ||
+      Hkv > 65535 || H > 65535 || cache_len < 1 || S < 1 || n_split <= 0)
     return (int)cudaErrorInvalidValue;
   const attn::split::ContigSource src{(const bf16*)k, (const bf16*)v, Hkv, D, S, cache_len};
   const int blocks = (S + KEY_BLOCK - 1) / KEY_BLOCK;

@@ -9,15 +9,16 @@
 //   decode  - bytes.  Each slot's g = H / Hkv query heads read the slot's
 //             filled K and V once: 2 * sum(lengths) * Hkv * D * 2 bytes,
 //             at 4 flops per byte, over 3.35 TB/s.
-//   prefill - at C = 256 rows the work is 4 * C * filled * H * D flops
-//             against the filled KV bytes, hundreds of flops per byte, so
-//             the bf16 tensor-core rate bounds it; this first kernel runs
-//             on the f32 CUDA cores and does not approach that bound.
+//   prefill - 4 * (keys each chunk row sees) * H * D flops against the
+//             filled K and V, q and out.  At yi-6b's chunk of 256 rows at
+//             start 256 (180 real, 436 keys filled) that is 1.56e9 flops,
+//             1.58 us at the bf16 tensor-core peak, and 5.1 MB, 1.52 us at
+//             3.35 TB/s: operations and bytes about even.
 //
 // Design: the TPU kernels walked the block table with scalar-prefetched
 // page ids over a sequential page grid axis.  Here a block reads its own
-// block-table row, each key's address taken through the page it lies on
-// (attention.cuh's PagedKV); any page size works.
+// block-table row, each key's address taken through the page it lies on;
+// any page size works.
 //   decode  - split keys (flash-decoding, attention.cuh's split::): the
 //             grid is (split, KV head, slot), a split a run of
 //             pages_per_split whole pages of the slot, and the caller
@@ -31,63 +32,102 @@
 //             one block a (slot, head), merges the row's splits from the
 //             workspace in split order by their maxima: no atomics, the
 //             same bits every run.
-//   prefill - one block per (KV head, slot) over all keys would not fit
-//             the C * g rows (2048 at C = 256), so the grid is (row tiles
-//             of 16, KV head, slot), walking the keys in tiles of 32
-//             (attention.cuh's attend).  Row r is chunk row j = r / g of
-//             head hk * g + r % g, at position start + j, and sees keys up
-//             to that position.  Keys from start + n_valid on are never
-//             loaded, so padding rows (j >= n_valid) attend only filled
-//             keys: garbage the caller discards, never a read outside the
-//             pools or the block table.
+//   prefill - the flash forward's body on wgmma (flash_fwd.cuh's
+//             attend_rows: q tiles resident in shared memory, K and V in
+//             a two-stage cp.async ring, s = q k^T and o += p v on the
+//             tensor cores, the online softmax in registers, steps that
+//             no row of a warpgroup sees skipped and the masks skipped on
+//             steps it sees whole) with two other addressers.  Its rows
+//             are GQA-packed (PackedRows), position-major as the Pallas
+//             kernel's qg: row r of KV head hk is chunk row r / g of query
+//             head hk * g + r % g, at position start + r / g, so the g
+//             heads share every K/V tile a block stages and a 64-row
+//             warpgroup tile spans 64 / g positions.  Its keys come
+//             through the slot's block-table row, which the block copies
+//             into shared memory once; each 16-byte copy of a key then
+//             takes its page from there (PagedKeys).  The grid is (row
+//             tiles, KV head, slot), the last tiles first; one warpgroup
+//             a block and 64-key steps (PrefillCfg) give C * g / 64 blocks
+//             a KV head: 128 at yi-6b's chunk of 256, 64 at granite's.
+//             Rounding is the plain version's (ref.paged_prefill_ref):
+//             s from bf16 q and k with f32 sums, the normalizer over the
+//             f32 p, p rounded to bf16 once before o += p v, out rounded
+//             once.  Keys at or past filled = min(start + n_valid,
+//             pages_per_slot * page) are never read, so padding rows (j >=
+//             n_valid) attend the filled keys only: finite garbage the
+//             caller discards, never a read outside the pools or the block
+//             table.
 // Every row of both kernels sees key 0 (a decode slot attends its
 // length + 1 >= 1 keys, a chunk row at start + j >= 0 sees its causal
 // prefix), so no row is left with no visible key.
 #include "attention.cuh"
+#include "flash_fwd.cuh"
 
 namespace repro {
 
+// Paged prefill's warpgroups a block (each 64 packed rows), blocks an SM
+// the compiler is held to (launch bounds) and 64-key tiles a step, by
+// head dim; PERF.md has the measurements behind them
+// (tools/paged_prefill_variants.py).
 template <int D>
-__global__ void __launch_bounds__(attn::MAX_WARPS * 32)
+struct PrefillCfg;
+template <>
+struct PrefillCfg<128> {
+  static constexpr int WGS = 1, MIN_BLOCKS = 2, KT = 1;
+};
+template <>
+struct PrefillCfg<64> {
+  static constexpr int WGS = 1, MIN_BLOCKS = 4, KT = 1;
+};
+
+// Block-table entries a slot may have: its row is staged in shared
+// memory beside the tiles.
+constexpr int MAX_PAGES = 16384;
+
+// Grid (row tiles, head group, slot): the gp query heads h0 = y * gp ..
+// h0 + gp - 1 of one KV head, C * gp packed rows.  Dynamic shared memory:
+// the body's tiles, then the slot's block-table row (read whole, beside
+// start and n_valid, so no load waits on another).
+template <int D, int WGS, int MIN_BLOCKS, int KT>
+__global__ void __launch_bounds__(hopper::WG_THREADS * WGS, MIN_BLOCKS)
 paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                      const bf16* __restrict__ vp, const int* __restrict__ bt,
                      const int* __restrict__ start, const int* __restrict__ n_valid,
-                     bf16* __restrict__ out, int C, int H, int Hkv, int page,
-                     int maxp, float scale) {
-  using namespace attn;
-  __shared__ Smem<D> sm;
-  const int hk = blockIdx.y, b = blockIdx.z, g = H / Hkv;
-  const int r0 = blockIdx.x * ROWS, n_rows = C * g;
-  const int warp = threadIdx.x >> 5;
-  const long long pos_stride = (long long)Hkv * D;
-  const PagedKV kv{kp + (long long)hk * D, vp + (long long)hk * D,
-                   bt + (long long)b * maxp, page, pos_stride,
-                   (long long)page * pos_stride};
-  const int st0 = start[b];
-  const int filled = min(st0 + n_valid[b], maxp * page);
-  const int j_last = (min(r0 + ROWS, n_rows) - 1) / g;   // last chunk row of the tile
-  const int kv_end = max(0, min(filled, st0 + j_last + 1));
+                     bf16* __restrict__ out, int C, int H, int Hkv, int gp,
+                     ffwd::DivMod page, int maxp, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int* pages = reinterpret_cast<int*>(smem + ffwd::smem_bytes<D, WGS, KT>());
+  const int b = blockIdx.z, h0 = blockIdx.y * gp, hk = h0 / (H / Hkv);
+  const int* row = bt + (long long)b * maxp;
+  for (int i = threadIdx.x; i < maxp; i += blockDim.x) pages[i] = row[i];
+  const int st = start[b];
+  const int filled = max(0, min(st + n_valid[b], maxp * page.d));
+  __syncthreads();              // the row is in place before the first key copy
+  const long long qo = ((long long)b * C * H + h0) * D, ks = (long long)Hkv * D;
+  const ffwd::PackedRows<D> rows{q + qo, out + qo, (long long)H * D, C * gp, gp, st};
+  const ffwd::PagedKeys keys{kp + (long long)hk * D, vp + (long long)hk * D, pages, page,
+                             filled, ks, (long long)page.d * ks};
+  // the last row tiles see the most keys: schedule them first
+  ffwd::attend_rows<D, WGS, KT>(rows, keys, gridDim.x - 1 - blockIdx.x, scale, smem);
+}
 
-  Rows<D> st;
-  const bf16* qrow[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int ri = r0 + warp * RW + r;
-    const bool active = ri < n_rows;
-    const int j = ri / g, h = hk * g + ri % g;
-    qrow[r] = active ? q + (((long long)b * C + j) * H + h) * D : nullptr;
-    st.limit[r] = active ? st0 + j : -1;
-  }
-  load_q<D>(sm, qrow);
-  attend<D>(sm, kv, kv_end, scale, st);
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int ri = r0 + warp * RW + r;
-    if (ri < n_rows) {
-      const int j = ri / g, h = hk * g + ri % g;
-      store_row<D>(st, r, out + (((long long)b * C + j) * H + h) * D);
-    }
-  }
+template <int D>
+int launch_prefill(const void* q, const void* kp, const void* vp, const void* bt,
+                   const void* start, const void* n_valid, void* out, int B, int C, int H,
+                   int Hkv, int gp, int page, int maxp, float scale, cudaStream_t s) {
+  constexpr int WGS = PrefillCfg<D>::WGS, MIN_BLOCKS = PrefillCfg<D>::MIN_BLOCKS,
+                KT = PrefillCfg<D>::KT;
+  const int smem = ffwd::smem_bytes<D, WGS, KT>() + maxp * (int)sizeof(int);
+  auto kernel = paged_prefill_kernel<D, WGS, MIN_BLOCKS, KT>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((C * gp + 64 * WGS - 1) / (64 * WGS), H / gp, B);
+  kernel<<<grid, hopper::WG_THREADS * WGS, smem, s>>>(
+      (const bf16*)q, (const bf16*)kp, (const bf16*)vp, (const int*)bt, (const int*)start,
+      (const int*)n_valid, (bf16*)out, C, H, Hkv, gp, ffwd::DivMod::of(page), maxp,
+      scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace repro
@@ -100,8 +140,8 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp, const void* vp,
                                  int n_split, float scale, void* stream) {
   using namespace repro;
   if (B <= 0) return (int)cudaGetLastError();
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > attn::ROWS || B > 65535 || Hkv > 65535 ||
-      H > 65535 || page <= 0 || maxp < 0 || n_split <= 0)
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > attn::split::MAX_G || B > 65535 ||
+      Hkv > 65535 || H > 65535 || page <= 0 || maxp < 0 || n_split <= 0)
     return (int)cudaErrorInvalidValue;
   const attn::split::PagedSource src{(const bf16*)kp, (const bf16*)vp, (const int*)bt,
                                      (const int*)lengths, Hkv, D, page, maxp};
@@ -123,22 +163,16 @@ extern "C" int paged_prefill_bf16(const void* q, const void* kp, const void* vp,
                                   float scale, void* stream) {
   using namespace repro;
   if (B <= 0 || C <= 0) return (int)cudaGetLastError();
-  if (Hkv <= 0 || H % Hkv != 0 || Hkv > 65535 || B > 65535 || page <= 0)
+  if (Hkv <= 0 || H % Hkv != 0 || Hkv > 65535 || B > 65535 || page <= 0 || maxp < 0 ||
+      maxp > MAX_PAGES || (long long)maxp * page >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((C * (H / Hkv) + attn::ROWS - 1) / attn::ROWS, Hkv, B);
-  const dim3 block(attn::MAX_WARPS * 32);
+  const int gp = H / Hkv;       // query heads packed into a tile's rows: a KV head's g
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 128)
-    paged_prefill_kernel<128><<<grid, block, 0, s>>>(
-        (const bf16*)q, (const bf16*)kp, (const bf16*)vp, (const int*)bt,
-        (const int*)start, (const int*)n_valid, (bf16*)out, C, H, Hkv, page,
-        maxp, scale);
-  else if (D == 64)
-    paged_prefill_kernel<64><<<grid, block, 0, s>>>(
-        (const bf16*)q, (const bf16*)kp, (const bf16*)vp, (const int*)bt,
-        (const int*)start, (const int*)n_valid, (bf16*)out, C, H, Hkv, page,
-        maxp, scale);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_prefill<128>(q, kp, vp, bt, start, n_valid, out, B, C, H, Hkv, gp, page,
+                               maxp, scale, s);
+  if (D == 64)
+    return launch_prefill<64>(q, kp, vp, bt, start, n_valid, out, B, C, H, Hkv, gp, page,
+                              maxp, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

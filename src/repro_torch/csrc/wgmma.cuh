@@ -1,8 +1,8 @@
-// Hopper building blocks shared by the port's tensor-core kernels
-// (flash_fwd.cu, flash_bwd.cu, moe_gemm.cu): asynchronous copies into
-// shared memory, bf16 tiles in the 128-byte swizzle, wgmma descriptors,
-// and m64n64k16, m64n128k16 and m64n256k16 products by one warpgroup
-// with f32 sums in registers.
+// Hopper building blocks shared by the port's tensor-core kernels (the
+// attention forward of flash_fwd.cuh, flash_bwd.cu, moe_gemm.cu):
+// asynchronous copies into shared memory, bf16 tiles in the 128-byte
+// swizzle, wgmma descriptors, and m64n64k16, m64n128k16 and m64n256k16
+// products by one warpgroup with f32 sums in registers.
 //
 // A warpgroup is 4 warps that issue each wgmma together.  Its product
 // is 64 rows x 64 columns; warp w of the warpgroup holds rows
@@ -106,15 +106,39 @@ struct TileCopy {
     }
   }
 
-  // rows [r0, r0 + 64) of base (row stride `stride`) into tile s; rows
-  // at or past n fill with zeros
-  __device__ __forceinline__ void operator()(bf16* s, const bf16* base, long long stride,
-                                             int r0, int n) const {
+  // rows [r0, r0 + 64) of a matrix whose row r starts at base +
+  // row_off(r) into tile s; rows at or past n fill with zeros (and
+  // row_off is not called for them)
+  template <class RowOff>
+  __device__ __forceinline__ void rows(bf16* s, const bf16* base, const RowOff& row_off,
+                                       int r0, int n) const {
 #pragma unroll
     for (int m = 0; m < N; ++m) {
       if (CHUNKS % NT != 0 && threadIdx.x + m * NT >= CHUNKS) break;
       const bool in = r0 + row[m] < n;
-      cp16(s + off[m], in ? base + (long long)(r0 + row[m]) * stride + col[m] : base, in);
+      cp16(s + off[m], in ? base + row_off(r0 + row[m]) + col[m] : base, in);
+    }
+  }
+
+  // ... of base with row stride `stride`
+  __device__ __forceinline__ void operator()(bf16* s, const bf16* base, long long stride,
+                                             int r0, int n) const {
+    rows(s, base, [stride](int r) { return (long long)r * stride; }, r0, n);
+  }
+
+  // rows [r0, r0 + 64) of two matrices with the same row offsets (row r
+  // at a + row_off(r) and at b + row_off(r)) into tiles sa and sb, one
+  // row_off a copy for both
+  template <class RowOff>
+  __device__ __forceinline__ void pair(bf16* sa, bf16* sb, const bf16* a, const bf16* b,
+                                       const RowOff& row_off, int r0, int n) const {
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      if (CHUNKS % NT != 0 && threadIdx.x + m * NT >= CHUNKS) break;
+      const bool in = r0 + row[m] < n;
+      const long long o = in ? row_off(r0 + row[m]) + col[m] : 0;
+      cp16(sa + off[m], a + o, in);
+      cp16(sb + off[m], b + o, in);
     }
   }
 };
@@ -298,6 +322,27 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, int row
     const int r = row0 + 16 * (threadIdx.x >> 5) + g + 8 * half;
     if (r >= n) continue;
     bf16* row = base + (long long)r * stride + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < D / 64; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 64 * nb + 8 * j) =
+            __floats2bfloat162_rn(c[nb][j][2 * half], c[nb][j][2 * half + 1]);
+  }
+}
+
+// ... with row r at row_ptr(r), for rows at no one stride.  A copy of
+// store_rows, not its core: store_rows through a row-pointer function
+// compiles the backward kernels to other register counts (-Xptxas -v).
+template <int D, class RowPtr>
+__device__ __forceinline__ void store_rows_at(const RowPtr& row_ptr, int row0, int n,
+                                              const float (&c)[D / 64][8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + 16 * (threadIdx.x >> 5) + g + 8 * half;
+    if (r >= n) continue;
+    bf16* row = row_ptr(r) + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < D / 64; ++nb)
 #pragma unroll

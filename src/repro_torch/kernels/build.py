@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -128,6 +129,52 @@ def build() -> Path:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def _kernel_name(sym: str) -> str:
+    """A mangled kernel name as its last name and integer template
+    arguments: ``_ZN5repro4ffwd16flash_fwd_kernelILi128E...`` ->
+    ``flash_fwd_kernel<128,...>``."""
+    pos, names = 3 if sym.startswith("_ZN") else 2, []
+    while pos < len(sym) and sym[pos].isdigit():
+        n = re.match(r"\d+", sym[pos:]).group()
+        pos += len(n)
+        names.append(sym[pos:pos + int(n)])
+        pos += int(n)
+        if not sym.startswith("_ZN"):
+            break
+    args = re.findall(r"Li(-?\d+)E", sym[pos:])
+    return f"{names[-1] if names else sym}" + (f"<{','.join(args)}>" if args
+                                                 else "")
+
+
+def ptxas_report(log: str, only: str = "") -> list:
+    """One line a kernel from nvcc's ``-Xptxas -v`` output: its name
+    (``_kernel_name``), registers, spilled bytes and ptxas's C75xx notes
+    on wgmma (C7515 and C7511: every wgmma serialized; C7519: a fence of
+    its own); ``only`` keeps the kernels whose name holds it."""
+    kernels, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(_Z\w+)", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+            kernels.setdefault(name, [])
+            continue
+        notes = re.findall(r"\((C75\d\d)\)", ln)
+        if notes:                   # it names its kernel, which may come later
+            m = re.search(r"in function '(_Z\w+)'", ln)
+            key = _kernel_name(m.group(1)) if m else name
+            if key is not None:
+                kernels.setdefault(key, []).extend(notes)
+            continue
+        m = re.search(r"Used (\d+) registers", ln) or \
+            re.search(r"(\d+) bytes spill stores", ln)
+        if m and name is not None:
+            unit = "registers" if "Used" in ln else "B spilled"
+            kernels[name].append(f"{m.group(1)} {unit}")
+    return [f"{k}: {', '.join(v)}" for k, v in kernels.items()
+            if only in k and v]
 
 
 def lib() -> ctypes.CDLL:

@@ -235,31 +235,75 @@ def test_decode_attention_gives_paged_decodes_bits(dev, h, hkv, d):
 
 
 @pytest.mark.cuda
-def test_paged_prefill_keeps_its_bits(dev):
-    """paged_prefill (the `attend` core, which the split decode kernels
-    left alone) gives the bits it gave before the decode kernels were
-    split across blocks, at chip_smoke.py's shapes
+def test_flash_fwd_keeps_its_bits(dev):
+    """flash_fwd runs the kernel body it shares with paged prefill
+    (flash_fwd.cuh) and gives the bits it gave before the body was
+    shared, at chip_smoke.py's three flash_fwd shapes
     (tools/attention_bits.py holds the older tree's digests)."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
     import attention_bits
-    assert attention_bits.differ_from_parent(torch, dev, ops) == []
+    assert attention_bits.differ_from_parent(torch, dev, fa_kernel) == []
+
+
+# (h, hkv, start, n_valid, chunk, page): where paged prefill's tiles bite:
+# 64 packed rows span 64 / g chunk positions (g = H / Hkv of 1, 2, 7, 8),
+# 64-key steps, fills on either side of a step, pages of 8, 16 and 64;
+# short chunks; and chip_smoke.py's yi-6b chunk
+PREFILL_CASES = [
+    (8, 1, 0, 64, 64, 16), (2, 2, 0, 1, 64, 8), (14, 2, 37, 63, 64, 16),
+    (4, 2, 37, 65, 128, 8), (8, 1, 64, 64, 128, 64), (7, 1, 64, 128, 128, 16),
+    (4, 2, 250, 65, 96, 64), (8, 1, 250, 1, 32, 8), (2, 1, 0, 128, 128, 64),
+    (8, 2, 0, 24, 24, 16), (8, 2, 16, 10, 24, 16), (8, 2, 100, 24, 24, 16),
+    (8, 2, 170, 20, 24, 16), (32, 4, 256, 180, 256, 16)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("start,n_valid", [(0, 24), (16, 10), (100, 24),
-                                           (170, 20)])
-def test_paged_prefill_kernel(dev, start, n_valid):
-    kp, vp = _pool(dev)
-    bt = torch.arange(1, 13, dtype=torch.int32, device=dev)[None]
-    q = _rnd(dev, 1, 24, 8, 128, seed=8)
-    st = torch.tensor([start], dtype=torch.int32, device=dev)
-    nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+@pytest.mark.parametrize("h,hkv,start,n_valid,chunk,page", PREFILL_CASES)
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_prefill_kernel(dev, h, hkv, start, n_valid, chunk, page, d):
+    """Two slots (the second at an earlier start with fewer real rows):
+    the real rows within TOL per element and 4e-3 in relative L2 (both
+    sides round p to bf16 before p V) of the plain version, and within
+    TOL of flash_fwd over each slot's gathered keys at q_offset = start;
+    every row finite (padding rows too); one launch; the same bits
+    twice; and pool entries at or past each slot's fill never read:
+    poisoned with NaN, they change nothing."""
+    b = 2
+    starts = [start, max(0, start - 13)]
+    valids = [n_valid, max(1, n_valid - 7)]
+    maxp = -(-(start + chunk) // page) + 1
+    kp, vp, bt = _split_pool(dev, b, maxp, hkv, d, page=page, seed=41)
+    q = _rnd(dev, b, chunk, h, d, seed=42)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    nv = torch.tensor(valids, dtype=torch.int32, device=dev)
+    build.reset_launches()
     got = ops.paged_prefill_attention(q, kp, vp, bt, st, nv)
+    assert build.LAUNCHES["paged_prefill"] == 1
     want = dec_ref.paged_prefill_ref(q, kp, vp, bt, st, nv)
-    _close(got[:, :n_valid], want[:, :n_valid])
     assert bool(torch.isfinite(got.float()).all())
+    assert torch.equal(ops.paged_prefill_attention(q, kp, vp, bt, st, nv), got)
+    real = [(i, slice(0, valids[i])) for i in range(b)]
+    g_real = torch.cat([got[i, r].flatten() for i, r in real]).float()
+    w_real = torch.cat([want[i, r].flatten() for i, r in real]).float()
+    _close(g_real, w_real)
+    assert float((g_real - w_real).norm() / w_real.norm()) <= 4e-3
+    for i, r in real:
+        fill = starts[i] + valids[i]
+        kg = kp[bt[i].long()].reshape(1, -1, hkv, d)[:, :fill].contiguous()
+        vg = vp[bt[i].long()].reshape(1, -1, hkv, d)[:, :fill].contiguous()
+        flash, _ = fa_kernel.flash_fwd(q[i:i + 1], kg, vg, causal=True,
+                                       q_offset=starts[i])
+        _close(got[i:i + 1, r], flash[:, r])
+    for i in range(b):
+        fill, pages = starts[i] + valids[i], bt[i].long()
+        kp[pages[-(-fill // page):]] = float("nan")
+        vp[pages[-(-fill // page):]] = float("nan")
+        if fill % page:
+            kp[pages[fill // page], fill % page:] = float("nan")
+            vp[pages[fill // page], fill % page:] = float("nan")
+    assert torch.equal(ops.paged_prefill_attention(q, kp, vp, bt, st, nv), got)
 
 
 @pytest.mark.cuda

@@ -383,10 +383,12 @@ def test_paged_decode_split_plan_covers_every_key_once(maxp, page,
         assert pps * page >= tdk.MIN_SPLIT_KEYS
 
 
-def _prefill_case(h, hkv, start, valid, chunk=8, page=8, maxp=4, d=32, b=2):
+def _prefill_case(h, hkv, start, valid, chunk=8, page=8, d=32, b=2):
     rng = np.random.default_rng(3)
     fills = [start + chunk] * b
-    kp, vp, bt = _pool(16, page, hkv, d, fills, maxp, seed=4)
+    maxp = max(4, -(-(start + chunk) // page))
+    kp, vp, bt = _pool(max(16, 1 + b * maxp), page, hkv, d, fills, maxp,
+                       seed=4)
     q = rng.standard_normal((b, chunk, h, d), np.float32)
     return q, kp, vp, bt, np.full((b,), start, np.int32), \
         np.full((b,), valid, np.int32)
@@ -394,6 +396,15 @@ def _prefill_case(h, hkv, start, valid, chunk=8, page=8, maxp=4, d=32, b=2):
 
 PREFILL_CASES = [(4, 2, 0, 8), (4, 2, 8, 8), (8, 8, 5, 3), (8, 1, 13, 8),
                  (4, 2, 5, 6)]
+# where the CUDA kernel's tiles bite: 64 packed rows span 64 / g chunk
+# positions (g = H / Hkv of 1, 2, 7 and 8), steps of 64 keys, a fill
+# (start + n_valid) on either side of a step, pages of 8, 16 and 64, and
+# chunks of up to 128 rows: (h, hkv, start, n_valid, chunk, page)
+PREFILL_TILE_CASES = [
+    (8, 1, 0, 64, 64, 16), (2, 2, 0, 1, 64, 8), (14, 2, 37, 63, 64, 16),
+    (4, 2, 37, 65, 128, 8), (8, 1, 64, 64, 128, 64), (7, 1, 64, 128, 128, 16),
+    (4, 2, 250, 65, 96, 64), (8, 1, 250, 1, 32, 8), (2, 1, 0, 128, 128, 64),
+    (1, 1, 37, 64, 64, 8)]
 
 
 @pytest.mark.parametrize("h,hkv,start,valid", PREFILL_CASES)
@@ -413,12 +424,35 @@ def test_paged_prefill_matches_jax_ref_and_pallas(h, hkv, start, valid, dt):
     _close(out[:, :valid], pal[:, :valid], tol)
 
 
-@pytest.mark.parametrize("h,hkv,start,valid", PREFILL_CASES)
-def test_paged_prefill_rows_equal_flash_chunked_bitwise(h, hkv, start, valid):
+@pytest.mark.parametrize("h,hkv,start,valid,chunk,page", PREFILL_TILE_CASES)
+def test_paged_prefill_ref_at_the_kernel_tiles_matches_jax_ref_and_pallas(
+        h, hkv, start, valid, chunk, page):
+    """The plain paged prefill in bf16 at the shapes the CUDA kernel's
+    tiles cut differently (PREFILL_TILE_CASES), two slots each, against
+    the JAX ref on every row and the Pallas kernel in interpret mode on
+    the real rows (it skips pages past start + n_valid), at the file's
+    bf16 tolerance."""
+    _, jdt, tdt, tol = DTYPES["bf16"]
+    q, kp, vp, bt, st, nv = _prefill_case(h, hkv, start, valid, chunk, page)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, jdt, tdt) for a in (q, kp, vp))
+    args_t = (torch.from_numpy(bt), torch.from_numpy(st), torch.from_numpy(nv))
+    args_j = (jnp.asarray(bt), jnp.asarray(st), jnp.asarray(nv))
+    out = ops.paged_prefill_attention(qt, kt, vt, *args_t)
+    assert out.dtype == tdt and out.shape == qt.shape
+    _close(out, jdec.paged_prefill_ref(qj, kj, vj, *args_j), tol)
+    pal = jops.paged_prefill_attention(qj, kj, vj, *args_j, impl="interpret")
+    _close(out[:, :valid], pal[:, :valid], tol)
+
+
+@pytest.mark.parametrize("h,hkv,start,valid,chunk,page", [
+    pytest.param(*c, 8, 8, id="-".join(map(str, c))) for c in PREFILL_CASES]
+    + PREFILL_TILE_CASES)
+def test_paged_prefill_rows_equal_flash_chunked_bitwise(h, hkv, start, valid,
+                                                        chunk, page):
     """The chunk's rows equal the same rows of the whole-prefix flash
     forward over the slot's gathered pages, bit for bit: both run the
     same block scan over the same keys."""
-    q, kp, vp, bt, st, nv = _prefill_case(h, hkv, start, valid)
+    q, kp, vp, bt, st, nv = _prefill_case(h, hkv, start, valid, chunk, page)
     kt, vt = torch.from_numpy(kp), torch.from_numpy(vp)
     out = tdec.paged_prefill_ref(torch.from_numpy(q), kt, vt,
                                  torch.from_numpy(bt), torch.from_numpy(st),
@@ -506,19 +540,23 @@ def test_kernel_sources_are_present_and_hashed(tmp_path, monkeypatch):
     assert {"rmsnorm.cu", "flash_fwd.cu", "flash_bwd.cu",
             "paged_attention.cu", "decode_attention.cu",
             "moe_gemm.cu"} <= names
-    # the tensor-core attention kernels share one header, which the
-    # library's hash covers with the sources
-    header = build.CSRC / "wgmma.cuh"
-    assert header.is_file()
-    for src in ("flash_fwd.cu", "flash_bwd.cu"):
-        assert '#include "wgmma.cuh"' in (build.CSRC / src).read_text()
+    # the tensor-core attention kernels share one header (flash_fwd and
+    # paged prefill through the forward body they share, flash_fwd.cuh),
+    # which the library's hash covers with the sources
+    for header, users in (("wgmma.cuh", ("flash_fwd.cuh", "flash_bwd.cu")),
+                          ("flash_fwd.cuh", ("flash_fwd.cu",
+                                             "paged_attention.cu"))):
+        assert (build.CSRC / header).is_file()
+        for src in users:
+            assert f'#include "{header}"' in (build.CSRC / src).read_text()
     copy = tmp_path / "csrc"
     shutil.copytree(build.CSRC, copy)
     monkeypatch.setattr(build, "CSRC", copy)
-    before = build.library_path()
-    with open(copy / "wgmma.cuh", "a") as f:
-        f.write("\n")
-    assert build.library_path() != before
+    for header in ("wgmma.cuh", "flash_fwd.cuh"):
+        before = build.library_path()
+        with open(copy / header, "a") as f:
+            f.write("\n")
+        assert build.library_path() != before
     monkeypatch.undo()
     assert {"flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
             "decode_attention_bf16", "moe_gemm_bf16"} <= set(build.SIGNATURES)
@@ -527,3 +565,29 @@ def test_kernel_sources_are_present_and_hashed(tmp_path, monkeypatch):
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path()          # stable for one tree
+
+
+def test_ptxas_report_names_each_kernel():
+    """``build.ptxas_report`` reads nvcc's ``-Xptxas -v`` log by kernel:
+    the mangled name as its last name and integer template arguments,
+    the registers, spilled bytes and ptxas's C75xx notes."""
+    fn = ("_ZN5repro4ffwd16flash_fwd_kernelILi128ELi3ELi1ELi2EEEvPK13__nv_"
+          "bfloat16S4_S4_PS2_Pfiiiiiif")
+    # ptxas may print a kernel's C75xx note before compiling it
+    log = "\n".join([
+        "ptxas info    : (C7519) warpgroup.arrive is injected in around line "
+        f"5025 by compiler to allow use of registers in GMMA in function '{fn}'",
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fn}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 80 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z14rmsnorm_kernelPKfS0_Pfiif'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for _Z14rmsnorm_kernelPKfS0_Pfiif",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 1 barriers"])
+    assert build.ptxas_report(log) == [
+        "flash_fwd_kernel<128,3,1,2>: C7519, 0 B spilled, 168 registers",
+        "rmsnorm_kernel: 8 B spilled, 32 registers"]
+    assert build.ptxas_report(log, "rmsnorm") == [
+        "rmsnorm_kernel: 8 B spilled, 32 registers"]

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Digests of the bits that the paged chunk-prefill kernel gives at
-``chip_smoke.py``'s shapes, to hold it to an older tree's kernel.
+"""Digests of the bits that the flash-attention forward kernel gives at
+``chip_smoke.py``'s three flash_fwd shapes, to hold it to an older
+tree's kernel.
 
     python3 tools/attention_bits.py [--src DIR]
 
 Inputs are made with numpy from fixed seeds (the same on any machine),
-rounded to bf16 and moved to the card; each output's bytes are hashed
-(sha256, first 16 hex digits).  ``PARENT`` holds the digests that the
-kernel gave before the decode kernels were split across blocks (the
-tree before ``csrc/attention.cuh`` gained ``split::``; paged prefill
-still runs ``attend``, which that change left alone), measured on an
-H100 by this script with ``--src`` pointing at that tree's ``src``;
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernel as
-built to them.  The kernel has no atomics, so its bits repeat.  Prints
-the digests as one JSON object; needs a CUDA card and nvcc.
+rounded to bf16 and moved to the card; each output's bytes (out, then
+lse) are hashed (sha256, first 16 hex digits).  ``PARENT`` holds the
+digests that ``flash_fwd.cu`` gave before its kernel body became the
+template it shares with paged chunk prefill (``flash_fwd.cuh``),
+measured on an H100 by this script with ``--src`` pointing at that
+tree's ``src``; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold
+the kernel as built to them, which shows the shared body kept
+flash_fwd's arithmetic.  The kernel has no atomics, so its bits repeat.
+Prints the digests as one JSON object; needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -25,59 +26,43 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# name -> digest, from the tree before the split decode kernels (NVIDIA
-# H100 80GB HBM3, 700 W, CUDA 12.9)
+# name -> digest, from the tree before the shared kernel body (NVIDIA
+# H100 80GB HBM3, 700.00 W, torch 2.11.0+cu128)
 PARENT = {
-    "paged_prefill yi-6b start 0": "90036a96abb688bd",
-    "paged_prefill yi-6b start 256": "59bb952bfc03f704",
-    "paged_prefill granite start 256": "2551d7eae251fa36",
+    "flash_fwd q (1,512,32,128) causal": "859f15ee94c2fdea",
+    "flash_fwd q (2,4096,32,128) causal": "11967ff4ff27b3ec",
+    "flash_fwd q (4,4096,16,64) causal": "3e3ccf0f6e81cfbf",
 }
+# B, S, H, Hkv, D: the 512-token prompt, yi-6b's and granite's training
+SHAPES = [(1, 512, 32, 4, 128), (2, 4096, 32, 4, 128), (4, 4096, 16, 8, 64)]
 
 
-def _cases(np):
-    """(name, arguments as numpy arrays) at chip_smoke's shapes: paged
-    prefill of a 256-row chunk at start 0 (200 valid) and 256 (180
-    valid) over yi-6b's pools, and at start 256 over granite's."""
-    out = []
-    for label, h, hkv, d in (("yi-6b", 32, 4, 128), ("granite", 16, 8, 64)):
-        rng = np.random.default_rng(17 + d)
-        b, maxp, page = 8, 64, 16
-        n_pages = b * maxp + 1
-        kp = rng.standard_normal((n_pages, page, hkv, d), np.float32)
-        vp = rng.standard_normal((n_pages, page, hkv, d), np.float32)
-        bt = (1 + rng.permutation(n_pages - 1)[:b * maxp]).astype(
-            np.int32).reshape(b, maxp)[:1]
-        starts = ((0, 200), (256, 180)) if label == "yi-6b" else ((256, 180),)
-        for start, n_valid in starts:
-            q = rng.standard_normal((1, 256, h, d), np.float32)
-            out.append((f"paged_prefill {label} start {start}",
-                        (q, kp, vp, bt, np.array([start], np.int32),
-                         np.array([n_valid], np.int32))))
-    return out
-
-
-def digests(torch, dev, ops):
-    """name -> digest of each case's output through ``ops`` (the port's
-    ``repro_torch.kernels.ops``, of whichever tree)."""
+def digests(torch, dev, fa_kernel):
+    """name -> digest of flash_fwd's out and lse at each shape, causal,
+    through ``fa_kernel`` (the port's
+    ``repro_torch.kernels.flash_attention.kernel``, of whichever tree)."""
     import numpy as np
 
-    def t(a):
-        x = torch.from_numpy(a)
-        return (x.to(torch.bfloat16) if x.dtype == torch.float32 else x).to(dev)
-
     res = {}
-    for name, args in _cases(np):
-        got = ops.paged_prefill_attention(*(t(a) for a in args))
+    for b, s, h, hkv, d in SHAPES:
+        rng = np.random.default_rng(s + d)
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(dev).to(torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+        out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
         torch.cuda.synchronize()
-        raw = got.contiguous().view(torch.int16).cpu().numpy().tobytes()
-        res[name] = hashlib.sha256(raw).hexdigest()[:16]
+        digest = hashlib.sha256(out.contiguous().view(torch.int16).cpu()
+                                .numpy().tobytes())
+        digest.update(lse.contiguous().cpu().numpy().tobytes())
+        res[f"flash_fwd q ({b},{s},{h},{d}) causal"] = digest.hexdigest()[:16]
+        del q, k, v, out, lse
     return res
 
 
-def differ_from_parent(torch, dev, ops):
-    """The cases whose bits differ from ``PARENT``'s (none when the
-    kernels give the older tree's bits)."""
-    got = digests(torch, dev, ops)
+def differ_from_parent(torch, dev, fa_kernel):
+    """The shapes whose bits differ from ``PARENT``'s (none when the
+    kernel gives the older tree's bits)."""
+    got = digests(torch, dev, fa_kernel)
     return sorted(n for n in PARENT if got.get(n) != PARENT[n])
 
 
@@ -91,8 +76,8 @@ def main() -> int:
         print("attention_bits: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(args.src.resolve()))
-    from repro_torch.kernels import ops
-    print(json.dumps(digests(torch, torch.device("cuda"), ops)))
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    print(json.dumps(digests(torch, torch.device("cuda"), fa_kernel)))
     return 0
 
 

@@ -36,10 +36,11 @@ def main() -> int:
         return 2
     sys.path[:0] = [str(args.src.resolve()), str(ROOT), str(ROOT / "tools")]
     import chip_smoke as cs
-    from flash_bwd_variants import card
     from repro_torch.configs import registry
     from repro_torch.kernels import build
     from repro_torch.models.model import Model
+    # after repro_torch: flash_bwd_variants puts this tree's src first
+    from flash_bwd_variants import card
 
     # report each part instead of stopping at the first one held too far
     cs.check = lambda cond, msg: None if cond else print(f"[streams] {msg}")

@@ -42,35 +42,42 @@ VARIANTS = {
 SHAPES = [(2, 4096, 32, 4, 128), (4, 4096, 16, 8, 64)]   # B, S, H, Hkv, D
 
 
-def build_variants(build, source, variants, fns, parent=None):
+def build_variants(build, source, variants, fns, parent=None, only=""):
     """Build ``csrc/<source>`` once per variant of ``variants`` (name ->
-    textual edits), each with ``errors.cu`` and the headers beside it,
-    all with one nvcc each, started together; with ``parent`` (a
-    directory) also ``parent/<source>`` as variant ``parent``.  Returns
-    name -> the loaded library with the C entry points ``fns`` bound."""
+    textual edits, each made in the one file of ``source`` and the
+    headers that holds its old text), each with ``errors.cu`` and the
+    headers beside it, all with one nvcc each, started together; with
+    ``parent`` (a directory) also ``parent/<source>`` as variant
+    ``parent``, with the headers in it before those of ``csrc/``.
+    Prints each build's registers, spills and C75xx notes by kernel
+    (those whose name holds ``only``).  Returns name -> the loaded
+    library with the C entry points ``fns`` bound."""
     out = ROOT / "build" / f"{Path(source).stem}_variants"
-    src = (build.CSRC / source).read_text()
+    files = {f.name: f.read_text() for f in
+             [build.CSRC / source, *sorted(build.CSRC.glob("*.cuh"))]}
     texts = {}
     for name, edits in variants.items():
-        text = src
+        edited = dict(files)
         for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in "
-                                   f"{source}")
-            text = text.replace(old, new)
-        texts[name] = (text, [])
+            where = [f for f, text in edited.items() if old in text]
+            if len(where) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} is in "
+                                   f"{where or 'none'} of {source} and "
+                                   f"its headers, not in one")
+            edited[where[0]] = edited[where[0]].replace(old, new)
+        texts[name] = edited
     if parent is not None:
         parent = Path(parent)
-        texts["parent"] = ((parent / source).read_text(),
-                           sorted(parent.glob("*.cuh")))
+        texts["parent"] = {**files, **{f.name: f.read_text() for f in
+                                       [parent / source,
+                                        *parent.glob("*.cuh")]}}
     procs = {}
-    for name, (text, headers) in texts.items():
+    for name, edited in texts.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        for f in [*build.CSRC.glob("*.cuh"), build.CSRC / "errors.cu",
-                  *headers]:
-            shutil.copy(f, d / f.name)
-        (d / source).write_text(text)
+        shutil.copy(build.CSRC / "errors.cu", d / "errors.cu")
+        for f, text in edited.items():
+            (d / f).write_text(text)
         procs[name] = (d, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-shared", str(d / source),
              str(d / "errors.cu"), "-o", str(d / "lib.so")],
@@ -80,9 +87,8 @@ def build_variants(build, source, variants, fns, parent=None):
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"variant {name} did not build:\n{log}")
-        notes = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
-                 if "Used" in ln or "spill stores" in ln or "C75" in ln]
-        print(f"[variants] {name}: {'; '.join(notes)}", flush=True)
+        print(f"[variants] {name}: "
+              f"{'; '.join(build.ptxas_report(log, only))}", flush=True)
         so = ctypes.CDLL(str(d / "lib.so"))
         for fn in fns:
             getattr(so, fn).argtypes = build.SIGNATURES[fn]

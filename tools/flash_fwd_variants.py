@@ -4,11 +4,11 @@ worth on the card: the kernel as it is, and rebuilt without one choice,
 timed in one run at yi-6b's and granite-moe-1b-a400m's training shapes
 and at yi-6b's 512-token prompt (all causal).
 
-    python3 tools/flash_fwd_variants.py
+    python3 tools/flash_fwd_variants.py [--parent DIR]
 
-Each variant is a textual edit of the source, built beside the kernel
-(all of them, every run) the way ``tools/flash_bwd_variants.py`` builds
-its own:
+Each variant is a textual edit of the source or of the body it shares
+with paged prefill (``flash_fwd.cuh``), built beside the kernel (all of
+them, every run) the way ``tools/flash_bwd_variants.py`` builds its own:
 
 * ``masked``: every step through the masked softmax (no fast path for
   steps that every row of a warpgroup sees whole);
@@ -18,10 +18,13 @@ its own:
   place of the three (head dim 128) or two (64) that share each K and V
   tile, with the blocks an SM raised to keep the warps an SM;
 * ``kt1``: at head dim 128, steps of one 64-key tile (not two);
-* ``load_tile``: the K and V copies through ``load_tile`` of wgmma.cuh,
-  which works out each copy's addresses anew every step (not once, as
-  TileCopy does);
-* ``exp2f``: the exponentials through ``exp2f`` (not ``ex2.approx.ftz``).
+* ``load_tile``: the K, V (and q) copies through ``load_tile`` of
+  wgmma.cuh, which works out each copy's addresses anew every step (not
+  once, as TileCopy does);
+* ``exp2f``: the exponentials through ``exp2f`` (not ``ex2.approx.ftz``);
+* ``parent`` (with ``--parent DIR``): ``DIR/flash_fwd.cu`` with the
+  headers in DIR before those of ``csrc/``: an older tree's kernel, e.g.
+  unpacked from ``git archive`` into a directory .gitignore lists.
 
 The ``kt1`` variant takes its maxima over other keys than the kernel, so
 its p round elsewhere, and ``exp2f`` may round p in another last bit: both
@@ -37,6 +40,7 @@ the card's name and power limit.  Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -47,19 +51,17 @@ CFG128 = "struct Cfg<128> {\n  static constexpr int WGS = 3, MIN_BLOCKS = 1, KT 
 CFG64 = "struct Cfg<64> {\n  static constexpr int WGS = 2, MIN_BLOCKS = 2, KT = 1;"
 VARIANTS = {
     "kernel": [],
-    "masked": [("const bool whole = (!causal",
-                "const bool whole = false && (!causal")],
-    "natural": [("const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;",
-                 "const int q0 = blockIdx.x * ROWS;")],
+    "masked": [("const bool whole =\n        (!rows.causal()",
+                "const bool whole = false &&\n        (!rows.causal()")],
+    "natural": [("(rows, keys, gridDim.x - 1 - blockIdx.x, scale, smem_raw);",
+                 "(rows, keys, blockIdx.x, scale, smem_raw);")],
     "wg1": [(CFG128, CFG128.replace("WGS = 3, MIN_BLOCKS = 1",
                                     "WGS = 1, MIN_BLOCKS = 2")),
             (CFG64, CFG64.replace("WGS = 2, MIN_BLOCKS = 2",
                                   "WGS = 1, MIN_BLOCKS = 4"))],
     "kt1": [(CFG128, CFG128.replace("KT = 2", "KT = 1"))],
-    "load_tile": [("      copy(sk + (st * KT + u) * TILE, kb, ks, k0 + 64 * u, Skv);\n"
-                   "      copy(sv + (st * KT + u) * TILE, vb, ks, k0 + 64 * u, Skv);",
-                   "      load_tile<D, NT>(sk + (st * KT + u) * TILE, kb, ks, k0 + 64 * u, Skv);\n"
-                   "      load_tile<D, NT>(sv + (st * KT + u) * TILE, vb, ks, k0 + 64 * u, Skv);")],
+    "load_tile": [("    rows(s, base, [stride](int r) { return (long long)r * stride; }, r0, n);",
+                   "    load_tile<D, NT>(s, base, stride, r0, n);")],
     "exp2f": [('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
                "  y = exp2f(x);")],
 }
@@ -76,11 +78,16 @@ def main() -> int:
     from flash_bwd_variants import build_variants, card
     from repro_torch.kernels import build
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a directory holding an older "
+                    "flash_fwd.cu to build and hold beside the kernel")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_fwd_variants: no CUDA device", file=sys.stderr)
         return 1
     print(f"[variants] {card(torch)}", flush=True)
-    libs = build_variants(build, "flash_fwd.cu", VARIANTS, ("flash_fwd_bf16",))
+    libs = build_variants(build, "flash_fwd.cu", VARIANTS, ("flash_fwd_bf16",),
+                          args.parent, only="flash_fwd")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cpm = cs.sleep_cycles_per_ms(torch)
