@@ -28,7 +28,12 @@ Phases, each printing its own lines:
              on the gathered KV) also in relative L2, the same bits twice
              and against flash_fwd over the same keys; and flash_fwd gives
              the bits it gave before its kernel body was shared with
-             paged prefill (tools/attention_bits.py);
+             paged prefill (tools/attention_bits.py); then, from a
+             generator of their own, paged decode and prefill at
+             chatglm3-6b's heads (32 over 2 KV heads, g = 16) and
+             qwen2-72b's (64 over 8), flash_fwd at chatglm3-6b's prompt,
+             rmsnorm at d 8192, and rmsnorm timed again late in the call
+             beside F.rms_norm;
 4. serve   - yi-6b at full width and depth (random weights from a seeded
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
@@ -38,10 +43,22 @@ Phases, each printing its own lines:
              right-padded to 1024, then decode steps at a scalar index)
              against the legacy engine's streams; then granite-moe-1b-
              a400m at full width and depth through the Engine in both
-             modes, and teacher-forced;
-5. train   - the gradients of yi-6b and of granite-moe-1b-a400m at full
-             width and 2 layers on one 2 x 4096 batch through the kernel
-             path, the plain path in bf16 and the plain path in float32;
+             modes, and teacher-forced; then chatglm3-6b (QKV bias drawn
+             from its own generator, half the head dim rotated, g = 16)
+             at full width and depth the same way, its legacy run again
+             parked after 5 decode ticks and adopted by a fresh engine
+             (token for token the uninterrupted run), and a chunked run
+             over two pool shards (token for token the one-shard chunked
+             run); where a chunked stream (yi-6b's, the sharded one)
+             parts from the legacy stream, the legacy run's own logits
+             there pick the legacy token and the chunked token's gap is
+             printed; then
+             qwen2-72b (QKV bias, d_model 8192) at full width and 16 of
+             its 80 layers, both modes, teacher-forced;
+5. train   - the gradients of yi-6b, granite-moe-1b-a400m and chatglm3-6b
+             at full width and 2 layers on one 2 x 4096 batch through the
+             kernel path, the plain path in bf16 and the plain path in
+             float32;
              yi-6b at full width and 8 of its 32 layers trained 4 steps
              through the port's Trainer (AdamW, float32 master weights,
              bf16 compute, remat) with the launch counts read around the
@@ -64,6 +81,7 @@ beside this file, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -134,6 +152,7 @@ COMM_RTOL = 1e-4
 # rate whatever the gradient, so three steps move the loss far less than 1%
 COMPRESS_RTOL = 1e-2
 COMM_LAYERS = 8             # of granite's 24: four ranks of all 24 need ~150 GB
+QWEN2_LAYERS = 16           # of qwen2-72b's 80: 16.5e9 params, 33 GB in bf16
 COMM_STEPS = 4
 COMM_TIMEOUT_S = 300        # each collective (gloo's own timeout)
 COMM_DEADLINE_S = 900       # the whole phase, children included
@@ -422,6 +441,7 @@ def kernel_phase(torch, dev):
     rows_out["moe_gemm"] = moe_gemm_row(torch, dev, rnd, cpm)
     rows_out["decode_attention"] = decode_attention_row(torch, dev, rnd, cpm)
     rows_out.update(quantize_rows(torch, dev, cpm))
+    dense_shapes(torch, dev, cpm)
 
     for name, r in rows_out.items():
         lib = ("none" if r["library_ms"] is None
@@ -433,6 +453,100 @@ def kernel_phase(torch, dev):
               f"library {lib}  bound {r['bound'][0]:.4f} "
               f"ms ({r['bound'][1]})")
     return rows_out
+
+
+def dense_shapes(torch, dev, cpm):
+    """The serving kernels at the shapes chatglm3-6b (32 query heads over
+    2 KV heads: g = 16, the most a decode block takes, and 4 positions a
+    packed prefill tile) and qwen2-72b (64 over 8, d_model 8192) give
+    them, from a generator of their own: paged decode and paged prefill
+    at both, flash_fwd at chatglm3-6b's 512-token prompt, rmsnorm at
+    (8, 8192) and (512, 8192).  Each is held against its plain version
+    as the rows above are; none is a row of its own.  Then rmsnorm is
+    timed again, late in the call, at (512, 4096) and (512, 8192) beside
+    F.rms_norm."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    D, PAGE, B, MAXP = 128, 16, 8, 1024 // 16
+    n_pages = B * MAXP + 1
+    lens = torch.tensor([1, 17, 100, 256, 511, 700, 1000, 1024],
+                        dtype=torch.int32, device=dev)
+    for label, H, HKV in (("chatglm3-6b", 32, 2), ("qwen2-72b", 64, 8)):
+        kp, vp = rnd(n_pages, PAGE, HKV, D), rnd(n_pages, PAGE, HKV, D)
+        bt = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)
+              [:B * MAXP]).to(torch.int32).reshape(B, MAXP)
+        qd = rnd(B, 1, H, D)
+        got = ops.paged_decode_attention(qd, kp, vp, bt, lens)
+        e, ok = err_within(got, dec_ref.paged_decode_ref(qd, kp, vp, bt, lens),
+                           TOL)
+        check(ok, f"paged_decode at {label}'s heads differs from the plain "
+              f"version")
+        check(torch.equal(got, ops.paged_decode_attention(qd, kp, vp, bt, lens)),
+              f"paged_decode at {label}'s heads gave other bits on a second run")
+        kg = kp[bt.long()].reshape(B, MAXP * PAGE, HKV, D).transpose(1, 2)
+        vg = vp[bt.long()].reshape(B, MAXP * PAGE, HKV, D).transpose(1, 2)
+        mask = (torch.arange(MAXP * PAGE, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        filled = int(lens.sum())
+        print(f"[kernels] paged_decode {label} q (8,1,{H},{D}) over {HKV} KV "
+              f"heads: max error {e:.3g} against the plain version (tol "
+              f"{TOL}); the same bits twice")
+        paged_decode_rate(torch, dict(
+            ms=median_ms(cpm, lambda: ops.paged_decode_attention(
+                qd, kp, vp, bt, lens)),
+            library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
+                qd.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True)),
+            bound=bound(2 * filled * HKV * D * 2 + 2 * qd.numel() * 2
+                        + bt.numel() * 4, 4 * filled * H * D)),
+            label, B * HKV, MAXP)
+        del kg, vg
+        paged_prefill_row(torch, dev, rnd, cpm, label, H, kp, vp, bt[:1],
+                          ((0, 200), (256, 180)))
+        del kp, vp
+
+    q, k, v = rnd(1, 512, 32, D), rnd(1, 512, 2, D), rnd(1, 512, 2, D)
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
+    ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=True)
+    e, ok = err_within(out, ref_out, TOL)
+    e_lse = float((lse - ref_lse).abs().max())
+    check(ok and e_lse <= LSE_TOL, f"flash_fwd at chatglm3-6b's prompt "
+          f"differs from the plain version (lse by {e_lse})")
+    again = fa_kernel.flash_fwd(q, k, v, causal=True)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          "flash_fwd at chatglm3-6b's prompt gave other bits on a second run")
+    print(f"[kernels] flash_fwd chatglm3-6b q (1,512,32,128) kv "
+          f"(1,512,2,128) causal: max error {e:.3g} (tol {TOL}), lse error "
+          f"{e_lse:.3g} (tol {LSE_TOL}); the same bits twice")
+    fwd_rel_l2(out, ref_out, "(1,512) over 2 KV heads")
+    fwd_rate(torch, cpm, "q (1,512,32,128) kv (1,512,2,128) causal", q, k, v)
+
+    w = 1 + 0.1 * torch.randn(8192, generator=g, device=dev)
+    for rows in (8, 512):
+        xr = rnd(rows, 8192)
+        e, ok = err_within(ops.rmsnorm(xr, w), rn_ref.rmsnorm_ref(xr, w), TOL)
+        check(ok, f"rmsnorm ({rows}, 8192) differs from the plain version")
+        print(f"[kernels] rmsnorm ({rows}, 8192): max error {e:.3g} against "
+              f"the plain version (tol {TOL})")
+    for d in (4096, 8192):
+        x, wd = rnd(512, d), 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        wb = wd.to(bf)
+        t = median_ms(cpm, lambda: ops.rmsnorm(x, wd))
+        lib = median_ms(cpm, lambda: F.rms_norm(x, (d,), wb, 1e-5))
+        least, _ = bound(2 * x.numel() * 2 + wd.numel() * 4, 4 * x.numel())
+        print(f"[kernels] rmsnorm (512, {d}) timed late in the call: kernel "
+              f"{t:.4f} ms, F.rms_norm {lib:.4f} ms ({t / lib:.2f}x), bound "
+              f"{least:.5f} ms (bytes, {least / t:.3f} of it)")
 
 
 def fwd_rel_l2(out, ref_out, shape):
@@ -933,21 +1047,23 @@ def quantize_rows(torch, dev, cpm):
 # ---------------------------------------------------------------------------
 
 
-def serve_engine(cfg, params, dev, chunk):
+def serve_engine(cfg, params, dev, chunk, dp_shards=1):
     """The serve phase's engine: 8 slots of page-16 pools, prompts up to
-    512 tokens, 1024 in all; chunked prefill when ``chunk``."""
+    512 tokens, 1024 in all; chunked prefill when ``chunk``; the pool
+    split into ``dp_shards`` shards."""
     from repro_torch.serve import Engine, EngineConfig
     ecfg = EngineConfig(n_slots=8, page_size=16, max_prompt_len=512,
-                        max_seq_len=1024, prefill_chunk=chunk)
+                        max_seq_len=1024, prefill_chunk=chunk,
+                        dp_shards=dp_shards)
     return Engine(cfg, ecfg, params=params, device=dev)
 
 
-def serve_run(torch, dev, cfg, params, chunk, prompts, build):
+def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1):
     """The prompts through ``serve_engine``, 32 new tokens each, with the
     host time of each tick by kind (decode, and mixed: every running
     slot's decode and a prompt chunk).  Returns the launch counts and
     the token streams."""
-    eng = serve_engine(cfg, params, dev, chunk)
+    eng = serve_engine(cfg, params, dev, chunk, dp_shards)
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
@@ -975,7 +1091,8 @@ def serve_run(torch, dev, cfg, params, chunk, prompts, build):
     decode_ms.sort()
     mixed_ms.sort()
     n_tok = sum(len(r.tokens) for r in reqs)
-    mode = f"chunked({chunk})" if chunk else "legacy"
+    mode = (f"chunked({chunk})" if chunk else "legacy") + (
+        f", {dp_shards} pool shards" if dp_shards > 1 else "")
     mixed = (f"; mixed tick median {mixed_ms[len(mixed_ms) // 2]:.2f} ms over "
              f"{len(mixed_ms)} ticks" if mixed_ms else "")
     print(f"[serve] {mode}: {len(reqs)} requests, {n_tok} tokens in "
@@ -1037,6 +1154,99 @@ def contiguous_phase(torch, dev, cfg, params, prompts, streams, build):
           f"the contiguous path launched decode_attention "
           f"{launches['decode_attention']} times, expected {want}")
     return launches
+
+
+def park_run(torch, dev, cfg, params, prompts, want, build):
+    """The legacy serve run again, parked after 5 decode ticks
+    (``snapshot_state``: the pools to the host), adopted by a fresh
+    engine of the same shapes and finished there.  The kernels give the
+    same bits on the same inputs, so every stream must equal the
+    uninterrupted run's ``want`` token for token.  Returns the launch
+    counts of the run, both engines together."""
+    eng = serve_engine(cfg, params, dev, 0)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    while eng.n_decode_steps < 5:
+        check(eng.step(), "the engine ran out of work before it was parked")
+    t = time.perf_counter()
+    snap = eng.snapshot_state()
+    del eng
+    new = serve_engine(cfg, params, dev, 0)
+    new.adopt_state(snap)
+    torch.cuda.synchronize()
+    t_park = time.perf_counter() - t
+    running = len(snap["running"])
+    waiting = len(snap["waiting"])
+    pool_gb = sum(x.numel() * x.element_size() for kv in snap["pool"].values()
+                  for x in kv.values()) / 1e9
+    del snap
+    new.run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    differ = [i for i, (r, w) in enumerate(zip(reqs, want)) if r.tokens != w]
+    check(all(r.finished for r in reqs), "a parked request did not finish")
+    check(not differ, f"parked and adopted streams differ from the "
+          f"uninterrupted run's at requests {differ}")
+    print(f"[serve] parked after 5 decode ticks ({running} running, "
+          f"{waiting} waiting; {pool_gb:.3f} GB of pools to the host and "
+          f"back in {t_park:.2f} s), adopted by a fresh engine, finished: "
+          f"all {len(reqs)} streams equal the uninterrupted legacy run's "
+          f"token for token; {time.perf_counter() - t0:.2f} s in all; "
+          f"launches {launches}")
+    return launches
+
+
+def legacy_gaps(torch, dev, cfg, params, prompts, got, legacy):
+    """Where a stream of ``got`` first parts from the legacy engine's
+    stream of the same prompt, the legacy run's own logits at that step
+    (its arithmetic: ``Model.prefill`` right-padded, flash_fwd, then
+    ``decode_step`` over the shared tokens, the split decode kernel; the
+    engine's legacy run gives the same bits) must pick the legacy token,
+    and the gap of ``got``'s token below their max is measured.  Returns
+    the line that reports them."""
+    from repro_torch.models.model import Model
+
+    model, out = Model(cfg), []
+    for prompt, a, b in zip(prompts, got, legacy):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            out.append((len(prompt), None, None))
+            continue
+        toks = torch.zeros((1, 1024), dtype=torch.long, device=dev)
+        toks[0, :len(prompt)] = torch.tensor(prompt, device=dev)
+        lg, cache = model.prefill(
+            params, {"tokens": toks},
+            last_index=torch.tensor([len(prompt) - 1], device=dev))
+        for j, tok in enumerate(b[:i]):
+            lg, cache = model.decode_step(
+                params, cache, torch.tensor([[tok]], device=dev),
+                len(prompt) + j)
+        lg = lg[0].float()
+        check(int(torch.argmax(lg)) == b[i], f"the legacy arithmetic does "
+              f"not give the legacy token at step {i}")
+        out.append((len(prompt), i, float(lg.max() - lg[a[i]])))
+    worst = max([g for _, _, g in out if g is not None], default=0.0)
+    return (f"(prompt length, first step where the streams part, the "
+            f"token's logit gap below the legacy run's max there, or None) "
+            f"{[(n, i, g if g is None else round(g, 5)) for n, i, g in out]}; "
+            f"largest gap {worst:.5f} ({worst / STREAM_LOGIT_TOL:.2f}x "
+            f"STREAM_LOGIT_TOL)")
+
+
+def draw_biases(torch, dev, cfg, params, seed):
+    """Overwrite the QKV biases, zeros from the seeded init (which test
+    nothing), with normal(0, 0.02) values from a generator of their own
+    (so no other draw moves)."""
+    if not cfg.qkv_bias:
+        return
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for pos in params["blocks"].values():
+            for n in ("bq", "bk", "bv"):
+                b = pos["attn"][n]
+                b.copy_(torch.randn(b.shape, generator=g, device=dev) * 0.02)
 
 
 def teacher_force(torch, dev, cfg, params):
@@ -1137,6 +1347,7 @@ def grad_check(torch, dev, arch):
 
     cfg = dataclasses.replace(registry.get(arch), n_layers=2)
     params = init_train_state(cfg, TrainConfig(), device=dev)["params"]
+    draw_biases(torch, dev, cfg, params, seed=12)
     batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
              synthetic_batch(cfg, WorkloadShape("chip", "train", 4096, 2)
                              ).items()}
@@ -1664,22 +1875,30 @@ def main() -> int:
     import numpy as np
     runs = []                       # launch counts of every main-path run
 
-    def serve_phase(arch):
-        """Both engine modes on ``arch`` at full size, then teacher-forced
-        logits; returns (params, prompts, legacy streams)."""
+    def serve_phase(arch, n_layers=None, cut=""):
+        """Both engine modes on ``arch`` at full width and depth, or at
+        ``n_layers`` (the reason in ``cut``), then teacher-forced logits;
+        returns (cfg, params, prompts, legacy streams).  QKV biases are
+        drawn after the init (``draw_biases``)."""
         cfg = registry.get(arch)
+        depth = f"{cfg.n_layers} layers"
+        if n_layers is not None:
+            depth = f"{n_layers} of {cfg.n_layers} layers (cut: {cut})"
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
         t = time.perf_counter()
         params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
                                  dtype=torch.bfloat16, device=dev)
+        draw_biases(torch, dev, cfg, params, seed=11)
         torch.cuda.synchronize()
-        print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+        print(f"[serve] {cfg.name}: {depth}, d_model "
               f"{cfg.d_model}, {Model(cfg).n_params() / 1e9:.2f} B params in "
               f"bf16, drawn in {time.perf_counter() - t:.1f} s")
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
                    for n in rng.integers(64, 513, 12)]
         legacy, streams = serve_run(torch, dev, cfg, params, 0, prompts, build)
-        chunked, _ = serve_run(torch, dev, cfg, params, 256, prompts, build)
+        chunked, c_streams = serve_run(torch, dev, cfg, params, 256, prompts,
+                                       build)
         moe = ("moe_gemm",) if cfg.moe is not None else ()
         for name in ("rmsnorm", "flash_fwd", "paged_decode") + moe:
             check(legacy[name] > 0, f"legacy serve never launched {name}")
@@ -1687,23 +1906,50 @@ def main() -> int:
             check(chunked[name] > 0, f"chunked serve never launched {name}")
         runs.extend([legacy, chunked])
         teacher_force(torch, dev, cfg, params)
-        return cfg, params, prompts, streams
+        return cfg, params, prompts, streams, c_streams
 
-    cfg, params, prompts, streams = serve_phase("yi-6b")
+    cfg, params, prompts, streams, c_streams = serve_phase("yi-6b")
     tie = torch.zeros((2, 64000), dtype=torch.bfloat16, device=dev)
     tie[:, 5] = tie[:, 70] = 1.0
     check(torch.argmax(tie, dim=-1).tolist() == [5, 5],
           "argmax over bf16 logits must return the first maximal index")
     runs.append(contiguous_phase(torch, dev, cfg, params, prompts[:4],
                                  streams[:4], build))
+    # the chunked prefill (paged_prefill over 256-row chunks) and the
+    # legacy one (flash_fwd over the padded prompt) round differently,
+    # and greedy streams part where two tokens' logits lie that close
+    print(f"[serve] {cfg.name} chunked(256) against legacy: "
+          + legacy_gaps(torch, dev, cfg, params, prompts, c_streams, streams))
     del params
     torch.cuda.empty_cache()
     params = serve_phase("granite-moe-1b-a400m")[1]
     del params
     torch.cuda.empty_cache()
 
+    # chatglm3-6b: QKV bias, half the head dim rotated, 16 query heads a
+    # KV head; then parked and adopted, and served over two pool shards
+    cfg, params, prompts, streams, c_streams = serve_phase("chatglm3-6b")
+    runs.append(park_run(torch, dev, cfg, params, prompts, streams, build))
+    sharded, got = serve_run(torch, dev, cfg, params, 256, prompts, build,
+                             dp_shards=2)
+    runs.append(sharded)
+    differ = [i for i, (a, b) in enumerate(zip(got, c_streams)) if a != b]
+    check(not differ, f"the 2-shard chunked run's streams differ from the "
+          f"one-shard chunked run's at requests {differ}")
+    print(f"[serve] chunked(256) over 2 pool shards: all {len(got)} streams "
+          f"equal the one-shard chunked run's token for token; against the "
+          f"legacy run: "
+          + legacy_gaps(torch, dev, cfg, params, prompts, got, streams))
+    del params
+    torch.cuda.empty_cache()
+    params = serve_phase("qwen2-72b", QWEN2_LAYERS,
+                         "all 80 need ~145 GB of bf16 weights")[1]
+    del params
+    torch.cuda.empty_cache()
+
     grad_check(torch, dev, "yi-6b")
     grad_check(torch, dev, "granite-moe-1b-a400m")
+    grad_check(torch, dev, "chatglm3-6b")
     runs.append(train_phase(torch, dev, build))
     runs.append(train_granite(torch, dev, build))
     runs.extend(comm_phase(torch, dev, build, smi))

@@ -44,9 +44,13 @@ class ModelConfig:
     d_head: int = 0                  # 0 -> d_model // n_heads
 
     rope_theta: float = 10_000.0
-    rope_fraction: float = 1.0       # rotate this fraction of the head dim
+    rope_fraction: float = 1.0       # chatglm3 2d-RoPE: rotate half the head dim
+    qkv_bias: bool = False
     causal: bool = True
+
+    norm_type: str = "rmsnorm"       # rmsnorm | layernorm
     mlp_type: str = "swiglu"         # swiglu | gelu
+    pos_type: str = "rope"           # rope | sinusoidal | none
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 
@@ -83,8 +87,8 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count of an attention-only decoder, as the
-        JAX package counts it (embeddings once when tied; norm scales
-        not counted)."""
+        JAX package counts it (embeddings once when tied; QKV biases
+        counted, norm scales and biases not)."""
         d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
 
@@ -93,6 +97,8 @@ class ModelConfig:
 
         for i in range(self.pattern_len):
             blk = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+            if self.qkv_bias:
+                blk += h * hd + 2 * kv * hd
             if self.moe is not None and (i % self.moe.every) == (self.moe.every - 1):
                 blk += self.moe.n_experts * mlp_params(self.moe.d_ff_expert)
                 blk += d * self.moe.n_experts                       # router

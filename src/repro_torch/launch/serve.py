@@ -22,7 +22,8 @@ def main(argv=None):
     from repro_torch.serve.paging import round_up
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
+    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS
+                    + registry.EXTRA_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced SMOKE config")
     ap.add_argument("--device", default=None,

@@ -20,7 +20,8 @@ def main(argv=None):
     from repro_torch.train import Trainer
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
+    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS
+                    + registry.EXTRA_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced SMOKE config")
     ap.add_argument("--device", default=None,

@@ -1,6 +1,8 @@
-"""Transformer layers of the attention-only decoders: RMSNorm, RoPE, GQA
-attention (prefill, contiguous decode, paged decode, paged chunk
-prefill), the SwiGLU or GeLU MLP, embed and (optionally tied) logits.
+"""Transformer layers of the attention-only decoders: RMSNorm or
+LayerNorm, RoPE (whole or partial head dim), sinusoidal positions, GQA
+attention with optional QKV bias (prefill, contiguous decode, paged
+decode, paged chunk prefill), the SwiGLU or GeLU MLP, embed and
+(optionally tied) logits.
 
 Each layer has ``*_defs(cfg)`` (the PDef schema, with the JAX package's
 key names and logical axes) and ``*_apply(cfg, params, ...)`` (the math
@@ -9,6 +11,7 @@ the JAX layers do; ``impl`` selects the kernels (see ``kernels/ops``).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -35,11 +38,24 @@ class PagedView(NamedTuple):
 
 def norm_defs(cfg: ModelConfig):
     # float32 whatever the tree's dtype: the rmsnorm kernel reads it so
-    return {"scale": PDef((cfg.d_model,), (None,), init="ones",
-                          dtype="float32")}
+    # (LayerNorm's bias too, beside its scale)
+    d = {"scale": PDef((cfg.d_model,), (None,), init="ones",
+                       dtype="float32")}
+    if cfg.norm_type == "layernorm":
+        d["bias"] = PDef((cfg.d_model,), (None,), init="zeros",
+                         dtype="float32")
+    return d
 
 
 def norm_apply(cfg: ModelConfig, p, x, impl=None):
+    """RMSNorm through the ``rmsnorm`` kernel, or LayerNorm in float32
+    (plain torch: the JAX package has no LayerNorm kernel either)."""
+    if cfg.norm_type == "layernorm":
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) / torch.sqrt(var + cfg.norm_eps)
+        return (y * p["scale"] + p["bias"]).to(x.dtype)
     return ops.rmsnorm(x, p["scale"], eps=cfg.norm_eps, impl=impl)
 
 
@@ -63,14 +79,30 @@ def apply_rope(x, positions, theta: float, fraction: float = 1.0):
     return torch.cat([y.to(x.dtype), x_pass], dim=-1)
 
 
+def sinusoidal_positions(seq_len: int, d_model: int, offset=0, device=None):
+    """(seq_len, d_model) float32: sin then cos of positions ``offset``
+    .. ``offset + seq_len - 1`` over geometric frequencies."""
+    pos = torch.arange(seq_len, device=device) + offset
+    half = d_model // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=device)
+                      * (math.log(10000.0) / max(half - 1, 1)))
+    ang = pos[:, None].to(torch.float32) * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def attention_defs(cfg: ModelConfig):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    defs = {
         "wq": PDef((d, h * hd), ("embed", "heads")),
         "wk": PDef((d, kv * hd), ("embed", "kv_heads")),
         "wv": PDef((d, kv * hd), ("embed", "kv_heads")),
         "wo": PDef((h * hd, d), ("heads", "embed")),
     }
+    if cfg.qkv_bias:
+        defs["bq"] = PDef((h * hd,), ("heads",), init="zeros")
+        defs["bk"] = PDef((kv * hd,), ("kv_heads",), init="zeros")
+        defs["bv"] = PDef((kv * hd,), ("kv_heads",), init="zeros")
+    return defs
 
 
 def _project_qkv(cfg, p, x):
@@ -79,6 +111,10 @@ def _project_qkv(cfg, p, x):
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
             v.reshape(b, s, kv, hd))
 
@@ -97,8 +133,9 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
     cache)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    if cfg.pos_type == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
 
     if cache is None:                                   # prompt prefill
         out = ops.flash_attention(q, k, v, causal=causal, impl=impl)
@@ -172,8 +209,15 @@ def embed_defs(cfg: ModelConfig):
     return defs
 
 
-def embed_apply(cfg: ModelConfig, p, tokens, dtype):
-    return p["tok"][tokens].to(dtype)
+def embed_apply(cfg: ModelConfig, p, tokens, dtype, offset=0):
+    """Token embeddings in ``dtype``; with sinusoidal positions, plus
+    those of positions ``offset`` .. ``offset + S - 1`` (one offset for
+    every row)."""
+    x = p["tok"][tokens].to(dtype)
+    if cfg.pos_type == "sinusoidal":
+        x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
+                                     tokens.device).to(dtype)[None]
+    return x
 
 
 def logits_apply(cfg: ModelConfig, p, x, impl=None):

@@ -84,9 +84,14 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ forward
     def _trunk(self, params, tokens, positions, *, mode, compute_dtype,
-               caches=None, cache_index=None, paging=None):
+               caches=None, cache_index=None, paging=None, offset=0):
+        """``offset``: the sinusoidal positions' first position, the
+        scalar ``cache_index`` on the contiguous decode path and 0
+        elsewhere (per-slot paths serve rope or position-free archs
+        only, as in the JAX package)."""
         cfg = self.cfg
-        x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype)
+        x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype,
+                               offset=offset)
         x, new_caches, _ = transformer.stack_apply(
             cfg, params["blocks"], x, positions=positions, caches=caches,
             cache_index=cache_index, mode=mode, paging=paging,
@@ -140,13 +145,15 @@ class Model(nn.Module):
         place.  Returns (logits (B, V), caches)."""
         s = tokens.shape[1]
         if paging is None:
-            cache_index = int(cache_index)
+            cache_index = offset = int(cache_index)
             positions = cache_index + torch.arange(s, device=tokens.device)
         else:
+            offset = 0
             positions = (cache_index.long()[:, None]
                          + torch.arange(s, device=tokens.device))
         logits, caches = self._trunk(params, tokens, positions,
                                      mode="decode", caches=caches,
                                      cache_index=cache_index, paging=paging,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype,
+                                     offset=offset)
         return logits[:, -1], caches

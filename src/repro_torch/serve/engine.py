@@ -18,6 +18,7 @@ exact argmax at ``temperature == 0``.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence
 
@@ -74,17 +75,22 @@ class EngineConfig:
     n_pages: int = 0              # 0 -> every slot can reach max_seq_len
     pad_id: int = 0               # prompt padding token
     prefill_chunk: int = 0        # >0: chunked prefill inside decode ticks
-    dp_shards: int = 1            # page-pool shards (one: no data tier yet)
+    dp_shards: int = 1            # page-pool shards over the data tier
 
     def layout(self) -> paging.PagedLayout:
         assert self.max_seq_len % self.page_size == 0
         assert self.max_prompt_len % self.page_size == 0
         assert self.max_prompt_len <= self.max_seq_len
-        assert self.dp_shards == 1, "the port runs one page-pool shard"
+        ns = max(self.dp_shards, 1)
+        assert self.n_slots % ns == 0, \
+            f"dp_shards={ns} must divide n_slots={self.n_slots}"
         pps = self.max_seq_len // self.page_size
+        n_pages = self.n_pages or self.n_slots * pps + ns
+        assert n_pages % ns == 0, \
+            f"dp_shards={ns} must divide n_pages={n_pages}"
         return paging.PagedLayout(page_size=self.page_size,
-                                  pages_per_slot=pps,
-                                  n_pages=self.n_pages or self.n_slots * pps + 1)
+                                  pages_per_slot=pps, n_pages=n_pages,
+                                  n_shards=ns)
 
 
 class Engine:
@@ -109,6 +115,8 @@ class Engine:
                  compute_dtype=torch.bfloat16, clock: Optional[Clock] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None):
+        assert cfg.pos_type in ("rope", "none"), \
+            "per-slot positions need rope (or no) position encoding"
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -137,6 +145,57 @@ class Engine:
         self.n_decode_steps = 0
         self.n_mixed_steps = 0
         self.n_generated = 0
+
+    # -- park / adopt ---------------------------------------------------------
+    def snapshot_state(self) -> dict:
+        """Freeze the engine's whole decode state on the host: the page
+        pools (host copies), the allocator's block table, lengths,
+        reservations and free lists, the scheduler's queues, each slot's
+        next token, the sampling generator's state (under ``"key"``, the
+        JAX engine's name for its sampling key) and the compute counters.
+        An engine of the same shapes, with the same or other params,
+        :meth:`adopt_state`s it and goes on from the parked tokens."""
+        al, sch = self.alloc, self.scheduler
+        return {
+            "pool": P.tree_map(lambda t: t.to("cpu", copy=True), self.pool),
+            "block_table": al.block_table.copy(),
+            "lengths": al.lengths.copy(),
+            "reserved": al._reserved.copy(),
+            "free_pages": list(al.free_pages),
+            "free_slots": list(al.free_slots),
+            "waiting": list(sch.waiting),
+            "prefilling": list(sch.prefilling),
+            "running": dict(sch.running),
+            "n_finished": sch.n_finished,
+            "next_token": self._next_token.copy(),
+            "key": self._gen.get_state(),
+            "counters": (self.n_prefills, self.n_decode_steps,
+                         self.n_generated),
+        }
+
+    def adopt_state(self, snap: dict) -> None:
+        """Take over a :meth:`snapshot_state` snapshot: the pools copy
+        onto this engine's device and the host bookkeeping copies over.
+        Parking freezes the tick stream instead of replaying it (the
+        generator's state rides the snapshot), so the tokens that follow
+        are those of an uninterrupted run at any temperature."""
+        for key, kv in snap["pool"].items():
+            for n, t in kv.items():
+                self.pool[key][n].copy_(t)
+        al, sch = self.alloc, self.scheduler
+        al.block_table[:] = snap["block_table"]
+        al.lengths[:] = snap["lengths"]
+        al._reserved[:] = snap["reserved"]
+        al.free_pages = list(snap["free_pages"])
+        al.free_slots = list(snap["free_slots"])
+        sch.waiting = deque(snap["waiting"])
+        sch.prefilling = deque(snap["prefilling"])
+        sch.running = dict(snap["running"])
+        sch.n_finished = snap["n_finished"]
+        self._next_token[:] = snap["next_token"]
+        self._gen.set_state(snap["key"])
+        self.n_prefills, self.n_decode_steps, self.n_generated = \
+            snap["counters"]
 
     def _dev(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)

@@ -4,8 +4,9 @@ The engine's KV memory is a fixed pool of ``page_size``-token pages per
 attention layer (``transformer.paged_cache_defs``).  A host-side
 :class:`PageAllocator` (numpy) owns the physical pages: a free list, the
 ``(n_slots, pages_per_slot)`` block table, and per-slot fill lengths.
-Page 0 is the *null page*: never allocated, it absorbs KV writes from
-empty slots and prompt padding, so the steps need no masking.
+Page 0 (with shards, each shard's first page) is the *null page*: never
+allocated, it absorbs KV writes from empty slots and prompt padding, so
+the steps need no masking.
 
 ``scatter_prefill`` moves a legacy prefill's contiguous KV into the
 slot's pages.  The port updates the pool in place (the JAX engine
@@ -31,9 +32,9 @@ class PagedLayout:
 
     ``n_pages`` counts the null page(s): never allocated, they absorb
     writes from empty slots and prompt padding.  A slot's capacity is
-    ``pages_per_slot * page_size`` tokens.  ``n_shards > 1`` (a pool
-    split over data-parallel shards, each with its own null page and
-    free list) is kept by the allocator; the engine runs one shard.
+    ``pages_per_slot * page_size`` tokens.  ``n_shards > 1`` splits the
+    pool over data-parallel shards, each with its own null page and free
+    list (see :class:`PageAllocator`).
     """
 
     page_size: int

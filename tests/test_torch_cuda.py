@@ -74,7 +74,9 @@ def test_rmsnorm_kernel(dev, rows, d):
     (1, 63, 1000, 8, 1, 64, False),
     (1, 65, 257, 8, 2, 128, False),
     (2, 130, 1000, 4, 4, 128, False),
-    (1, 64, 130, 16, 2, 64, False)])
+    (1, 64, 130, 16, 2, 64, False),
+    (1, 130, 130, 32, 2, 128, True),    # g = 16: chatglm3-6b's heads
+    (2, 65, 200, 16, 1, 64, True)])     # g = 16, offset 135
 def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
     q, k, v = (_rnd(dev, b, s, n, d, seed=i) for i, (s, n) in
                enumerate([(sq, h), (skv, hkv), (skv, hkv)]))
@@ -170,7 +172,8 @@ def _split_pool(dev, b, maxp, hkv, d, page=16, seed=11):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,d", [
     (8, 8, 128), (16, 8, 128), (32, 4, 128), (16, 1, 128),   # g = 1, 2, 8, 16
-    (8, 8, 64), (16, 8, 64), (64, 8, 64), (16, 1, 64)])
+    (8, 8, 64), (16, 8, 64), (64, 8, 64), (16, 1, 64),
+    (32, 2, 128), (64, 8, 128)])         # chatglm3-6b's and qwen2-72b's heads
 def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
     """Slots of 80 pages (many splits): lengths 1, page - 1, page, page +
     1, a split boundary - 1, + 0 and + 1 (the wrapper's plan), and the
@@ -248,15 +251,18 @@ def test_flash_fwd_keeps_its_bits(dev):
 
 
 # (h, hkv, start, n_valid, chunk, page): where paged prefill's tiles bite:
-# 64 packed rows span 64 / g chunk positions (g = H / Hkv of 1, 2, 7, 8),
-# 64-key steps, fills on either side of a step, pages of 8, 16 and 64;
-# short chunks; and chip_smoke.py's yi-6b chunk
+# 64 packed rows span 64 / g chunk positions (g = H / Hkv of 1, 2, 7, 8
+# and 16), 64-key steps, fills on either side of a step, pages of 8, 16
+# and 64; short chunks; and chip_smoke.py's yi-6b, chatglm3-6b (g = 16:
+# 4 positions a tile) and qwen2-72b chunks
 PREFILL_CASES = [
     (8, 1, 0, 64, 64, 16), (2, 2, 0, 1, 64, 8), (14, 2, 37, 63, 64, 16),
     (4, 2, 37, 65, 128, 8), (8, 1, 64, 64, 128, 64), (7, 1, 64, 128, 128, 16),
     (4, 2, 250, 65, 96, 64), (8, 1, 250, 1, 32, 8), (2, 1, 0, 128, 128, 64),
     (8, 2, 0, 24, 24, 16), (8, 2, 16, 10, 24, 16), (8, 2, 100, 24, 24, 16),
-    (8, 2, 170, 20, 24, 16), (32, 4, 256, 180, 256, 16)]
+    (8, 2, 170, 20, 24, 16), (32, 4, 256, 180, 256, 16),
+    (32, 2, 256, 180, 256, 16), (64, 8, 256, 180, 256, 16),
+    (16, 1, 37, 63, 64, 8)]
 
 
 @pytest.mark.cuda
@@ -318,6 +324,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ops.flash_attention(q, q, q)          # head dim 32 is not built
 
 
+@pytest.mark.cuda
+def test_lammps_proxy_head_dim_32_is_refused_on_the_card(dev):
+    """lammps-proxy has head dim 32 (d 256 over 8 heads), which no
+    attention kernel takes: on the card its prefill, its loss and both
+    engine modes raise, and nothing falls back to a plain version."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, EngineConfig
+    cfg = registry.get("lammps-proxy")
+    assert cfg.head_dim == 32
+    params = Model(cfg).init(device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=dev)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="head dim 32"):
+        Model(cfg).prefill(params, {"tokens": toks})
+    with pytest.raises(ValueError, match="head dim 32"):
+        Model(cfg).loss(params, {"tokens": toks, "labels": toks})
+    for chunk in (0, 16):
+        eng = Engine(cfg, EngineConfig(n_slots=2, page_size=16, max_seq_len=64,
+                                       max_prompt_len=32, prefill_chunk=chunk),
+                     params=params, device=dev)
+        eng.submit([1, 2, 3], max_new_tokens=2)
+        with pytest.raises(ValueError, match="head dim 32"):
+            eng.run()
+    assert all(build.LAUNCHES[k] == 0 for k in
+               ("flash_fwd", "paged_prefill", "paged_decode", "decode_attention"))
+
+
 # ---------------------------------------------------------------------------
 # flash attention backward and the autograd Functions
 # ---------------------------------------------------------------------------
@@ -340,6 +374,9 @@ BWD_SHAPES = [
     # non-causal cross shapes with Skv > Sq
     (1, 129, 300, 8, 1, 128, False),
     (2, 100, 300, 4, 2, 64, False),
+    # g = 16: dk and dv summed over 16 query heads (chatglm3-6b's heads)
+    (1, 130, 130, 32, 2, 128, True),
+    (2, 129, 300, 16, 1, 64, True),
 ]
 
 

@@ -57,11 +57,13 @@ def test_smoke_config_is_a_field_for_field_copy():
         assert getattr(CFG, f.name) == getattr(JCFG, f.name), f.name
     assert treg.get("yi-6b").n_params() == jreg.get("yi-6b").n_params()
     with pytest.raises(KeyError):
-        treg.get("qwen2-72b")
+        treg.get("whisper-base")        # a family not ported yet
     # MoEConfig is copied whole, fields and defaults in order
     assert [(f.name, f.default) for f in dataclasses.fields(MoEConfig)] == \
         [(f.name, f.default) for f in dataclasses.fields(JMoEConfig)]
-    for arch in ("yi-6b", "granite-moe-1b-a400m", "arctic-480b"):
+    assert treg.EXTRA_IDS == jreg.EXTRA_IDS
+    for arch in ("yi-6b", "granite-moe-1b-a400m", "arctic-480b",
+                 "chatglm3-6b", "qwen2-72b", "deepseek-67b", "lammps-proxy"):
         for get in ("get", "smoke"):
             t, j = getattr(treg, get)(arch), getattr(jreg, get)(arch)
             for f in dataclasses.fields(ModelConfig):

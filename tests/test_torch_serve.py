@@ -222,6 +222,124 @@ def test_jax_engine_bf16_stream_is_greedy_under_the_port_model(params):
 
 
 # ---------------------------------------------------------------------------
+# Park / adopt, and page-pool shards
+# ---------------------------------------------------------------------------
+
+
+def _submit(eng, temp=0.0):
+    return [eng.submit(p, max_new_tokens=n, temperature=temp)
+            for p, n in zip(PROMPTS, NEW)]
+
+
+@pytest.mark.parametrize("chunk", [0, 4], ids=["legacy", "c4"])
+@pytest.mark.parametrize("temp", [0.0, 1.3], ids=["t0", "hot"])
+def test_snapshot_then_adopt_is_token_identical(params, chunk, temp):
+    """Park an engine mid-decode (4 ticks in: requests running, one
+    still waiting or mid-prefill), adopt the snapshot into a fresh
+    engine of the same shapes and another seed, and finish there: every
+    stream equals the uninterrupted run's, at t > 0 too (the generator's
+    state rides the snapshot)."""
+    ecfg = EngineConfig(**ECFG, prefill_chunk=chunk)
+    base = Engine(TINY, ecfg, params=params[1], device="cpu", seed=3)
+    want = _submit(base, temp)
+    base.run()
+    eng = Engine(TINY, ecfg, params=params[1], device="cpu", seed=3)
+    reqs = _submit(eng, temp)
+    for _ in range(4):
+        eng.step()
+    assert any(r.tokens for r in reqs) and not all(r.finished for r in reqs)
+    snap = eng.snapshot_state()
+    assert all(t.device.type == "cpu"
+               for kv in snap["pool"].values() for t in kv.values())
+    for kv in eng.pool.values():           # the snapshot owns its pools
+        for t in kv.values():
+            t.zero_()
+    counters = (eng.n_prefills, eng.n_decode_steps, eng.n_generated)
+    new = Engine(TINY, ecfg, params=params[1], device="cpu", seed=99)
+    new.adopt_state(snap)
+    assert (new.n_prefills, new.n_decode_steps, new.n_generated) == counters
+    new.run()
+    assert [r.tokens for r in reqs] == [r.tokens for r in want]
+    assert all(r.finished for r in reqs) and new.alloc.pages_in_use() == 0
+
+
+def test_adopt_with_other_params_continues_from_the_parked_tokens(params):
+    """The canary-promotion path: an engine with other params adopts a
+    parked engine and finishes its requests from the tokens they had."""
+    other = Model(TINY).init(torch.Generator().manual_seed(5), device="cpu")
+    base = Engine(TINY, EngineConfig(**ECFG), params=params[1], device="cpu")
+    want = _submit(base)
+    base.run()
+    eng = Engine(TINY, EngineConfig(**ECFG), params=params[1], device="cpu")
+    reqs = _submit(eng)
+    for _ in range(4):
+        eng.step()
+    parked = [list(r.tokens) for r in reqs]
+    new = Engine(TINY, EngineConfig(**ECFG), params=other, device="cpu")
+    new.adopt_state(eng.snapshot_state())
+    new.run()
+    for r, before, n in zip(reqs, parked, NEW):
+        assert r.finished and len(r.tokens) == n
+        assert r.tokens[:len(before)] == before
+    assert [r.tokens for r in reqs] != [r.tokens for r in want]
+
+
+SHARDED = dict(n_slots=4, page_size=4, max_seq_len=32, max_prompt_len=8)
+SHARD_PROMPTS = [[1, 2, 3, 4, 5], [7, 8, 9], [11, 12, 13, 14], [2, 4],
+                 [5, 6, 7, 8, 9, 10, 11], [3, 1]]
+
+
+def _shard_streams(params, **kw):
+    eng = Engine(TINY, EngineConfig(**SHARDED, **kw), params=params,
+                 device="cpu")
+    reqs = [eng.submit(p, max_new_tokens=6) for p in SHARD_PROMPTS]
+    return eng, reqs
+
+
+@pytest.mark.parametrize("chunk", [0, 3, 4], ids=["legacy", "c3", "c4"])
+def test_sharded_pool_keeps_each_shards_pages(params, chunk):
+    """dp_shards=2: each shard has its own null page (its first id) and
+    free list; at every tick a slot holds only its shard's pages, the
+    null pages are never free, and each shard's pages are conserved
+    (in use + free = its pages less its null page).  The greedy streams
+    equal those of one shard, legacy and chunked alike."""
+    ref, ref_reqs = _shard_streams(params[1])
+    ref.run()
+    eng, reqs = _shard_streams(params[1], dp_shards=2, prefill_chunk=chunk)
+    al, lay = eng.alloc, eng.layout
+    stride = lay.n_pages // 2
+    assert lay.n_shards == 2 and lay.n_pages == 4 * 8 + 2
+    assert [al.null_page_of(s) for s in range(4)] == [0, 0, stride, stride]
+    assert eng.stats()["dp_shards"] == 2
+    while eng.step():
+        for slot in range(4):
+            lo = al.shard_of(slot) * stride
+            row = al.block_table[slot]
+            assert bool(((row >= lo) & (row < lo + stride)).all()), slot
+        for shard, used in enumerate(al.pages_in_use_by_shard()):
+            assert shard * stride not in al._free[shard]
+            assert used + len(al._free[shard]) == stride - 1
+    assert [r.tokens for r in reqs] == [r.tokens for r in ref_reqs]
+    assert al.pages_in_use() == 0
+
+
+def test_sharded_engine_parks_and_adopts(params):
+    """Park and adopt with two shards: the free lists re-bucket into
+    their shards and the streams go on unchanged."""
+    ref, ref_reqs = _shard_streams(params[1], dp_shards=2, prefill_chunk=3)
+    ref.run()
+    eng, reqs = _shard_streams(params[1], dp_shards=2, prefill_chunk=3)
+    for _ in range(6):
+        eng.step()
+    new = Engine(TINY, EngineConfig(**SHARDED, dp_shards=2, prefill_chunk=3),
+                 params=params[1], device="cpu")
+    new.adopt_state(eng.snapshot_state())
+    assert new.alloc._free == eng.alloc._free
+    new.run()
+    assert [r.tokens for r in reqs] == [r.tokens for r in ref_reqs]
+
+
+# ---------------------------------------------------------------------------
 # Sampling, streaming, devices, metrics
 # ---------------------------------------------------------------------------
 
@@ -315,7 +433,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             port / "kernels" / "moe_gemm" / "kernel.py",
             port / "kernels" / "moe_gemm" / "ref.py",
             port / "configs" / "granite_moe_1b_a400m.py",
-            port / "configs" / "arctic_480b.py"} <= set(files)
+            port / "configs" / "arctic_480b.py",
+            port / "configs" / "chatglm3_6b.py",
+            port / "configs" / "qwen2_72b.py",
+            port / "configs" / "deepseek_67b.py",
+            port / "configs" / "lammps_proxy.py"} <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
