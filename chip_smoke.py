@@ -33,7 +33,11 @@ Phases, each printing its own lines:
              chatglm3-6b's heads (32 over 2 KV heads, g = 16) and
              qwen2-72b's (64 over 8), flash_fwd at chatglm3-6b's prompt,
              rmsnorm at d 8192, and rmsnorm timed again late in the call
-             beside F.rms_norm;
+             beside F.rms_norm; then, from a generator of their own, the
+             attention kernels at lammps-proxy's head dim 32 (8 heads over
+             8 KV heads): flash_fwd and flash_bwd at (2, 2048), paged
+             decode and decode over a contiguous cache at 8 slots, paged
+             prefill at a 256-row chunk, each beside SDPA and its bound;
 4. serve   - yi-6b at full width and depth (random weights from a seeded
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
@@ -73,7 +77,20 @@ Phases, each printing its own lines:
              losses against the one-device run, the quantize kernels'
              launches per step, a traced compressed step on rank 0, and
              one sync of a gradient of the largest leaf's shape against
-             its exact mean.
+             its exact mean;
+7. operator - the Flux-operator control plane over the port: a
+             FluxMiniCluster on a simulated ResourceGraph reaches Ready,
+             and WorkloadSpecs are applied with the full configs (every
+             plain version refused throughout): yi-6b served at full size
+             in both modes and lammps-proxy chunked (streams against a
+             direct Engine), yi-6b as two replicas over one parameter set
+             behind the Router (its prefix cache on and off), yi-6b
+             elastic through a grow and a shrink mid-decode (parked and
+             adopted, streams against the uninterrupted run), lammps-proxy
+             trained through the SubmeshExecutor (loss against the
+             Trainer's), and lammps-proxy as the workload under a Flux
+             job and an MPIJob (the paper's Figure 5); each handle's
+             lifecycle and the phase's launch counts are printed.
 
 Then the ``kernels`` JSON line, the card's line, and the result line.
 Any failure raises and exits non-zero; without CUDA, or without the port
@@ -442,6 +459,7 @@ def kernel_phase(torch, dev):
     rows_out["decode_attention"] = decode_attention_row(torch, dev, rnd, cpm)
     rows_out.update(quantize_rows(torch, dev, cpm))
     dense_shapes(torch, dev, cpm)
+    head_dim_32(torch, dev, rows_out, cpm)
 
     for name, r in rows_out.items():
         lib = ("none" if r["library_ms"] is None
@@ -547,6 +565,144 @@ def dense_shapes(torch, dev, cpm):
         print(f"[kernels] rmsnorm (512, {d}) timed late in the call: kernel "
               f"{t:.4f} ms, F.rms_norm {lib:.4f} ms ({t / lib:.2f}x), bound "
               f"{least:.5f} ms (bytes, {least / t:.3f} of it)")
+
+
+def head_dim_32(torch, dev, rows_out, cpm):
+    """The attention kernels at lammps-proxy's head dim 32 (8 query heads
+    over 8 KV heads, g = 1), from a generator of their own: flash_fwd and
+    flash_bwd at the operator phase's train shape (2 x 2048, causal),
+    paged decode and decode over a contiguous cache at the serve cell's
+    8 slots, paged prefill at its 256-row chunk.  The kernels run D = 32
+    on 64-wide tiles whose columns 32..63 are zero (wgmma.cuh).  Each is
+    held against its plain version at the head dim 64 rows' tolerances,
+    its error folded into its kernel's row, and timed beside SDPA and its
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    g = torch.Generator(device=dev).manual_seed(3232)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    H, HKV, D, PAGE, B, S = 8, 8, 32, 16, 2, 2048
+    q, k, v, do = rnd(B, S, H, D), rnd(B, S, HKV, D), rnd(B, S, HKV, D), \
+        rnd(B, S, H, D)
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
+    ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=True)
+    e, ok = err_within(out, ref_out, TOL)
+    e_lse = float((lse - ref_lse).abs().max())
+    check(ok and e_lse <= LSE_TOL, f"flash_fwd at head dim 32 differs from "
+          f"the plain version (lse by {e_lse})")
+    fwd_rel_l2(out, ref_out, "(2,2048) head dim 32")
+    again = fa_kernel.flash_fwd(q, k, v, causal=True)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          "flash_fwd at head dim 32 gave other bits on a second run")
+    _fold(rows_out["flash_fwd"], e, "; and q (2,2048,8,32), kv (2,2048,8,32)")
+    got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa_ref.bwd(q, k, v, out, lse, do, causal=True)
+    rels = []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        e, ok = err_within(a, b, TOL)
+        r = rel_l2(a, b)
+        check(ok and r <= REL_L2_TOL, f"flash_bwd {name} at head dim 32 "
+              f"differs from the plain version (relative L2 {r:.3g})")
+        rels.append(r)
+        _fold(rows_out["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"],
+              e, "")
+    again = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "flash_bwd at head dim 32 gave other bits on a second run")
+    del got, want, again, ref_out, ref_lse
+    delta = (out.float() * do.float()).sum(-1)
+    t_fwd, sdpa_fwd_ms = fwd_rate(torch, cpm, "q (2,2048,8,32) kv "
+                                  "(2,2048,8,32) causal", q, k, v)
+    t_dq = median_ms(cpm, lambda: fa_kernel.flash_bwd_dq(
+        q, k, v, do, lse, delta, causal=True))
+    t_dkv = median_ms(cpm, lambda: fa_kernel.flash_bwd_dkv(
+        q, k, v, do, lse, delta, causal=True))
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    sdpa_bwd_ms = median_ms(cpm, sdpa_fwd_bwd) - median_ms(cpm, sdpa_fwd)
+    mm = 2 * B * (S * (S + 1) // 2) * H * D
+    print(bwd_rate("q (2,2048,8,32) kv (2,2048,8,32) causal", t_dq, t_dkv, mm,
+                   sdpa_bwd_ms))
+    io = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * lse.numel() * 4
+    print(f"[kernels] head dim 32, q (2,2048,8,32) kv (2,2048,8,32) causal: "
+          f"flash_fwd {t_fwd:.4f} ms (bound "
+          f"{bound(io, 2 * mm)[0]:.5f} ms, SDPA {sdpa_fwd_ms:.4f} ms), "
+          f"flash_bwd_dq {t_dq:.4f} ms (bound "
+          f"{bound(io + q.numel() * 2, 3 * mm)[0]:.5f} ms), flash_bwd_dkv "
+          f"{t_dkv:.4f} ms (bound {bound(io + 2 * k.numel() * 2, 4 * mm)[0]:.5f}"
+          f" ms), SDPA backward {sdpa_bwd_ms:.4f} ms; relative L2 dq "
+          f"{rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g}")
+    del q, k, v, do, out, lse, delta, qt, kt, vt, dot
+
+    MAXP = 1024 // PAGE
+    n_pages = 8 * MAXP + 1
+    kp, vp = rnd(n_pages, PAGE, HKV, D), rnd(n_pages, PAGE, HKV, D)
+    bt = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)[:8 * MAXP]
+          ).to(torch.int32).reshape(8, MAXP)
+    lens = torch.tensor([1, 17, 100, 256, 511, 700, 1000, 1024],
+                        dtype=torch.int32, device=dev)
+    qd = rnd(8, 1, H, D)
+    got = ops.paged_decode_attention(qd, kp, vp, bt, lens)
+    e, ok = err_within(got, dec_ref.paged_decode_ref(qd, kp, vp, bt, lens), TOL)
+    check(ok, "paged_decode at head dim 32 differs from the plain version")
+    check(torch.equal(got, ops.paged_decode_attention(qd, kp, vp, bt, lens)),
+          "paged_decode at head dim 32 gave other bits on a second run")
+    _fold(rows_out["paged_decode"], e, "; and at (8,1,8,32) over 8 KV heads")
+    kg = kp[bt.long()].reshape(8, MAXP * PAGE, HKV, D).transpose(1, 2)
+    vg = vp[bt.long()].reshape(8, MAXP * PAGE, HKV, D).transpose(1, 2)
+    mask = (torch.arange(MAXP * PAGE, device=dev)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    filled = int(lens.sum())
+    paged_decode_rate(torch, dict(
+        ms=median_ms(cpm, lambda: ops.paged_decode_attention(qd, kp, vp, bt,
+                                                             lens)),
+        library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kg, vg, attn_mask=mask)),
+        bound=bound(2 * filled * HKV * D * 2 + 2 * qd.numel() * 2
+                    + bt.numel() * 4, 4 * filled * H * D)),
+        "lammps-proxy (head dim 32)", 8 * HKV, MAXP)
+    del kg, vg
+    pre = paged_prefill_row(torch, dev, rnd, cpm, "lammps-proxy (head dim 32)",
+                            H, kp, vp, bt[:1], ((0, 200), (256, 180)))
+    _fold(rows_out["paged_prefill"], pre["max_abs_err"],
+          "; and at (1,256,8,32) over 8 KV heads")
+    del kp, vp
+
+    L = 700
+    qc, kc, vc = rnd(8, 1, H, D), rnd(8, 1024, HKV, D), rnd(8, 1024, HKV, D)
+    got = ops.decode_attention(qc, kc, vc, L)
+    e, ok = err_within(got, dec_ref.decode_ref(qc, kc, vc, L), TOL)
+    check(ok, "decode_attention at head dim 32 differs from the plain version")
+    check(torch.equal(got, ops.decode_attention(qc, kc, vc, L)),
+          "decode_attention at head dim 32 gave other bits on a second run")
+    _fold(rows_out["decode_attention"], e, "; and at (8,1,8,32) over 8 KV heads")
+    qt, kt, vt = (x.transpose(1, 2) for x in (qc, kc[:, :L], vc[:, :L]))
+    t = median_ms(cpm, lambda: ops.decode_attention(qc, kc, vc, L))
+    lib = median_ms(cpm, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    least, by = bound(2 * 8 * L * HKV * D * 2 + 2 * qc.numel() * 2,
+                      4 * 8 * L * H * D)
+    print(f"[kernels] decode_attention lammps-proxy (head dim 32) q (8,1,8,32),"
+          f" cache (8,1024,8,32), cache_len 700: max error {e:.3g} (tol {TOL});"
+          f" kernel {t:.4f} ms, SDPA {lib:.4f} ms ({t / lib:.2f}x), bound "
+          f"{least:.5f} ms ({by}, {least / t:.3f} of it)")
 
 
 def fwd_rel_l2(out, ref_out, shape):
@@ -1840,6 +1996,332 @@ def comm_phase(torch, dev, build, smi):
     return [ref_launches, total]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Flux-operator control plane over the port
+# ---------------------------------------------------------------------------
+
+OP_PROMPT_LEN = 512       # the serve cell's max_prompt_len
+OP_NEW = 32
+OP_REQUESTS = 12
+# the plain versions a kernel replaces: none may run in the operator phase
+PLAIN = {"flash_attention.ref": ("naive", "fwd", "bwd", "chunked"),
+         "decode_attention.ref": ("decode_ref", "paged_decode_ref",
+                                  "paged_prefill_ref"),
+         "rmsnorm.ref": ("rmsnorm_ref",), "moe_gemm.ref": ("moe_gemm_ref",)}
+
+
+class _NoPlain:
+    """Within the block every plain version of a kernel raises, so a run
+    inside it went through the kernels alone."""
+
+    def __enter__(self):
+        import importlib
+        self.saved = []
+        for mod, names in PLAIN.items():
+            m = importlib.import_module(f"repro_torch.kernels.{mod}")
+            for n in names:
+                self.saved.append((m, n, getattr(m, n)))
+                setattr(m, n, self._refuse(f"{mod}.{n}"))
+        return self
+
+    @staticmethod
+    def _refuse(name):
+        def f(*a, **k):
+            raise RuntimeError(f"chip_smoke: the plain version {name} ran in "
+                               f"the operator phase")
+        return f
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def _lifecycle(h, elastic=False):
+    """Print a handle's phases with their simulated times and hold it to
+    Pending -> Bound -> Running (-> Resizing ...) -> Completed."""
+    ev = [(e["phase"], round(e["t"], 3)) for e in h.events()]
+    phases = [p for p, _ in ev]
+    print(f"[operator] {h.spec.name or h.spec.kind} (job {h.job.jobid}): "
+          f"lifecycle {ev}")
+    check(phases[:3] == ["Pending", "Bound", "Running"]
+          and phases[-1] == "Completed",
+          f"{h.spec.name}: lifecycle {phases} does not run Pending -> Bound "
+          f"-> Running -> ... -> Completed")
+    check(("Resizing" in phases) == elastic,
+          f"{h.spec.name}: Resizing {'missing' if elastic else 'unexpected'}"
+          f" in {phases}")
+
+
+def _release(mc):
+    """Drop what every executor the instance's reconciler bound holds
+    (engines, parameters, parked pools; the handles keep their records)
+    before the next spec draws its own."""
+    import torch
+    for ex in mc.instance._workloads._executors.values():
+        for attr in ("_engines", "_fleets", "_meshes", "_cache", "_params"):
+            getattr(ex, attr, {}).clear()
+        for ses in getattr(ex, "sessions", {}).values():
+            ses.engine = ses.parked = None
+    mc.instance._workloads._executors.clear()
+    torch.cuda.empty_cache()
+
+
+def operator_phase(torch, dev, build):
+    """A FluxMiniCluster on a simulated ResourceGraph reaches ready, and
+    WorkloadSpecs are applied with ``cfg=`` the full config:
+
+    * yi-6b served (all 32 layers, the serve cell's engine), legacy and
+      ``prefill_chunk=256``: 12 synthetic prompts of 512 tokens, 32 new
+      tokens each, the streams held token for token against a direct
+      Engine over the executor's parameters and the same prompts;
+    * lammps-proxy (head dim 32) served the same way, chunked;
+    * yi-6b with ``replicas=2`` (FleetServeExecutor: two engines on the
+      one card over one parameter set): the batch, then through the
+      executor's Router staggered requests sharing a 256-token prefix
+      (one chunk, 16 pages) with the prefix cache on, then the same
+      through a Router with the cache off: the same streams, and a hit
+      for every request but the first;
+    * yi-6b ``elastic=True`` (ElasticServeExecutor): the MiniCluster grows
+      then shrinks mid-decode; each resize parks the engine and a fresh
+      one adopts it; the streams equal the uninterrupted legacy run's;
+    * lammps-proxy trained 4 steps through the SubmeshExecutor: the loss
+      finite and within RESUME_RTOL of the port's Trainer stepping the
+      same batch from the same seed;
+    * lammps-proxy as the workload executor's payload under both
+      operators (a FluxInstance job and an MPIJob on 4 hosts): the
+      measured app time and both simulated walls, the paper's Figure 5.
+
+    Every handle's lifecycle is printed and held; every plain version of
+    a kernel is refused throughout (``_NoPlain``).  Returns the launch
+    counts of the phase."""
+    from repro_torch.configs import TrainConfig, WorkloadShape, registry
+    from repro_torch.core import (FluxMiniCluster, JobSpec, MiniClusterSpec,
+                                  MPIJob, NetModel, ResourceGraph, SimClock,
+                                  TorchWorkloadExecutor)
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import params as P
+    from repro_torch.serve import Engine, Router
+    from repro_torch.spec import (ResourceSpec, ServeSpec, TrainSpec,
+                                  WorkloadSpec)
+    from repro_torch.train import Trainer
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    yi, lammps = registry.get("yi-6b"), registry.get("lammps-proxy")
+    check(lammps.head_dim == 32, "lammps-proxy's head dim must be 32")
+    clock = SimClock(seed=0)
+    net = NetModel()
+    mc = FluxMiniCluster(clock, net, ResourceGraph(n_pods=2, hosts_per_pod=4,
+                                                   chips_per_host=8),
+                         MiniClusterSpec(name="smoke", size=2, max_size=4))
+    mc.create()
+    ready_s = mc.wait_ready()
+    print(f"[operator] MiniCluster 'smoke' (2 pods x 4 hosts x 8 chips, size "
+          f"2, max 4) Ready after {ready_s:.3f} simulated s")
+    opts = dict(device=dev, prompt_len=OP_PROMPT_LEN)
+
+    def serve_spec(name, chunk=0, replicas=1, elastic=False, n_nodes=1):
+        return WorkloadSpec(
+            kind="serve", name=name, arch=name.split(":")[0],
+            resources=ResourceSpec(n_nodes=n_nodes, elastic=elastic),
+            serve=ServeSpec(n_slots=8, page_size=16, max_prompt_len=512,
+                            max_seq_len=1024, max_new=OP_NEW,
+                            n_requests=OP_REQUESTS, prefill_chunk=chunk,
+                            replicas=replicas))
+
+    def run_to_end(h):
+        clock.run(until=clock.now + 1e6,
+                  stop_when=lambda: h.phase in ("Completed", "Failed"))
+        torch.cuda.synchronize()
+
+    def prompts_of(cfg):
+        return [[(7 * i + j) % cfg.vocab_size for j in range(OP_PROMPT_LEN)]
+                for i in range(OP_REQUESTS)]
+
+    def direct_streams(h, cfg, params):
+        eng = Engine(cfg, h.spec.engine_config(), params=params, device=dev)
+        reqs = [eng.submit(p, max_new_tokens=OP_NEW) for p in prompts_of(cfg)]
+        eng.run()
+        torch.cuda.synchronize()
+        return [r.tokens for r in reqs]
+
+    build.reset_launches()
+    legacy = None
+    with _NoPlain():
+        for cfg, name, chunk in ((yi, "yi-6b:legacy", 0),
+                                 (yi, "yi-6b:chunked", 256),
+                                 (lammps, "lammps-proxy:chunked", 256)):
+            h = mc.apply(serve_spec(name, chunk), cfg=cfg, executor_opts=opts)
+            run_to_end(h)
+            _lifecycle(h)
+            rec = h.executor.ran[h.job.jobid]
+            eng, = h.executor._engines.values()
+            want = direct_streams(h, cfg, eng.params)
+            differ = [i for i, (a, b) in enumerate(zip(rec["tokens"], want))
+                      if a != b]
+            check(len(rec["tokens"]) == OP_REQUESTS and not differ,
+                  f"{name}: the executor's streams differ from a direct "
+                  f"Engine's at requests {differ}")
+            print(f"[operator] {name}: mesh {rec['mesh_shape']} on "
+                  f"{rec['device_ids']}, {rec['n_requests']} requests, "
+                  f"{rec['n_tokens']} tokens, {rec['tokens_per_s']:.1f} tok/s,"
+                  f" TTFT mean {rec['ttft_mean_s'] * 1e3:.1f} ms; all streams "
+                  f"equal a direct Engine's token for token")
+            if name == "yi-6b:legacy":
+                legacy = rec["tokens"]
+            del eng
+            _release(mc)
+
+        # two replicas over one parameter set on the one card
+        h = mc.apply(serve_spec("yi-6b:fleet", 256, replicas=2), cfg=yi,
+                     executor_opts=opts)
+        run_to_end(h)
+        _lifecycle(h)
+        rec = h.executor.ran[h.job.jobid]
+        router, = h.executor._fleets.values()
+        a, b = (P.tree_leaves(e.params) for e in router.engines)
+        check(all(x.data_ptr() == y.data_ptr() for x, y in zip(a, b)),
+              "the fleet's replicas must share one parameter set")
+        check(rec["tokens"] == direct_streams(h, yi, router.engines[0].params),
+              "the fleet's streams differ from a direct Engine's")
+        print(f"[operator] yi-6b:fleet: {rec['replicas']} replicas, meshes "
+              f"{rec['mesh_shapes']}, one parameter set; {rec['n_tokens']} "
+              f"tokens, {rec['tokens_per_s']:.1f} tok/s; prefix cache "
+              f"{rec['prefix_cache']}, desired replicas "
+              f"{rec['desired_replicas']}; streams equal a direct Engine's")
+        rng = np.random.default_rng(5)
+        prefix = rng.integers(0, yi.vocab_size, 256).tolist()
+        shared = [prefix + rng.integers(0, yi.vocab_size, 64).tolist()
+                  for _ in range(6)]
+
+        def staggered(r):
+            """The first request alone until its prompt is prefilled (and,
+            with the cache on, registered: the same tick), then the rest."""
+            reqs = [r.submit(shared[0], max_new_tokens=8)]
+            while not reqs[0].tokens:
+                check(r.step(), "the fleet idled mid-prefill")
+            reqs += [r.submit(p, max_new_tokens=8) for p in shared[1:]]
+            r.run()
+            torch.cuda.synchronize()
+            return [q.tokens for q in reqs]
+
+        hits0 = router.prefix_cache.hits
+        t = time.perf_counter()
+        warm = staggered(router)
+        t_warm = time.perf_counter() - t
+        hits = router.prefix_cache.hits - hits0
+        t = time.perf_counter()
+        cold = staggered(Router(router.engines, prefix_cache=False))
+        t_cold = time.perf_counter() - t
+        check(warm == cold, "prefix adoption changed the greedy streams")
+        check(hits >= len(shared) - 1, f"the prefix cache hit {hits} times "
+              f"for {len(shared) - 1} requests sharing a cached prefix")
+        print(f"[operator] fleet prefix cache: {len(shared)} staggered "
+              f"requests sharing a 256-token prefix, {hits} hits; cache on "
+              f"{t_warm:.2f} s, off {t_cold:.2f} s; the same streams token "
+              f"for token")
+        del router, a, b
+        _release(mc)
+
+        # elastic: grow, then shrink, mid-decode
+        h = mc.apply(serve_spec("yi-6b:elastic", n_nodes=2, elastic=True),
+                     cfg=yi, executor_opts=opts)
+        ex, job = h.executor, h.job
+
+        def ticks():
+            ses = ex.sessions.get(job.jobid)
+            return 0 if ses is None else ses.ticks
+
+        clock.run(until=clock.now + 1e6, stop_when=lambda: ticks() >= 6)
+        mc.patch_size(4)
+        check(h.phase == "Resizing", "the grow did not open a resize")
+        clock.run(until=clock.now + 1e6, stop_when=lambda: (
+            len(ex.sessions[job.jobid].resumes) >= 1 and ticks() >= 14))
+        mc.patch_size(2)
+        check(h.phase == "Resizing", "the shrink did not open a resize")
+        run_to_end(h)
+        _lifecycle(h, elastic=True)
+        rec, ses = ex.ran[job.jobid], ex.sessions[job.jobid]
+        check(rec["n_resumes"] == 2, f"{rec['n_resumes']} resumes, expected 2")
+        differ = [i for i, (a, b) in enumerate(zip(rec["tokens"], legacy))
+                  if a != b]
+        check(not differ, f"the resized run's streams differ from the "
+              f"uninterrupted legacy run's at requests {differ}")
+        print(f"[operator] yi-6b:elastic: resumes "
+              f"{[(r['transition'], r['tick']) for r in rec['resumes']]}; "
+              f"park {[round(x, 4) for x in ses.park_s]} s, adopt "
+              f"{[round(x, 4) for x in ses.adopt_s]} s, rebuild "
+              f"{[round(r['rebuild_s'], 4) for r in rec['resumes']]} s; all "
+              f"{len(rec['tokens'])} streams equal the uninterrupted legacy "
+              f"run's token for token")
+        del ex, ses
+        _release(mc)
+
+        # lammps-proxy trained through the SubmeshExecutor
+        steps, seq = 4, 2048
+        h = mc.apply(WorkloadSpec(kind="train", name="lammps-proxy:train",
+                                  arch="lammps-proxy",
+                                  train=TrainSpec(total_steps=steps,
+                                                  seq_len=seq)),
+                     cfg=lammps, executor_opts=dict(device=dev))
+        run_to_end(h)
+        _lifecycle(h)
+        rec = h.executor.ran[h.job.jobid]
+        shape = WorkloadShape("submesh", "train", seq, 2)
+        tr = Trainer(lammps, TrainConfig(total_steps=steps, warmup_steps=0),
+                     shape, seed=0, device=dev)
+        tr.init_or_resume()
+        batch = tr._put_batch(synthetic_batch(lammps, shape))
+        for _ in range(1 + steps):            # the executor's warm step too
+            tr.state, metrics = tr._step(tr.state, batch)
+        loss = float(metrics["loss"])
+        check(np.isfinite(rec["loss"]) and abs(rec["loss"] - loss)
+              <= RESUME_RTOL * abs(loss), f"the train executor's loss "
+              f"{rec['loss']} differs from the Trainer's {loss}")
+        print(f"[operator] lammps-proxy:train: mesh {rec['mesh_shape']}, "
+              f"{steps} steps of 2 x {seq} in {rec['measured_s'] * 1e3:.1f} ms"
+              f", loss {rec['loss']:.6f} (the Trainer over the same batch "
+              f"{loss:.6f}, rtol {RESUME_RTOL})")
+        del tr, batch
+        _release(mc)
+
+        # the paper's Figure 5: one app under both operators
+        ex = TorchWorkloadExecutor(clock, net, steps=3, cfg=lammps,
+                                   device=dev)
+        mc.instance._set_executor(ex)      # plain JobSpecs route to it
+        job = mc.instance.submit(JobSpec(n_nodes=2, walltime=100.0,
+                                         command="lammps-proxy"))
+        clock.run(until=clock.now + 1e6, stop_when=lambda: job.t_done)
+        mj = MPIJob(clock, net, ResourceGraph(1, 8, 8), n_workers=2,
+                    executor=ex.mpi_executor())
+        mj.create()
+        clock.run(until=clock.now + 1e6,
+                  stop_when=lambda: mj.status.phase == "Running")
+        walls = []
+        mj.mpirun(JobSpec(n_nodes=2, command="lammps-proxy"), walls.append)
+        clock.run(until=clock.now + 1e6, stop_when=lambda: walls)
+        check(job.result == "completed" and walls, "a Figure 5 run did not "
+              "finish")
+        print(f"[operator] lammps-proxy workload (3 forward steps of 2 x 32): "
+              f"Flux job on 2 hosts, measured {ex.measured[job.jobid] * 1e3:.3f}"
+              f" ms a host, simulated wall {job.t_done - job.t_run:.4f} s "
+              f"(TBON bootstrap {job.t_done - job.t_run - ex.measured[job.jobid]:.4f} s);"
+              f" MPIJob on 2 workers: app wall {walls[0]:.4f} s, launcher "
+              f"handshake {mj.status.t_launched:.4f} s")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"[operator] launches in the phase: "
+          + ", ".join(f"{k} {launches[k]}" for k in (
+              "rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+              "paged_prefill", "paged_decode", "decode_attention"))
+          + f"; no plain version ran; {time.perf_counter() - t_phase:.1f} s")
+    for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+              "paged_prefill", "paged_decode"):
+        check(launches[k] > 0, f"the operator phase never launched {k}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1946,6 +2428,7 @@ def main() -> int:
                          "all 80 need ~145 GB of bf16 weights")[1]
     del params
     torch.cuda.empty_cache()
+    runs.append(operator_phase(torch, dev, build))
 
     grad_check(torch, dev, "yi-6b")
     grad_check(torch, dev, "granite-moe-1b-a400m")

@@ -1,0 +1,885 @@
+"""Executors: how scheduled jobs become actual work.
+
+The port of the JAX package's ``core/executor.py``, five of its seven
+executors:
+
+* ``TorchWorkloadExecutor`` (the JAX package's ``JaxWorkloadExecutor``,
+  with ``mpi_executor``) runs REAL compute — the loss of the job's
+  configured architecture — and converts measured wall time into
+  simulated job walltime;
+* ``SubmeshExecutor`` runs real train steps (``dist/steps.py``) on the
+  mesh its allocation maps to;
+* ``ServeExecutor``, ``FleetServeExecutor`` and ``ElasticServeExecutor``
+  host the serving engine, a routed replica set, and an engine that
+  parks and adopts its state across MiniCluster resizes.
+
+``ElasticTrainExecutor`` (it needs ``Trainer.remesh``) and
+``ElasticFleetServeExecutor`` (with canary ``promote``) are not ported
+yet (ROADMAP Queue 1 item 5).
+
+The PMI/bootstrap cost is modeled structurally: Flux bootstraps MPI
+ranks through its always-up brokers (flux-pmix; ~O(log N) TBON hops),
+while mpirun pays a serial per-rank ssh/PMI wireup — this is the
+structural source of the launcher-time gap in the paper's Figure 5.
+
+Every executor runs on the card unless ``device`` says otherwise
+(``"cpu"``: the kernels' plain versions).  ``sharding.submesh_for`` lays
+each allocation over the devices of this process, so on one card every
+allocation is a ``(1, 1)`` mesh on ``cuda:0``; a job whose mesh holds
+more than one device raises, as the port has no tensor or data
+parallelism over the devices of one process yet (ROADMAP Queue 1 item
+4).  Engines and train steps are cached by the mesh's shape and its
+devices' indices, as the JAX package caches them by device id, and every
+warm-up (the kernels' first nvcc build among it) runs outside the timed
+window.  Where the JAX package draws inputs with ``jax.random``, the port
+draws them with numpy (``data.synthetic_batch``) and parameters with a
+seeded ``torch.Generator``: the same control flow, other numbers.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.core.jobspec import Job, JobSpec, JobState
+from repro_torch.core.resource_graph import ResourceSet
+from repro_torch.core.sim import NetModel, SimClock
+
+
+def smoke_config_for(command: str):
+    """Resolve a job command to a reduced arch config (shared by all
+    executors; unknown commands fall back to the paper's proxy app)."""
+    from repro_torch.configs import registry
+    return registry.smoke(command if command in
+                          registry.ARCH_IDS + registry.EXTRA_IDS
+                          else "lammps-proxy")
+
+
+def tbon_bootstrap_cost(net: NetModel, n_nodes: int, fanout: int) -> float:
+    """flux-pmix wireup through the TBON: O(depth) control RPCs."""
+    import math
+    depth = max(1, math.ceil(math.log(max(n_nodes, 2), fanout)))
+    return depth * net.rpc_latency * 4          # barrier in + out
+
+
+def clamp_queued_jobs(instance, new_size: int):
+    """A shrink must clamp EVERY live request on the cluster, not just
+    running ones: a queued/requeued job still asking for more hosts
+    than the cluster will have becomes permanently unschedulable
+    otherwise.  Shared by every elastic executor's resize listener."""
+    for job in instance.queue.jobs.values():
+        if (job.state not in (JobState.CLEANUP, JobState.INACTIVE)
+                and job.spec.n_nodes > new_size):
+            job.spec.n_nodes = new_size
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _mesh_key(mesh):
+    """The mesh's shape and its devices' indices (the JAX package keys
+    on ``d.id``; the one CPU device counts as index 0)."""
+    return tuple(mesh.devices.shape), _device_ids(mesh)
+
+
+def _device_ids(mesh):
+    return tuple(d.index if d.index is not None else 0
+                 for d in mesh.devices.flat)
+
+
+def _one_device(mesh) -> torch.device:
+    """The device a job runs on: its mesh's only one."""
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"a {mesh.shape} mesh over {mesh.size} devices: the port runs "
+            "a job on one device (tensor and data parallelism over a "
+            "process's devices: ROADMAP Queue 1 item 4)")
+    return mesh.devices.flat[0]
+
+
+def _params(cfg, seed: int, device, dtype=torch.bfloat16):
+    """Parameters drawn on ``device`` as ``Engine`` draws its own from
+    ``seed``, so engines given them compute what a default engine does."""
+    from repro_torch.models.model import Model
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return Model(cfg).init(gen, dtype=dtype, device=device)
+
+
+def _synthetic_prompts(n: int, plen: int, vocab: int) -> List[List[int]]:
+    return [[(7 * i + j) % vocab for j in range(plen)] for i in range(n)]
+
+
+class TorchWorkloadExecutor:
+    """Executor for FluxInstance: real compute + structural bootstrap.
+
+    ``cfg``: the payload's config (None resolves the job's command to its
+    SMOKE config, as the JAX package always does; the card takes full
+    configs only: SMOKE head dims are below the attention kernels')."""
+
+    def __init__(self, clock: SimClock, net: NetModel,
+                 tbon_fanout: int = 2, steps: int = 3,
+                 time_scale: float = 1.0,
+                 fixed_measure: Optional[float] = None, cfg=None,
+                 device=None):
+        from repro_torch.device import resolve_device
+        self.clock = clock
+        self.net = net
+        self.k = tbon_fanout
+        self.steps = steps
+        self.time_scale = time_scale
+        # benchmarks measure the app once and share it across operators
+        # (paper: identical binary + problem under both)
+        self.fixed_measure = fixed_measure
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._cache: Dict[str, Callable] = {}
+        self.measured: Dict[int, float] = {}
+
+    # -- real compute ---------------------------------------------------------
+    def _step_fn(self, command: str):
+        if command in self._cache:
+            return self._cache[command]
+        from repro_torch.configs.base import WorkloadShape
+        from repro_torch.data import synthetic_batch
+        from repro_torch.models.model import Model
+
+        cfg = self.cfg or smoke_config_for(command)
+        dev = self.device
+        model = Model(cfg)
+        params = _params(cfg, 0, dev, torch.float32)
+        batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
+                 synthetic_batch(cfg, WorkloadShape("bench", "train", 32,
+                                                    2)).items()}
+
+        @torch.no_grad()
+        def step():
+            loss, _ = model.loss(params, batch, remat=False)
+            return loss
+
+        step()
+        _sync(dev)                      # build and warm outside timing
+
+        def run() -> float:
+            t0 = time.perf_counter()
+            for _ in range(self.steps):
+                step()
+            _sync(dev)
+            return time.perf_counter() - t0
+
+        self._cache[command] = run
+        return run
+
+    def _bootstrap_cost(self, n_nodes: int) -> float:
+        return tbon_bootstrap_cost(self.net, n_nodes, self.k)
+
+    # -- FluxInstance executor signature ---------------------------------------
+    def __call__(self, job: Job, rset: ResourceSet, done):
+        raw = (self.fixed_measure if self.fixed_measure is not None
+               else self._step_fn(job.spec.command)())
+        # strong scaling: fixed problem split across the allocation
+        measured = raw * self.time_scale / max(rset.n_hosts, 1)
+        self.measured[job.jobid] = measured
+        wall = measured + self._bootstrap_cost(rset.n_hosts)
+        self.clock.call_in(wall, done, "completed", wall)
+
+    # -- MPIJob executor signature ------------------------------------------------
+    def mpi_executor(self):
+        def ex(spec: JobSpec, hosts, done):
+            raw = (self.fixed_measure if self.fixed_measure is not None
+                   else self._step_fn(spec.command)())
+            measured = raw * self.time_scale / max(len(hosts), 1)
+            # app-efficiency gap (paper Fig 3, ~5%) + in-app PMI wireup
+            wall = (measured * (1.0 + self.net.mpi_app_overhead)
+                    + self.net.ssh_handshake * 0.02 * len(hosts))
+            self.clock.call_in(wall, done, wall)
+        return ex
+
+
+class SubmeshExecutor:
+    """Executor that runs REAL train steps on the mesh its job's
+    ``ResourceSet`` describes.
+
+    The Fluxion graph match produces an allocation (n hosts x
+    chips/host), and the allocation — not a global constant — determines
+    device placement: ``submesh_for`` maps the chip ids onto this
+    process's devices; ``dist/steps.py`` builds the step; the steps run
+    and their measured wall time becomes the simulated job walltime
+    (same structural bootstrap cost as ``TorchWorkloadExecutor``).
+    Per-job records in ``ran`` expose the mesh each allocation actually
+    executed on.  The batch is ``data.synthetic_batch`` at step 0 (two
+    rows per ``data`` shard) and the state is drawn from seed 0: the
+    same as ``Trainer(seed=0)`` stepping that batch.
+    """
+
+    def __init__(self, clock: SimClock, net: NetModel,
+                 tbon_fanout: int = 2, steps: int = 2,
+                 time_scale: float = 1.0, seq_len: int = 32,
+                 strategy=None, cfg=None, device=None):
+        from repro_torch.dist.sharding import device_list
+        self.clock = clock
+        self.net = net
+        self.k = tbon_fanout
+        self.steps = steps
+        self.time_scale = time_scale
+        self.seq_len = seq_len
+        self.strategy = strategy
+        self.cfg = cfg                  # None -> resolve from job command
+        self.devices = device_list(device)
+        self._cache: Dict = {}
+        self.ran: Dict[int, Dict] = {}
+
+    def _runner(self, command: str, mesh):
+        # keyed on the actual device set AND the mesh shape: a
+        # same-shaped allocation on other devices must build onto ITS
+        # devices (placement is the point of this executor)
+        key = (command,) + _mesh_key(mesh)
+        if key in self._cache:
+            return self._cache[key]
+        from repro_torch.configs import BASELINE, TrainConfig
+        from repro_torch.configs.base import WorkloadShape
+        from repro_torch.data import synthetic_batch
+        from repro_torch.dist import steps as dsteps
+
+        dev = _one_device(mesh)
+        cfg = self.cfg or smoke_config_for(command)
+        strategy = self.strategy or BASELINE
+        tcfg = TrainConfig(total_steps=max(self.steps, 1), warmup_steps=0)
+        # batch rows cover the data axis; at least 2 rows per shard
+        batch_rows = 2 * mesh.shape.get("data", 1)
+        shape = WorkloadShape("submesh", "train", self.seq_len, batch_rows)
+        step = dsteps.build_train_step(cfg, tcfg, shape, strategy=strategy)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = dsteps.init_train_state(cfg, tcfg, gen, dev,
+                                        strategy=strategy)
+        batch = {k: torch.from_numpy(v).long().to(dev)
+                 for k, v in synthetic_batch(cfg, shape).items()}
+        state, metrics = step(state, batch)        # build outside timing
+        float(metrics["loss"])
+
+        holder = {"state": state}
+
+        def run() -> Dict:
+            t0 = time.perf_counter()
+            metrics = None
+            for _ in range(self.steps):
+                holder["state"], metrics = step(holder["state"], batch)
+            loss = float(metrics["loss"])           # waits for the steps
+            return {"elapsed": time.perf_counter() - t0, "loss": loss}
+
+        self._cache[key] = run
+        return run
+
+    def __call__(self, job: Job, rset: ResourceSet, done):
+        from repro_torch.dist.sharding import submesh_for
+        mesh = submesh_for(rset, self.devices)
+        out = self._runner(job.spec.command, mesh)()
+        measured = out["elapsed"] * self.time_scale
+        self.ran[job.jobid] = {
+            "mesh_shape": tuple(mesh.devices.shape),
+            "n_devices": int(mesh.size),
+            "device_ids": list(_device_ids(mesh)),
+            "hosts": list(rset.hosts),
+            "loss": out["loss"],
+            "measured_s": measured,
+        }
+        wall = measured + tbon_bootstrap_cost(self.net, rset.n_hosts,
+                                              self.k)
+        self.clock.call_in(wall, done, "completed", wall)
+
+
+class ServeExecutor:
+    """Executor that hosts a continuous-batching serving engine on the
+    mesh its job's ``ResourceSet`` describes — the serving sibling of
+    :class:`SubmeshExecutor`.
+
+    A serve job flows through the Flux queue like a train job: the
+    Fluxion match produces an allocation, ``submesh_for`` turns it into
+    a ``(data=hosts, model=chips)`` mesh, and a
+    ``repro_torch.serve.Engine`` on that mesh's device drains the job's
+    request batch.  The job's ``spec.args`` may carry ``prompts`` (list
+    of token-id lists), ``max_new`` and ``temperature``; absent those,
+    ``n_requests`` synthetic prompts are served.  Engines are cached per
+    (arch, device-set, mesh-shape), so a long-lived allocation keeps its
+    warm engine across jobs.  Per-job records in ``ran`` expose the mesh,
+    token counts, throughput and mean TTFT, and each request's tokens.
+    """
+
+    def __init__(self, clock: SimClock, net: NetModel,
+                 tbon_fanout: int = 2, n_requests: int = 2,
+                 prompt_len: int = 8, max_new: int = 4,
+                 time_scale: float = 1.0, strategy=None,
+                 engine_config=None, cfg=None, device=None):
+        from repro_torch.dist.sharding import device_list
+        self.clock = clock
+        self.net = net
+        self.k = tbon_fanout
+        self.n_requests = n_requests
+        self.prompt_len = prompt_len
+        self.max_new = max_new
+        self.time_scale = time_scale
+        self.strategy = strategy
+        self.engine_config = engine_config
+        self.cfg = cfg                  # None -> resolve from job command
+        self.devices = device_list(device)
+        self._engines: Dict = {}
+        self.ran: Dict[int, Dict] = {}
+
+    def _default_ecfg(self):
+        from repro_torch.serve import EngineConfig
+        return self.engine_config or EngineConfig(
+            n_slots=4, page_size=8, max_seq_len=64, max_prompt_len=16)
+
+    def _warm(self, eng):
+        """Build and warm outside timing (the executor contract shared
+        with the train executors): one request drives the prefill and
+        the decode step once."""
+        warm = eng.submit([1] * min(self.prompt_len, eng.ecfg.max_prompt_len),
+                          max_new_tokens=2)
+        eng.run()
+        _sync(eng.device)
+        assert warm.finished
+
+    def _engine(self, command: str, mesh):
+        key = (command,) + _mesh_key(mesh)
+        if key in self._engines:
+            return self._engines[key]
+        from repro_torch.serve import Engine
+        eng = Engine(self.cfg or smoke_config_for(command),
+                     self._default_ecfg(), device=_one_device(mesh))
+        self._warm(eng)
+        self._engines[key] = eng
+        return eng
+
+    def _job_prompts(self, job: Job, cfg, ecfg):
+        prompts = job.spec.args.get("prompts")
+        if prompts is None:
+            prompts = _synthetic_prompts(
+                self.n_requests, min(self.prompt_len, ecfg.max_prompt_len),
+                cfg.vocab_size)
+        prompts = [list(p)[:ecfg.max_prompt_len] for p in prompts]
+        max_new = int(job.spec.args.get("max_new", self.max_new))
+        # clamp to slot capacity so a misconfigured job degrades rather
+        # than killing the simulation loop
+        max_new = max(1, min(max_new, ecfg.max_seq_len
+                             - max(len(p) for p in prompts)))
+        return prompts, max_new, float(job.spec.args.get("temperature", 0.0))
+
+    def __call__(self, job: Job, rset: ResourceSet, done):
+        from repro_torch.dist.sharding import submesh_for
+        mesh = submesh_for(rset, self.devices)
+        eng = self._engine(job.spec.command, mesh)
+        prompts, max_new, temp = self._job_prompts(job, eng.cfg, eng.ecfg)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=max_new, temperature=temp)
+                for p in prompts]
+        eng.run()
+        _sync(eng.device)
+        elapsed = time.perf_counter() - t0
+        n_tok = sum(len(r.tokens) for r in reqs)
+        ttfts = [r.ttft for r in reqs if r.ttft is not None]
+        measured = elapsed * self.time_scale
+        self.ran[job.jobid] = {
+            "mesh_shape": tuple(mesh.devices.shape),
+            "n_devices": int(mesh.size),
+            "device_ids": list(_device_ids(mesh)),
+            "hosts": list(rset.hosts),
+            "n_requests": len(reqs),
+            "n_tokens": n_tok,
+            "tokens": [list(r.tokens) for r in reqs],
+            "tokens_per_s": n_tok / max(elapsed, 1e-9),
+            "ttft_mean_s": sum(ttfts) / max(len(ttfts), 1),
+            "measured_s": measured,
+        }
+        wall = measured + tbon_bootstrap_cost(self.net, rset.n_hosts,
+                                              self.k)
+        self.clock.call_in(wall, done, "completed", wall)
+
+
+class FleetServeExecutor(ServeExecutor):
+    """A serve job served by N engine REPLICAS behind one Router — the
+    Flux-Operator shape (one reconciled allocation, many workers)
+    applied to serving.
+
+    The reconciler binds ONE allocation of ``replicas x
+    nodes_per_replica`` hosts; this executor slices it pod-major into
+    ``replicas`` consecutive host groups, raises a submesh per group,
+    and builds one :class:`repro_torch.serve.Router` over shape-identical
+    engines that share one set of parameter tensors on the device (never
+    copies: so the fleet is a true replica set, the shared prefix
+    cache's token-identity guarantee holds, and two replicas of a 6e9
+    model on one card hold its 12 GB of weights once).  Dispatch, tenant
+    fairness and the prefix cache all live in the router; ``ran``
+    records per-replica meshes and the fleet-level stats, plus the
+    router's ``desired_replicas`` signal for the autoscaler.
+    """
+
+    def __init__(self, clock: SimClock, net: NetModel, replicas: int = 2,
+                 nodes_per_replica: int = 1, tenant: str = "default",
+                 ttft_slo_s: float = 0.0, **kw):
+        super().__init__(clock, net, **kw)
+        self.replicas = max(replicas, 1)
+        self.nodes_per_replica = max(nodes_per_replica, 1)
+        self.tenant = tenant
+        self.ttft_slo_s = ttft_slo_s or None
+        self._fleets: Dict = {}
+        self._meshes: Dict = {}         # fleet key -> per-replica meshes
+
+    def _slices(self, rset: ResourceSet) -> List[ResourceSet]:
+        """Pod-major consecutive host groups, one per replica (the match
+        already sorted hosts pod-major, so groups stay pod-local when
+        the allocation allows it)."""
+        npr = self.nodes_per_replica
+        assert rset.n_hosts == self.replicas * npr, \
+            (rset.n_hosts, self.replicas, npr)
+        out = []
+        for r in range(self.replicas):
+            lo, hi = r * npr, (r + 1) * npr
+            out.append(ResourceSet(
+                hosts=tuple(rset.hosts[lo:hi]),
+                chips_per_host=rset.chips_per_host,
+                pods=tuple(rset.pods[lo:hi]) if rset.pods else ()))
+        return out
+
+    def _fleet(self, command: str, rset: ResourceSet):
+        key = (command, tuple(rset.hosts), rset.chips_per_host)
+        fleet = self._fleets.get(key)
+        if fleet is not None:
+            return fleet, self._meshes[key]
+        from repro_torch.dist.sharding import submesh_for
+        from repro_torch.serve import Engine, Router
+        cfg = self.cfg or smoke_config_for(command)
+        ecfg = self._default_ecfg()
+        meshes = [submesh_for(sub, self.devices) for sub in self._slices(rset)]
+        params: Dict = {}                # device -> the one parameter set
+        engines = []
+        for mesh in meshes:
+            dev = _one_device(mesh)
+            if dev not in params:
+                params[dev] = _params(cfg, 0, dev)
+            eng = Engine(cfg, ecfg, params=params[dev], seed=0, device=dev)
+            self._warm(eng)
+            engines.append(eng)
+        fleet = Router(engines)       # prefix cache auto-enables when
+        self._fleets[key] = fleet     # the replicas support it
+        self._meshes[key] = meshes
+        return fleet, meshes
+
+    def __call__(self, job: Job, rset: ResourceSet, done):
+        fleet, meshes = self._fleet(job.spec.command, rset)
+        eng = fleet.engines[0]
+        prompts, max_new, temp = self._job_prompts(job, eng.cfg, eng.ecfg)
+        tenant = str(job.spec.args.get("tenant", self.tenant))
+        slo = job.spec.args.get("ttft_slo_s", self.ttft_slo_s) or None
+        t0 = time.perf_counter()
+        reqs = [fleet.submit(p, max_new_tokens=max_new, temperature=temp,
+                             tenant=tenant, ttft_slo_s=slo)
+                for p in prompts]
+        fleet.run()
+        _sync(eng.device)
+        elapsed = time.perf_counter() - t0
+        n_tok = sum(len(r.tokens) for r in reqs)
+        ttfts = [r.ttft_e2e for r in reqs if r.ttft_e2e is not None]
+        measured = elapsed * self.time_scale
+        stats = fleet.stats()
+        self.ran[job.jobid] = {
+            "replicas": self.replicas,
+            "mesh_shapes": [tuple(m.devices.shape) for m in meshes],
+            "n_devices": sum(int(m.size) for m in meshes),
+            "hosts": list(rset.hosts),
+            "n_requests": len(reqs),
+            "n_tokens": n_tok,
+            "tokens": [list(r.tokens) for r in reqs],
+            "tokens_per_s": n_tok / max(elapsed, 1e-9),
+            "ttft_mean_s": sum(ttfts) / max(len(ttfts), 1),
+            "n_prefills": stats["n_prefills"],
+            "prefix_cache": stats.get("prefix_cache"),
+            "desired_replicas": fleet.desired_replicas(),
+            "measured_s": measured,
+        }
+        wall = measured + tbon_bootstrap_cost(self.net, rset.n_hosts,
+                                              self.k)
+        self.clock.call_in(wall, done, "completed", wall)
+
+
+@dataclass
+class _ServeSession:
+    """One elastic serve job's state across resizes and requeues."""
+
+    job: Job
+    cfg: object
+    ecfg: object
+    engine: object = None             # live Engine, None while parked
+    parked: Optional[Dict] = None     # host-side engine snapshot
+    arrivals: List = field(default_factory=list)   # submitted while parked
+    requests: List = field(default_factory=list)   # every Request served
+    min_total: int = 0                # requests the job must serve
+    ticks: int = 0                    # engine ticks that did work
+    generation: int = 0
+    mesh: object = None
+    pending: Optional[int] = None     # resize target not yet applied
+    pending_source: str = ""
+    t_resize_sim: Optional[float] = None
+    resize_from: Optional[int] = None
+    resumes: List[Dict] = field(default_factory=list)
+    _resume_rec: Optional[Dict] = None
+    park_s: List[float] = field(default_factory=list)    # wall, per park
+    adopt_s: List[float] = field(default_factory=list)   # wall, per adopt
+
+
+class ElasticServeExecutor(ServeExecutor):
+    """Serve jobs that SURVIVE MiniCluster grow/shrink.  Serving
+    checkpoints NOTHING: the engine's entire decode state (the paged KV
+    pool, the block table / lengths / free lists, each slot's next
+    token, and the sampling generator's state) is parked host-side in
+    the graceful window ``FluxMiniCluster.patch_size`` opens
+    (``Engine.snapshot_state``), a fresh engine is built on the new
+    allocation's mesh (``sharding.submesh_for`` through
+    ``match_pod_local``, so resized engines keep packing into one pod),
+    and the snapshot is adopted by the new engine
+    (``Engine.adopt_state``) — in-flight requests resume at the exact
+    token they were parked at, and requests submitted mid-resize are
+    admitted on the first tick after the rebuild.  Every engine of a job
+    takes the same parameter tensors, drawn once on the device.
+
+    Because parking freezes the tick stream rather than replaying it,
+    the generated tokens are TOKEN-FOR-TOKEN identical to an
+    uninterrupted run at any temperature.  Engine ticks run in chunks
+    across simulator events so resizes land between decode steps,
+    exactly as they would against a live serving loop.  The wall
+    seconds of each park and adopt are kept in the session
+    (``park_s``, ``adopt_s``).
+    """
+
+    def __init__(self, clock: SimClock, net: NetModel,
+                 tbon_fanout: int = 2, n_requests: int = 2,
+                 prompt_len: int = 8, max_new: int = 4,
+                 time_scale: float = 1.0, strategy=None,
+                 engine_config=None, cfg=None, seed: int = 0,
+                 ticks_per_chunk: int = 1,
+                 sim_tick_time: Optional[float] = 5.0,
+                 drain_ticks: int = 0, device=None):
+        super().__init__(clock, net, tbon_fanout=tbon_fanout,
+                         n_requests=n_requests, prompt_len=prompt_len,
+                         max_new=max_new, time_scale=time_scale,
+                         strategy=strategy, engine_config=engine_config,
+                         cfg=cfg, device=device)
+        self.seed = seed
+        self.ticks_per_chunk = max(ticks_per_chunk, 1)
+        self.sim_tick_time = sim_tick_time
+        # ticks granted to in-flight slots inside the graceful window
+        # before the rest are parked (requests about to finish get out)
+        self.drain_ticks = drain_ticks
+        self.mc = None
+        self.sessions: Dict[int, _ServeSession] = {}
+        self._params: Dict = {}       # (cfg name, device) -> params
+        self.phase_cb = None
+        # optional obs.trace.Tracer: park/rebuild/adopt become spans on
+        # the trace ``resize-<jobid>`` (sim axis, wall costs in attrs)
+        self.tracer = None
+
+    # -- reconciler event plumbing -----------------------------------------
+    def bind(self, minicluster) -> "ElasticServeExecutor":
+        """Subscribe to the MiniCluster's resize events."""
+        self.mc = minicluster
+        minicluster.on_resize.append(self._on_resize)
+        return self
+
+    def _on_resize(self, new_size: int, source: str):
+        """Graceful window: pods have not moved yet.  A shrink parks the
+        engine NOW (its hosts may be torn down the moment the window
+        closes); a grow keeps serving on the old mesh and parks only at
+        the remesh boundary, once the new ranks can actually be used."""
+        if self.mc is not None:
+            clamp_queued_jobs(self.mc.instance, new_size)
+        # a CLUSTER shrink can evict any session's hosts — including a
+        # session whose own size request does not change — so every live
+        # engine parks in the window
+        cluster_shrink = (self.mc is not None
+                          and new_size < len(self.mc._assigned))
+        for ses in self.sessions.values():
+            job = ses.job
+            if job.state != JobState.RUN:
+                continue
+            ses.pending = new_size
+            ses.pending_source = source
+            ses.t_resize_sim = self.clock.now
+            ses.resize_from = (job.allocation.n_hosts
+                               if job.allocation else None)
+            job.spec.n_nodes = new_size
+            if cluster_shrink and ses.engine is not None:
+                self._drain_and_park(ses)
+            if self.phase_cb is not None:
+                self.phase_cb(job.jobid, "Resizing", target=new_size,
+                              source=source)
+
+    # -- park / restore -----------------------------------------------------
+    def _drain_and_park(self, ses: _ServeSession):
+        """Give in-flight slots up to ``drain_ticks`` normal ticks to
+        finish, then freeze the engine host-side
+        (``Engine.snapshot_state``).  Drain ticks are ordinary ticks
+        (they happen in an uninterrupted run too), so parking never
+        perturbs the token stream."""
+        eng = ses.engine
+        for _ in range(self.drain_ticks):
+            if not eng.scheduler.running:
+                break
+            if eng.step():
+                ses.ticks += 1
+        t0 = time.perf_counter()
+        ses.parked = eng.snapshot_state()
+        ses.park_s.append(time.perf_counter() - t0)
+        ses.engine = None
+        self.clock.trace("serve_park", jobid=ses.job.jobid,
+                         in_flight=len(ses.parked["running"]),
+                         waiting=len(ses.parked["waiting"]))
+        if self.tracer is not None:
+            self.tracer.event("park", f"resize-{ses.job.jobid}",
+                              t=self.clock.now,
+                              in_flight=len(ses.parked["running"]),
+                              waiting=len(ses.parked["waiting"]))
+
+    def _restore(self, ses: _ServeSession, eng):
+        """Adopt a parked snapshot into a freshly built engine (the pool
+        copies onto the new engine's device, host bookkeeping copies
+        over), then requests that arrived mid-resize join the waiting
+        queue in submission order."""
+        t0 = time.perf_counter()
+        eng.adopt_state(ses.parked)
+        _sync(eng.device)
+        ses.adopt_s.append(time.perf_counter() - t0)
+        ses.parked = None
+        n_arrivals = len(ses.arrivals)
+        for req in ses.arrivals:
+            eng.scheduler.submit(req)
+        ses.arrivals = []
+        sch = eng.scheduler
+        if self.tracer is not None:
+            self.tracer.event("adopt", f"resize-{ses.job.jobid}",
+                              t=self.clock.now,
+                              in_flight=len(sch.running),
+                              adopted_arrivals=n_arrivals)
+
+    def _device_params(self, cfg, device):
+        key = (cfg.name, device)
+        params = self._params.get(key)
+        if params is None:
+            params = _params(cfg, self.seed, device)
+            self._params[key] = params
+        return params
+
+    # -- request API --------------------------------------------------------
+    def submit_request(self, job: Job, prompt, max_new: int = None,
+                       temperature: float = 0.0):
+        """Submit one request to an elastic serve job.  Arrivals before
+        the first placement or during a resize queue with everything
+        else and are admitted on the first (post-rebuild) tick."""
+        from repro_torch.serve.scheduler import Request
+        ses = self._session(job)
+        req = Request(prompt=list(prompt),
+                      max_new_tokens=(self.max_new if max_new is None
+                                      else max_new),
+                      temperature=temperature)
+        ses.requests.append(req)
+        ses.min_total += 1
+        if ses.engine is not None:
+            ses.engine.scheduler.submit(req)
+        else:
+            ses.arrivals.append(req)
+        return req
+
+    # -- session management -------------------------------------------------
+    def _session(self, job: Job) -> _ServeSession:
+        ses = self.sessions.get(job.jobid)
+        if ses is not None:
+            return ses
+        cfg = self.cfg or smoke_config_for(job.spec.command)
+        ses = _ServeSession(job=job, cfg=cfg, ecfg=self._default_ecfg())
+        self.sessions[job.jobid] = ses
+        return ses
+
+    # -- placement: (re)build the engine on this allocation's mesh ---------
+    def __call__(self, job: Job, rset: ResourceSet, done):
+        from repro_torch.dist.sharding import submesh_for
+        from repro_torch.serve import Engine
+
+        ses = self._session(job)
+        ses.generation += 1
+        gen = ses.generation
+        mesh = submesh_for(rset, self.devices)
+        dev = _one_device(mesh)
+        t0 = time.perf_counter()
+        eng = Engine(ses.cfg, ses.ecfg, device=dev, seed=self.seed,
+                     params=self._device_params(ses.cfg, dev))
+        if ses.parked is not None:
+            self._restore(ses, eng)
+        else:
+            from repro_torch.serve.scheduler import WAITING, Request
+            if gen == 1:
+                # first placement: the job's declared batch, ahead of
+                # any request already submitted through the handle
+                prompts = job.spec.args.get("prompts")
+                if prompts is None:
+                    n = int(job.spec.args.get("n_requests",
+                                              self.n_requests))
+                    prompts = _synthetic_prompts(
+                        n, min(self.prompt_len, ses.ecfg.max_prompt_len),
+                        ses.cfg.vocab_size)
+                max_new = int(job.spec.args.get("max_new", self.max_new))
+                temp = float(job.spec.args.get("temperature", 0.0))
+                initial = [
+                    Request(prompt=list(p)[:ses.ecfg.max_prompt_len],
+                            max_new_tokens=max_new, temperature=temp)
+                    for p in prompts]
+                ses.requests[:0] = initial
+                ses.min_total += len(initial)
+            else:
+                # fault-path requeue with no parked snapshot: the pool
+                # died with the old placement, so unfinished requests
+                # restart from their prompt (tokens regenerate; only a
+                # RESIZE is pinned lossless — a lost host is a real
+                # failure)
+                for req in ses.requests:
+                    if not req.finished:
+                        req.tokens.clear()
+                        req.state = WAITING
+                        req.slot = None
+                        req.t_first = None
+            for req in ses.requests:
+                if not req.finished:
+                    eng.scheduler.submit(req)
+            ses.arrivals = []           # all live requests re-queued above
+        ses.engine = eng
+        ses.mesh = mesh
+        if ses.pending is not None and rset.n_hosts == ses.pending:
+            ses.pending = None
+        if ses.t_resize_sim is not None:
+            ses._resume_rec = {
+                "jobid": job.jobid,
+                "transition": f"{ses.resize_from}->{rset.n_hosts}",
+                "source": ses.pending_source,
+                "tick": ses.ticks,
+                "mesh_shape": list(mesh.devices.shape),
+                "rebuild_s": time.perf_counter() - t0,
+                "t_resize_sim": ses.t_resize_sim,
+                "t_place_sim": self.clock.now,
+            }
+            ses.t_resize_sim = None
+        self.clock.trace("serve_place", jobid=job.jobid,
+                         hosts=list(rset.hosts),
+                         mesh=list(mesh.devices.shape),
+                         in_flight=len(eng.scheduler.running))
+        if self.phase_cb is not None and gen > 1:
+            self.phase_cb(job.jobid, "Running",
+                          mesh=list(mesh.devices.shape))
+        boot = tbon_bootstrap_cost(self.net, rset.n_hosts, self.k)
+        self.clock.call_in(boot, self._tick, job, ses, gen, done)
+
+    # -- elastic transition at a tick boundary ------------------------------
+    def _try_remesh(self, job: Job, ses: _ServeSession, done) -> bool:
+        """Apply a pending resize: park (if not already), re-match at
+        the new size and rebuild.  Returns False while new ranks are
+        still booting — serving continues on the old mesh until the
+        cluster can actually satisfy the new size."""
+        want = ses.pending
+        if job.allocation is not None and job.allocation.n_hosts == want:
+            # resize was a no-op for this job's allocation (e.g. a
+            # shrink that spared its hosts): resume in place
+            ses.pending = None
+            if ses.parked is not None:
+                self(job, job.allocation, done)
+                return True
+            ses.t_resize_sim = None
+            ses.resize_from = None
+            return False
+        graph = self.mc.instance.graph
+        held = set(job.allocation.hosts) if job.allocation else set()
+        free = [h.hid for h in graph.free_hosts() if h.hid not in held]
+        if len(free) + len(held) < want:
+            return False
+        if ses.parked is None and ses.engine is not None:
+            self._drain_and_park(ses)        # grow parks at the boundary
+        graph.free(job.jobid)
+        # serve engines follow the same pod-locality rule as train jobs:
+        # pack into one pod whenever the new size fits
+        rset = (self.mc.instance.match_pod_local(want)
+                if job.spec.attributes.get("pod_local", True)
+                else graph.match(want, policy=self.mc.instance.match_policy))
+        assert rset is not None, "remesh match must succeed (checked above)"
+        graph.alloc(rset, job.jobid)
+        job.allocation = rset
+        job.spec.n_nodes = want
+        self.clock.trace("serve_remesh", jobid=job.jobid,
+                         hosts=list(rset.hosts))
+        self(job, rset, done)
+        return True
+
+    # -- the chunked serving loop -------------------------------------------
+    def _tick(self, job: Job, ses: _ServeSession, gen: int, done):
+        if gen != ses.generation or job.state != JobState.RUN:
+            return                     # superseded by a requeue/remesh
+        if ses.pending is not None and self._try_remesh(job, ses, done):
+            return
+        eng = ses.engine
+        t0 = time.perf_counter()
+        n = 0
+        if eng is not None:
+            for _ in range(self.ticks_per_chunk):
+                if not eng.step():
+                    break
+                n += 1
+                ses.ticks += 1
+        elapsed = time.perf_counter() - t0
+        if ses._resume_rec is not None and n:
+            rec = ses._resume_rec
+            rec["first_chunk_s"] = elapsed
+            t0sim = rec.pop("t_resize_sim")
+            t_place = rec.pop("t_place_sim", self.clock.now)
+            rec["time_to_resume_s"] = rec["rebuild_s"] + elapsed
+            rec["sim_resume_gap_s"] = self.clock.now - t0sim
+            ses.resumes.append(rec)
+            ses._resume_rec = None
+            if self.tracer is not None:
+                trn = f"resize-{job.jobid}"
+                self.tracer.span(
+                    "graceful_window", trn, t0sim, t_place,
+                    action="park", transition=rec["transition"],
+                    source=rec["source"], tick=rec["tick"])
+                self.tracer.span(
+                    "rebuild", trn, t_place, self.clock.now,
+                    rebuild_s=rec["rebuild_s"], first_chunk_s=elapsed,
+                    mesh_shape=rec["mesh_shape"])
+                self.tracer.event(
+                    "resumed", trn, t=self.clock.now,
+                    time_to_resume_s=rec["time_to_resume_s"],
+                    sim_resume_gap_s=rec["sim_resume_gap_s"])
+        served = sum(1 for r in ses.requests if r.finished)
+        idle = eng is not None and not eng.scheduler.has_work
+        if idle and served >= ses.min_total and ses.pending is None:
+            ttfts = [r.ttft for r in ses.requests if r.ttft is not None]
+            n_tok = sum(len(r.tokens) for r in ses.requests)
+            self.ran[job.jobid] = {
+                "mesh_shape": tuple(ses.mesh.devices.shape),
+                "n_devices": int(ses.mesh.size),
+                "hosts": list(job.allocation.hosts),
+                "n_requests": len(ses.requests),
+                "n_tokens": n_tok,
+                "tokens": [list(r.tokens) for r in ses.requests],
+                "ttft_mean_s": sum(ttfts) / max(len(ttfts), 1),
+                "ticks": ses.ticks,
+                "n_resumes": len(ses.resumes),
+                "resumes": ses.resumes,
+            }
+            dt = (self.sim_tick_time * max(n, 1)
+                  if self.sim_tick_time is not None
+                  else elapsed * self.time_scale)
+            self.clock.call_in(dt, done, "completed",
+                               self.clock.now + dt - (job.t_run or 0.0))
+        else:
+            dt = (self.sim_tick_time * max(n, 1)
+                  if self.sim_tick_time is not None
+                  else max(elapsed * self.time_scale, 1e-3))
+            self.clock.call_in(dt, self._tick, job, ses, gen, done)

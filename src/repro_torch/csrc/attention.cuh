@@ -86,7 +86,7 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// NC bf16 at p (8 or 4 bytes, aligned) to f32.
+// NC bf16 at p (8, 4 or 2 bytes, aligned) to f32.
 template <int NC>
 __device__ __forceinline__ void load_cols(const bf16* p, float (&v)[NC]) {
   if constexpr (NC == 4) {
@@ -94,10 +94,12 @@ __device__ __forceinline__ void load_cols(const bf16* p, float (&v)[NC]) {
     const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
     const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
     v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-  } else {
-    static_assert(NC == 2, "head dim 64 or 128");
+  } else if constexpr (NC == 2) {
     const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     v[0] = f.x; v[1] = f.y;
+  } else {
+    static_assert(NC == 1, "head dim 32, 64 or 128");
+    v[0] = __bfloat162float(*p);
   }
 }
 

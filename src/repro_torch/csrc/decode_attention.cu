@@ -55,5 +55,8 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   if (D == 64)
     return attn::split::launch<64>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
                                    n_split, split_keys, scale, s);
+  if (D == 32)
+    return attn::split::launch<32>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                   n_split, split_keys, scale, s);
   return (int)cudaErrorInvalidValue;
 }

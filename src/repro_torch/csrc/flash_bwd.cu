@@ -83,11 +83,14 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of a block: two resident tiles and a ring of two stages
-// of two streamed tiles, each 64 x D bf16 (TILE elements), then for dk/dv
-// the two stages' lse and delta, in bytes.
+// of two streamed tiles, each 64 x D bf16 (TILE elements; 64 x 64 at D =
+// 32, columns 32..63 zero: wgmma.cuh), then for dk/dv the two stages' lse
+// and delta, in bytes.  At D = 32 the products that sum over the depth
+// (s, dp) take depth 32, and those whose N is D (dq, dk, dv) run at N = 64
+// and drop the zero upper half.
 template <int D>
 struct Tile {
-  static constexpr int TILE = 64 * D;
+  static constexpr int TILE = tile_elems<D>();
   static constexpr int DQ_SMEM = 6 * TILE * 2;
   static constexpr int DKV_SMEM = 6 * TILE * 2 + 2 * 2 * STEP * 4;
 };
@@ -146,7 +149,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_commit();
 
-  float acc[D / 64][8][4];
+  float acc[col_blocks<D>()][8][4];
   zero<D>(acc);
 
   for (int it = 0; it < nt; ++it) {
@@ -258,7 +261,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kp[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
   const float scale2 = scale * LOG2E;
 
-  float dk_acc[D / 64][8][4], dv_acc[D / 64][8][4];
+  float dk_acc[col_blocks<D>()][8][4], dv_acc[col_blocks<D>()][8][4];
   zero<D>(dk_acc);
   zero<D>(dv_acc);
 
@@ -374,6 +377,9 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, Hkv, causal,
                          q_offset, scale, s);
+  if (D == 32)
+    return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, Hkv, causal,
+                         q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -391,6 +397,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                            causal, q_offset, scale, s);
   if (D == 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
+                          causal, q_offset, scale, s);
+  if (D == 32)
+    return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
                           causal, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -38,10 +38,10 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // Shared memory: WGS resident q tiles, then two stages of KT k and KT v
-// tiles, each 64 x D bf16, in bytes.
+// tiles, each 64 x D bf16 (64 x 64 at D = 32: wgmma.cuh), in bytes.
 template <int D, int WGS, int KT>
 __host__ __device__ constexpr int smem_bytes() {
-  return (WGS + 4 * KT) * 64 * D * 2;
+  return (WGS + 4 * KT) * tile_elems<D>() * 2;
 }
 
 // Rows of batch row b and query head h of a (B, Sq, H, D) q and out, row
@@ -64,7 +64,8 @@ struct HeadRows {
   __device__ __forceinline__ void load(const Copy& copy, bf16* s, int r0) const {
     copy(s, q + base(), stride, r0, n);
   }
-  __device__ __forceinline__ void store(const float (&o)[D / 64][8][4], int r0) const {
+  __device__ __forceinline__ void store(const float (&o)[col_blocks<D>()][8][4],
+                                        int r0) const {
     store_rows<D>(out + base(), stride, r0, n, o);
   }
   __device__ __forceinline__ void lse(int r, float x) const {
@@ -91,7 +92,8 @@ struct PackedRows {
   __device__ __forceinline__ void load(const Copy& copy, bf16* s, int r0) const {
     copy.rows(s, q, [this](int r) { return offset(r); }, r0, n);
   }
-  __device__ __forceinline__ void store(const float (&o)[D / 64][8][4], int r0) const {
+  __device__ __forceinline__ void store(const float (&o)[col_blocks<D>()][8][4],
+                                        int r0) const {
     store_rows_at<D>([this](int r) { return out + offset(r); }, r0, n, o);
   }
   __device__ __forceinline__ void lse(int, float) const {}
@@ -169,7 +171,8 @@ __device__ __forceinline__ int key_end(const Rows& rows, int r0, int nk) {
 template <int D, int WGS, int KT, class Rows, class Keys>
 __device__ __forceinline__ void attend_rows(const Rows& rows, const Keys& keys, int tile,
                                             float scale, unsigned char* smem) {
-  constexpr int NT = WG_THREADS * WGS, ROWS = 64 * WGS, TILE = 64 * D, STEP = 64 * KT;
+  constexpr int NT = WG_THREADS * WGS, ROWS = 64 * WGS, TILE = tile_elems<D>();
+  constexpr int STEP = 64 * KT;
   bf16* sq = reinterpret_cast<bf16*>(smem);       // [WGS] resident q tiles
   bf16* sk = sq + WGS * TILE;                     // [2][KT] streamed k tiles
   bf16* sv = sk + 2 * KT * TILE;                  // [2][KT] streamed v tiles
@@ -213,7 +216,7 @@ __device__ __forceinline__ void attend_rows(const Rows& rows, const Keys& keys, 
   const int wpos = rows.pos(w0);
   const float scale2 = scale * LOG2E;
   const bf16* sqw = sq + wg * TILE;
-  float o[D / 64][8][4];
+  float o[col_blocks<D>()][8][4];
   zero<D>(o);
 
   for (int it = 0; it < nt; ++it) {
@@ -300,7 +303,7 @@ __device__ __forceinline__ void attend_rows(const Rows& rows, const Keys& keys, 
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-    for (int nb = 0; nb < D / 64; ++nb)
+    for (int nb = 0; nb < col_blocks<D>(); ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -322,7 +325,7 @@ __device__ __forceinline__ void attend_rows(const Rows& rows, const Keys& keys, 
     l[i] = fmaxf(l[i], 1e-30f);
   }
 #pragma unroll
-  for (int nb = 0; nb < D / 64; ++nb)
+  for (int nb = 0; nb < col_blocks<D>(); ++nb)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll

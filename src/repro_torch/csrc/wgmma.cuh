@@ -69,6 +69,21 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 // bytes, and row r keeps its 16-byte chunk j at chunk j ^ (r % 8), so the
 // 8 rows of any 8 x 8 block (one 16-byte read each) fall in distinct
 // banks.  Element (r, c) is at sw(r, c).
+//
+// A head dim D below 64 (32: rows of 64 bytes) takes one whole column
+// block: the copies below fill its columns D..63 with zeros, a product
+// over the depth D reads columns 0..D-1 only, and a product whose N is
+// the tile's width (p v, ds k) runs at N = 64 with columns D..63 of its
+// sums zero, which the stores drop.  For D a multiple of 64 every test
+// of c < D below folds away at compile time.
+template <int D>
+__host__ __device__ constexpr int col_blocks() {
+  return (D + 63) / 64;
+}
+template <int D>
+__host__ __device__ constexpr int tile_elems() {
+  return 64 * 64 * col_blocks<D>();
+}
 __device__ __forceinline__ int sw(int r, int c) {
   return (c >> 6) * (64 * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
 }
@@ -81,9 +96,9 @@ __device__ __forceinline__ int sw(int r, int c) {
 template <int D, int NT = WG_THREADS>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* base, long long stride,
                                           int r0, int n) {
-  for (int i = threadIdx.x; i < 64 * D / 8; i += NT) {
+  for (int i = threadIdx.x; i < tile_elems<D>() / 8; i += NT) {
     const int cb = i / (64 * 8), r = (i / 8) % 64, c = cb * 64 + (i % 8) * 8;
-    const bool in = r0 + r < n;
+    const bool in = r0 + r < n && (D % 64 == 0 || c < D);
     cp16(s + sw(r, c), in ? base + (long long)(r0 + r) * stride + c : base, in);
   }
 }
@@ -93,7 +108,7 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* base, long long s
 // source, kept in registers across a loop of tile loads.
 template <int D, int NT>
 struct TileCopy {
-  static constexpr int CHUNKS = 64 * D / 8, N = (CHUNKS + NT - 1) / NT;
+  static constexpr int CHUNKS = tile_elems<D>() / 8, N = (CHUNKS + NT - 1) / NT;
   int off[N], row[N], col[N];
 
   __device__ __forceinline__ TileCopy() {
@@ -115,7 +130,7 @@ struct TileCopy {
 #pragma unroll
     for (int m = 0; m < N; ++m) {
       if (CHUNKS % NT != 0 && threadIdx.x + m * NT >= CHUNKS) break;
-      const bool in = r0 + row[m] < n;
+      const bool in = r0 + row[m] < n && (D % 64 == 0 || col[m] < D);
       cp16(s + off[m], in ? base + row_off(r0 + row[m]) + col[m] : base, in);
     }
   }
@@ -135,7 +150,7 @@ struct TileCopy {
 #pragma unroll
     for (int m = 0; m < N; ++m) {
       if (CHUNKS % NT != 0 && threadIdx.x + m * NT >= CHUNKS) break;
-      const bool in = r0 + row[m] < n;
+      const bool in = r0 + row[m] < n && (D % 64 == 0 || col[m] < D);
       const long long o = in ? row_off(r0 + row[m]) + col[m] : 0;
       cp16(sa + off[m], a + o, in);
       cp16(sb + off[m], b + o, in);
@@ -302,12 +317,12 @@ __device__ __forceinline__ void to_a(uint32_t (&x)[4][4], const float (&f)[8][4]
 // c (64 rows x D, in column blocks of 64) += x b: x from to_a, b the 64
 // x D tile B.
 template <int D>
-__device__ __forceinline__ void wg_xb(float (&c)[D / 64][8][4], const uint32_t (&x)[4][4],
-                                      const bf16* B) {
+__device__ __forceinline__ void wg_xb(float (&c)[col_blocks<D>()][8][4],
+                                      const uint32_t (&x)[4][4], const bf16* B) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int nb = 0; nb < D / 64; ++nb) wg_rs(c[nb], x[kk], desc_mn(B, kk, nb));
+    for (int nb = 0; nb < col_blocks<D>(); ++nb) wg_rs(c[nb], x[kk], desc_mn(B, kk, nb));
 }
 
 // The block's output rows of (.., D) bf16, 64 a warpgroup: this
@@ -315,7 +330,7 @@ __device__ __forceinline__ void wg_xb(float (&c)[D / 64][8][4], const uint32_t (
 // where below n) at base + row * stride.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* base, long long stride, int row0, int n,
-                                           const float (&c)[D / 64][8][4]) {
+                                           const float (&c)[col_blocks<D>()][8][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -323,11 +338,12 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, int row
     if (r >= n) continue;
     bf16* row = base + (long long)r * stride + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < D / 64; ++nb)
+    for (int nb = 0; nb < col_blocks<D>(); ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(row + 64 * nb + 8 * j) =
-            __floats2bfloat162_rn(c[nb][j][2 * half], c[nb][j][2 * half + 1]);
+        if (64 * nb + 8 * j < D)
+          *reinterpret_cast<__nv_bfloat162*>(row + 64 * nb + 8 * j) =
+              __floats2bfloat162_rn(c[nb][j][2 * half], c[nb][j][2 * half + 1]);
   }
 }
 
@@ -336,7 +352,7 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, int row
 // compiles the backward kernels to other register counts (-Xptxas -v).
 template <int D, class RowPtr>
 __device__ __forceinline__ void store_rows_at(const RowPtr& row_ptr, int row0, int n,
-                                              const float (&c)[D / 64][8][4]) {
+                                              const float (&c)[col_blocks<D>()][8][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -344,18 +360,19 @@ __device__ __forceinline__ void store_rows_at(const RowPtr& row_ptr, int row0, i
     if (r >= n) continue;
     bf16* row = row_ptr(r) + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < D / 64; ++nb)
+    for (int nb = 0; nb < col_blocks<D>(); ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(row + 64 * nb + 8 * j) =
-            __floats2bfloat162_rn(c[nb][j][2 * half], c[nb][j][2 * half + 1]);
+        if (64 * nb + 8 * j < D)
+          *reinterpret_cast<__nv_bfloat162*>(row + 64 * nb + 8 * j) =
+              __floats2bfloat162_rn(c[nb][j][2 * half], c[nb][j][2 * half + 1]);
   }
 }
 
 template <int D>
-__device__ __forceinline__ void zero(float (&c)[D / 64][8][4]) {
+__device__ __forceinline__ void zero(float (&c)[col_blocks<D>()][8][4]) {
 #pragma unroll
-  for (int nb = 0; nb < D / 64; ++nb)
+  for (int nb = 0; nb < col_blocks<D>(); ++nb)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll

@@ -31,10 +31,16 @@ class Mesh:
     builds its groups with the device type's default backend, and here
     several ranks may share one card with every group on gloo.  This
     class leaves the device to the caller and makes every group gloo.
+
+    ``devices``: for a mesh that ``dist.sharding.submesh_for`` lays over
+    the devices of one process, their ``torch.device``s as an object
+    array of ``shape`` (as ``jax_mesh.devices`` holds them); None for a
+    mesh of ranks.
     """
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str],
-                 rank: int = 0, groups: Optional[Dict] = None):
+                 rank: int = 0, groups: Optional[Dict] = None,
+                 devices: Optional[np.ndarray] = None):
         if len(shape) != len(axes):
             raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)} "
                              "differ in length")
@@ -47,6 +53,10 @@ class Mesh:
         self.coords: Dict[str, int] = dict(zip(
             axes, (int(c) for c in np.unravel_index(rank, tuple(shape)))))
         self._groups = dict(groups or {})
+        if devices is not None and devices.shape != tuple(shape):
+            raise ValueError(f"devices {devices.shape} do not lay out as "
+                             f"{tuple(shape)}")
+        self.devices = devices
 
     def group(self, axis: str):
         """The process group along ``axis``; None where the axis has

@@ -140,6 +140,7 @@ class Engine:
                                      self.device)
         self._next_token = np.zeros((ecfg.n_slots,), np.int32)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.prefix_cache = None      # set by a fleet Router (fleet.py)
         self.n_prefills = 0
         self.n_prefill_tokens = 0
         self.n_decode_steps = 0
@@ -253,6 +254,12 @@ class Engine:
         slots.  Returns False when there is no work.  A chunked engine
         runs a mixed tick while any slot is mid-prefill."""
         admitted = self.scheduler.admit()
+        if admitted and self.prefix_cache is not None and self._chunked:
+            # fleet prefix cache: copy cached pages for the longest
+            # page-aligned common prompt prefix into the slot's own
+            # pages (copy-on-adopt) and skip those prompt tokens
+            for req in admitted:
+                self.prefix_cache.adopt(self, req)
         if self._chunked:
             nxt = self.scheduler.next_chunk()
             if nxt is not None:

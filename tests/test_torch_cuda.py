@@ -76,7 +76,10 @@ def test_rmsnorm_kernel(dev, rows, d):
     (2, 130, 1000, 4, 4, 128, False),
     (1, 64, 130, 16, 2, 64, False),
     (1, 130, 130, 32, 2, 128, True),    # g = 16: chatglm3-6b's heads
-    (2, 65, 200, 16, 1, 64, True)])     # g = 16, offset 135
+    (2, 65, 200, 16, 1, 64, True),      # g = 16, offset 135
+    # head dim 32 (lammps-proxy: 8 heads over 8 KV heads)
+    (2, 130, 130, 8, 8, 32, True), (1, 65, 257, 8, 2, 32, True),
+    (2, 64, 192, 4, 4, 32, False), (1, 17, 17, 8, 1, 32, True)])
 def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
     q, k, v = (_rnd(dev, b, s, n, d, seed=i) for i, (s, n) in
                enumerate([(sq, h), (skv, hkv), (skv, hkv)]))
@@ -92,7 +95,7 @@ def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,qo", [
     (2, 300, 300, 8, 1, 128, True, 0), (1, 130, 257, 16, 2, 64, False, 0),
-    (1, 200, 130, 8, 2, 64, True, -70)])
+    (1, 200, 130, 8, 2, 64, True, -70), (2, 300, 300, 8, 8, 32, True, 0)])
 def test_flash_fwd_kernel_is_deterministic(dev, b, sq, skv, h, hkv, d, causal,
                                            qo):
     """Each block owns its output rows and sums in a fixed order (no
@@ -173,7 +176,8 @@ def _split_pool(dev, b, maxp, hkv, d, page=16, seed=11):
 @pytest.mark.parametrize("h,hkv,d", [
     (8, 8, 128), (16, 8, 128), (32, 4, 128), (16, 1, 128),   # g = 1, 2, 8, 16
     (8, 8, 64), (16, 8, 64), (64, 8, 64), (16, 1, 64),
-    (32, 2, 128), (64, 8, 128)])         # chatglm3-6b's and qwen2-72b's heads
+    (32, 2, 128), (64, 8, 128),          # chatglm3-6b's and qwen2-72b's heads
+    (8, 8, 32), (16, 2, 32)])            # head dim 32 (lammps-proxy's: g = 1)
 def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
     """Slots of 80 pages (many splits): lengths 1, page - 1, page, page +
     1, a split boundary - 1, + 0 and + 1 (the wrapper's plan), and the
@@ -206,7 +210,7 @@ def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_paged_decode_kernel_with_more_splits_than_filled_pages(dev, d):
     """Short slots in wide block tables: most splits start past their
     slot's length and write empty partials, which the merge skips."""
@@ -220,7 +224,8 @@ def test_paged_decode_kernel_with_more_splits_than_filled_pages(dev, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (16, 1, 64)])
+@pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (16, 1, 64),
+                                     (8, 8, 32)])
 def test_decode_attention_gives_paged_decodes_bits(dev, h, hkv, d):
     """One split kernel behind two KV addressers: a contiguous cache and
     a page pool holding the same keys give the same bits, at every
@@ -267,7 +272,7 @@ PREFILL_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,start,n_valid,chunk,page", PREFILL_CASES)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_paged_prefill_kernel(dev, h, hkv, start, n_valid, chunk, page, d):
     """Two slots (the second at an earlier start with fewer real rows):
     the real rows within TOL per element and 4e-3 in relative L2 (both
@@ -319,37 +324,124 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ops.rmsnorm(x.float(), torch.ones(64, device=dev))
     with pytest.raises(ValueError):
         ops.rmsnorm(x, torch.ones(64, device=dev, dtype=torch.bfloat16))
-    q = _rnd(dev, 1, 8, 4, 32)
+    q = _rnd(dev, 1, 8, 4, 16)
     with pytest.raises(ValueError):
-        ops.flash_attention(q, q, q)          # head dim 32 is not built
+        ops.flash_attention(q, q, q)          # head dim 16 is not built
 
 
 @pytest.mark.cuda
-def test_lammps_proxy_head_dim_32_is_refused_on_the_card(dev):
-    """lammps-proxy has head dim 32 (d 256 over 8 heads), which no
-    attention kernel takes: on the card its prefill, its loss and both
-    engine modes raise, and nothing falls back to a plain version."""
+def test_lammps_proxy_runs_on_the_card(dev):
+    """lammps-proxy has head dim 32 (d 256 over 8 heads, g = 1).  On the
+    card its prefill, its loss with gradients and both engine modes run
+    the attention kernels (each launch count above 0) and agree with the
+    plain path on the same parameters: prefill logits and the loss within
+    2e-2 relative (bf16 arithmetics in another order), each gradient
+    within 5 * REL_L2_TOL in relative L2, and every greedy token of
+    either engine within 5e-2 (relative to the logits' scale) of the
+    plain model's max logit when the stream so far is fed back through
+    it (a bf16 near-tie may flip)."""
     from repro_torch.configs import registry
+    from repro_torch.models import params as P
     from repro_torch.models.model import Model
     from repro_torch.serve import Engine, EngineConfig
     cfg = registry.get("lammps-proxy")
-    assert cfg.head_dim == 32
-    params = Model(cfg).init(device=dev)
-    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=dev)
+    assert cfg.head_dim == 32 and cfg.n_heads == cfg.n_kv_heads
+    params = Model(cfg).init(device=dev, dtype=torch.bfloat16)
+    plain = Model(cfg, impl="ref")
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(1, cfg.vocab_size, (2, 128), device=dev, generator=g)
     build.reset_launches()
-    with pytest.raises(ValueError, match="head dim 32"):
-        Model(cfg).prefill(params, {"tokens": toks})
-    with pytest.raises(ValueError, match="head dim 32"):
-        Model(cfg).loss(params, {"tokens": toks, "labels": toks})
-    for chunk in (0, 16):
-        eng = Engine(cfg, EngineConfig(n_slots=2, page_size=16, max_seq_len=64,
-                                       max_prompt_len=32, prefill_chunk=chunk),
+    got, _ = Model(cfg).prefill(params, {"tokens": toks})
+    want, _ = plain.prefill(params, {"tokens": toks})
+    assert build.LAUNCHES["flash_fwd"] == cfg.n_layers
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel <= 2e-2, rel
+
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    losses, grads = [], []
+    for model in (Model(cfg), plain):
+        leaves = [t.float().clone().requires_grad_() for t in
+                  P.tree_leaves(params)]
+        loss, _ = model.loss(P.tree_unflatten(params, leaves), batch)
+        grads.append(torch.autograd.grad(loss, leaves))
+        losses.append(float(loss))
+    assert build.LAUNCHES["flash_bwd_dq"] == cfg.n_layers
+    assert build.LAUNCHES["flash_bwd_dkv"] == cfg.n_layers
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1]), losses
+    for a, b_ in zip(*grads):
+        rel = float((a - b_).norm() / b_.norm().clamp_min(1e-12))
+        assert rel <= 5 * REL_L2_TOL, rel
+
+    prompts = [toks[0, :37].tolist(), toks[1, :70].tolist()]
+    for chunk in (0, 32):
+        build.reset_launches()
+        eng = Engine(cfg, EngineConfig(n_slots=2, page_size=16, max_seq_len=128,
+                                       max_prompt_len=96, prefill_chunk=chunk),
                      params=params, device=dev)
-        eng.submit([1, 2, 3], max_new_tokens=2)
-        with pytest.raises(ValueError, match="head dim 32"):
-            eng.run()
-    assert all(build.LAUNCHES[k] == 0 for k in
-               ("flash_fwd", "paged_prefill", "paged_decode", "decode_attention"))
+        reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["paged_decode"] > 0
+        assert build.LAUNCHES["paged_prefill" if chunk else "flash_fwd"] > 0
+        for p, r in zip(prompts, reqs):
+            assert len(r.tokens) == 6
+            for i, tok in enumerate(r.tokens):
+                seq = torch.tensor([p + r.tokens[:i]], device=dev)
+                logits, _ = plain.prefill(params, {"tokens": seq})
+                logits = logits[0].float()
+                gap = float(logits.max() - logits[tok])
+                assert gap <= 5e-2 * max(1.0, float(logits.abs().max())), gap
+
+
+@pytest.mark.cuda
+def test_apply_serve_and_train_specs_on_the_card(dev):
+    """A FluxMiniCluster applies a serve and a train WorkloadSpec of
+    lammps-proxy (full config, head dim 32) on the card: both handles
+    complete through Pending, Bound and Running; the served streams equal
+    a direct Engine's over the executor's parameters; the train loss is
+    finite; the attention kernels launched."""
+    from repro_torch.configs import registry
+    from repro_torch.core import (FluxMiniCluster, MiniClusterSpec,
+                                  NetModel, ResourceGraph, SimClock)
+    from repro_torch.serve import Engine
+    from repro_torch.spec import (ResourceSpec, ServeSpec, TrainSpec,
+                                  WorkloadSpec)
+    cfg = registry.get("lammps-proxy")
+    clock = SimClock(seed=0)
+    mc = FluxMiniCluster(clock, NetModel(), ResourceGraph(1, 4, 8),
+                         MiniClusterSpec(name="cuda", size=2))
+    mc.create()
+    mc.wait_ready()
+    build.reset_launches()
+    serve = mc.apply(WorkloadSpec(
+        kind="serve", arch="lammps-proxy", resources=ResourceSpec(n_nodes=1),
+        serve=ServeSpec(n_slots=4, page_size=16, max_prompt_len=64,
+                        max_seq_len=128, max_new=8, n_requests=5,
+                        prefill_chunk=32)),
+        cfg=cfg, executor_opts=dict(device=dev, prompt_len=64))
+    train = mc.apply(WorkloadSpec(
+        kind="train", arch="lammps-proxy", resources=ResourceSpec(n_nodes=1),
+        train=TrainSpec(total_steps=2, seq_len=256)),
+        cfg=cfg, executor_opts=dict(device=dev))
+    clock.run(until=clock.now + 1e5, stop_when=lambda: serve.done and train.done)
+    torch.cuda.synchronize()
+    for h in (serve, train):
+        assert [e["phase"] for e in h.events()] == \
+            ["Pending", "Bound", "Running", "Completed"]
+    rec = serve.executor.ran[serve.job.jobid]
+    eng, = serve.executor._engines.values()
+    direct = Engine(cfg, serve.spec.engine_config(), params=eng.params,
+                    device=dev)
+    reqs = [direct.submit([(7 * i + j) % cfg.vocab_size for j in range(64)],
+                          max_new_tokens=8) for i in range(5)]
+    direct.run()
+    assert rec["tokens"] == [r.tokens for r in reqs]
+    assert rec["mesh_shape"] == (1, 1)
+    loss = train.executor.ran[train.job.jobid]["loss"]
+    assert loss == loss and abs(loss) < 1e3
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_prefill",
+              "paged_decode", "rmsnorm"):
+        assert build.LAUNCHES[k] > 0, k
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +469,9 @@ BWD_SHAPES = [
     # g = 16: dk and dv summed over 16 query heads (chatglm3-6b's heads)
     (1, 130, 130, 32, 2, 128, True),
     (2, 129, 300, 16, 1, 64, True),
+    # head dim 32 (lammps-proxy's 8 heads over 8 KV heads), g = 1 and 4
+    (2, 300, 300, 8, 8, 32, True), (1, 129, 300, 8, 2, 32, True),
+    (2, 100, 300, 4, 4, 32, False),
 ]
 
 
@@ -517,7 +612,7 @@ def test_attention_kernels_at_head_dim_64(dev, b, sq, h, hkv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,qo", [
     (2, 70, 90, 8, 2, 128, -3), (1, 130, 100, 16, 8, 64, -70),
-    (1, 33, 65, 2, 2, 64, -40)])
+    (1, 33, 65, 2, 2, 64, -40), (1, 130, 100, 8, 8, 32, -70)])
 def test_rows_that_see_no_key(dev, b, sq, skv, h, hkv, d, qo):
     """The first -q_offset query rows see no key: forward (the mean of V,
     lse -1e30) and backward as the plain version, which is the JAX
@@ -551,7 +646,7 @@ def test_rows_that_see_no_key(dev, b, sq, skv, h, hkv, d, qo):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (8, 8, 64),
-                                     (16, 1, 128)])
+                                     (16, 1, 128), (8, 8, 32)])
 @pytest.mark.parametrize("cache_len", [1, 37, 700])
 def test_decode_attention_kernel(dev, h, hkv, d, cache_len):
     q = _rnd(dev, 3, 1, h, d, seed=1)

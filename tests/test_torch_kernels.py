@@ -38,6 +38,7 @@ SHAPES = [
     (2, 64, 192, 6, 2, 32, False),      # cross-attention shape
     (1, 48, 48, 8, 1, 16, True),        # MQA
     (1, 33, 65, 2, 2, 128, True),       # odd sizes, offset
+    (2, 130, 130, 8, 8, 32, True),      # lammps-proxy's heads (head dim 32)
 ]
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 2e-5),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -132,14 +133,15 @@ def test_flash_chunked_matches_jax_ref_and_pallas(shape, dt):
     (200, 130, True, -70),              # rows 0..69 see no key
     (96, 257, False, 0),
 ])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("h,hkv", [(2, 2), (8, 2), (8, 1)])     # g 1, 4, 8
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_fwd_ref_at_the_kernel_tiles_matches_jax_ref_and_pallas(
         sq, skv, causal, qo, d, h, hkv, dt):
     """The plain forward at the CUDA kernel's geometry (a step of 64 keys
     at head dim 64, 128 at head dim 128), on shapes that cross several
-    64-row tiles with ragged ends, against the JAX ref at the same block
+    64-row tiles with ragged ends (head dim 32 steps as 64: the kernel
+    runs it on 64-wide tiles), against the JAX ref at the same block
     and the Pallas forward with 64 x 64 blocks.  Out at the file's
     tolerance, lse within 2e-5 (float32 on every side).  A row that sees
     no key is held against the JAX ref only: the Pallas kernel skips the
@@ -404,7 +406,8 @@ PREFILL_TILE_CASES = [
     (8, 1, 0, 64, 64, 16), (2, 2, 0, 1, 64, 8), (14, 2, 37, 63, 64, 16),
     (4, 2, 37, 65, 128, 8), (8, 1, 64, 64, 128, 64), (7, 1, 64, 128, 128, 16),
     (4, 2, 250, 65, 96, 64), (8, 1, 250, 1, 32, 8), (2, 1, 0, 128, 128, 64),
-    (1, 1, 37, 64, 64, 8)]
+    (1, 1, 37, 64, 64, 8),
+    (8, 8, 37, 63, 64, 16)]             # lammps-proxy's heads: g = 1
 
 
 @pytest.mark.parametrize("h,hkv,start,valid", PREFILL_CASES)
@@ -469,14 +472,16 @@ def test_paged_prefill_rows_equal_flash_chunked_bitwise(h, hkv, start, valid,
 @pytest.mark.parametrize("smax,fill", [(96, 96), (96, 40), (64, 1),
                                        (600, 517)])
 @pytest.mark.parametrize("h,hkv", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_decode_attention_matches_jax_ref_and_pallas(smax, fill, h, hkv, dt):
+def test_decode_attention_matches_jax_ref_and_pallas(smax, fill, h, hkv, d,
+                                                      dt):
     """The facade's contiguous decode (the plain version on the CPU)
     against the JAX ref and the Pallas decode kernel in interpret mode,
     which walks the cache in blocks of 512 and skips those past the
     fill (600 positions: a ragged second block)."""
     _, jdt, tdt, tol = DTYPES[dt]
-    q, k, v = _qkv(2, 1, smax, h, hkv, 64, seed=5)
+    q, k, v = _qkv(2, 1, smax, h, hkv, d, seed=5)
     (qj, qt), (kj, kt), (vj, vt) = (_both(a, jdt, tdt) for a in (q, k, v))
     out = ops.decode_attention(qt, kt, vt, fill)
     assert out.dtype == tdt and out.shape == qt.shape
