@@ -33,11 +33,13 @@ Phases, each printing its own lines:
              chatglm3-6b's heads (32 over 2 KV heads, g = 16) and
              qwen2-72b's (64 over 8), flash_fwd at chatglm3-6b's prompt,
              rmsnorm at d 8192, and rmsnorm timed again late in the call
-             beside F.rms_norm; then, from a generator of their own, the
-             attention kernels at lammps-proxy's head dim 32 (8 heads over
-             8 KV heads): flash_fwd and flash_bwd at (2, 2048), paged
-             decode and decode over a contiguous cache at 8 slots, paged
-             prefill at a 256-row chunk, each beside SDPA and its bound;
+             beside F.rms_norm; then, each from a generator of its own,
+             the attention kernels at lammps-proxy's head dim 32 (8 heads
+             over 8 KV heads), the SMOKE configs' 16 (4 over 2) and
+             qwen2-72b SMOKE's 8 (8 over 2): flash_fwd and flash_bwd at
+             (2, 2048), paged decode and decode over a contiguous cache
+             at 8 slots, paged prefill at a 256-row chunk, each beside
+             SDPA and its bound;
 4. serve   - yi-6b at full width and depth (random weights from a seeded
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
@@ -90,7 +92,20 @@ Phases, each printing its own lines:
              trained through the SubmeshExecutor (loss against the
              Trainer's), and lammps-proxy as the workload under a Flux
              job and an MPIJob (the paper's Figure 5); each handle's
-             lifecycle and the phase's launch counts are printed.
+             lifecycle and the phase's launch counts are printed;
+8. smoke   - the executors' default SMOKE configs (head dims 16 and 8)
+             on the card: a WorkloadSpec of every executor kind applied
+             without cfg= (no plain version may run); then
+             ``repro_torch.launch.pipeline`` on pipeline_canary.json
+             (yi-6b SMOKE) with its trace held to tools/validate_trace.py;
+             then the pipeline at full size: granite-moe-1b-a400m trained
+             elastically (6 steps of 4 x 4096, grown 2 -> 4 nodes and
+             shrunk back, every checkpoint timed and sized; the losses
+             against an uninterrupted Trainer), gated on its final loss,
+             and promoted replica by replica into a live 2-replica
+             elastic fleet (no request dropped, streams before each swap
+             equal the unpromoted run's, streams after the roll equal a
+             direct Engine's over the restored trained params).
 
 Then the ``kernels`` JSON line, the card's line, and the result line.
 Any failure raises and exits non-zero; without CUDA, or without the port
@@ -128,13 +143,15 @@ LSE_TOL = 1e-3
 # relative each), from f32 values summed in another order, and both
 # round the output once.
 REL_L2_TOL = 1e-2
-# flash_fwd's out, whole tensor, and paged_prefill's real rows:
+# flash_fwd's out, whole tensor, paged_prefill's real rows and the
+# decode kernels' outputs below head dim 64:
 # ||kernel - plain|| <= FWD_REL_L2_TOL * ||plain||.  With randn inputs
 # |out| is ~0.04 at 4096 keys, where the element check above allows ~2/3
 # of a value.  Each side rounds p and out to bf16 (2^-9 relative each)
 # from f32 values summed in another order, so two correct versions lie
-# about two such roundings (3.9e-3) apart at most; this file prints the
-# measured error at each shape.
+# about two such roundings (3.9e-3) apart at most (the decode kernels
+# keep p in f32 and round once); this file prints the measured error at
+# each shape.
 FWD_REL_L2_TOL = 4e-3
 # teacher-forced logits through 32 layers: both bf16 paths (kernels and
 # plain versions) round activations at other places in every layer, so
@@ -459,7 +476,11 @@ def kernel_phase(torch, dev):
     rows_out["decode_attention"] = decode_attention_row(torch, dev, rnd, cpm)
     rows_out.update(quantize_rows(torch, dev, cpm))
     dense_shapes(torch, dev, cpm)
-    head_dim_32(torch, dev, rows_out, cpm)
+    # lammps-proxy's head dim 32 (8 heads over 8), the SMOKE configs' 16
+    # (4 over 2) and qwen2-72b SMOKE's 8 (8 over 2)
+    small_head_dim(torch, dev, rows_out, cpm, 32, 8, 8, 3232, "lammps-proxy")
+    small_head_dim(torch, dev, rows_out, cpm, 16, 4, 2, 1616, "SMOKE")
+    small_head_dim(torch, dev, rows_out, cpm, 8, 8, 2, 808, "qwen2-72b SMOKE")
 
     for name, r in rows_out.items():
         lib = ("none" if r["library_ms"] is None
@@ -567,66 +588,72 @@ def dense_shapes(torch, dev, cpm):
               f"{least:.5f} ms (bytes, {least / t:.3f} of it)")
 
 
-def head_dim_32(torch, dev, rows_out, cpm):
-    """The attention kernels at lammps-proxy's head dim 32 (8 query heads
-    over 8 KV heads, g = 1), from a generator of their own: flash_fwd and
-    flash_bwd at the operator phase's train shape (2 x 2048, causal),
-    paged decode and decode over a contiguous cache at the serve cell's
-    8 slots, paged prefill at its 256-row chunk.  The kernels run D = 32
-    on 64-wide tiles whose columns 32..63 are zero (wgmma.cuh).  Each is
-    held against its plain version at the head dim 64 rows' tolerances,
-    its error folded into its kernel's row, and timed beside SDPA and its
-    bound."""
+def small_head_dim(torch, dev, rows_out, cpm, D, H, HKV, seed, label):
+    """The attention kernels at a head dim below 64 (``label``: whose),
+    H query heads over HKV KV heads, from a generator of their own
+    (``seed``): flash_fwd and flash_bwd at the operator phase's train
+    shape (2 x 2048, causal), paged decode and decode over a contiguous
+    cache at the serve cell's 8 slots, paged prefill at its 256-row
+    chunk.  The wgmma kernels run D on 64-wide tiles whose columns
+    D..63 are zero (wgmma.cuh); the split decode kernel gives each of
+    lanes 0..D-1 one column below D = 32.  Each kernel is held against
+    its plain version at the head dim 64 rows' tolerances, its error
+    folded into its kernel's row, and timed beside SDPA (GQA through
+    ``enable_gqa``, the backward on a KV repeat) and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    g = torch.Generator(device=dev).manual_seed(3232)
+    g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
+    gqa = H != HKV
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
 
-    H, HKV, D, PAGE, B, S = 8, 8, 32, 16, 2, 2048
+    PAGE, B, S = 16, 2, 2048
+    what = f"head dim {D}"
     q, k, v, do = rnd(B, S, H, D), rnd(B, S, HKV, D), rnd(B, S, HKV, D), \
         rnd(B, S, H, D)
     out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
     ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=True)
     e, ok = err_within(out, ref_out, TOL)
     e_lse = float((lse - ref_lse).abs().max())
-    check(ok and e_lse <= LSE_TOL, f"flash_fwd at head dim 32 differs from "
+    check(ok and e_lse <= LSE_TOL, f"flash_fwd at {what} differs from "
           f"the plain version (lse by {e_lse})")
-    fwd_rel_l2(out, ref_out, "(2,2048) head dim 32")
+    fwd_rel_l2(out, ref_out, f"(2,2048) {what}")
     again = fa_kernel.flash_fwd(q, k, v, causal=True)
     check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
-          "flash_fwd at head dim 32 gave other bits on a second run")
-    _fold(rows_out["flash_fwd"], e, "; and q (2,2048,8,32), kv (2,2048,8,32)")
+          f"flash_fwd at {what} gave other bits on a second run")
+    qkv = f"q (2,2048,{H},{D}), kv (2,2048,{HKV},{D})"
+    _fold(rows_out["flash_fwd"], e, f"; and {qkv}")
     got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
     want = fa_ref.bwd(q, k, v, out, lse, do, causal=True)
     rels = []
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         e, ok = err_within(a, b, TOL)
         r = rel_l2(a, b)
-        check(ok and r <= REL_L2_TOL, f"flash_bwd {name} at head dim 32 "
+        check(ok and r <= REL_L2_TOL, f"flash_bwd {name} at {what} "
               f"differs from the plain version (relative L2 {r:.3g})")
         rels.append(r)
         _fold(rows_out["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"],
               e, "")
     again = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          "flash_bwd at head dim 32 gave other bits on a second run")
+          f"flash_bwd at {what} gave other bits on a second run")
     del got, want, again, ref_out, ref_lse
     delta = (out.float() * do.float()).sum(-1)
-    t_fwd, sdpa_fwd_ms = fwd_rate(torch, cpm, "q (2,2048,8,32) kv "
-                                  "(2,2048,8,32) causal", q, k, v)
+    shape = f"q (2,2048,{H},{D}) kv (2,2048,{HKV},{D}) causal"
+    t_fwd, sdpa_fwd_ms = fwd_rate(torch, cpm, shape, q, k, v)
     t_dq = median_ms(cpm, lambda: fa_kernel.flash_bwd_dq(
         q, k, v, do, lse, delta, causal=True))
     t_dkv = median_ms(cpm, lambda: fa_kernel.flash_bwd_dkv(
         q, k, v, do, lse, delta, causal=True))
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
+                  for t in (q, k.repeat_interleave(H // HKV, dim=2),
+                            v.repeat_interleave(H // HKV, dim=2)))
     dot = do.transpose(1, 2).contiguous()
 
     def sdpa_fwd():
@@ -639,10 +666,9 @@ def head_dim_32(torch, dev, rows_out, cpm):
 
     sdpa_bwd_ms = median_ms(cpm, sdpa_fwd_bwd) - median_ms(cpm, sdpa_fwd)
     mm = 2 * B * (S * (S + 1) // 2) * H * D
-    print(bwd_rate("q (2,2048,8,32) kv (2,2048,8,32) causal", t_dq, t_dkv, mm,
-                   sdpa_bwd_ms))
+    print(bwd_rate(shape, t_dq, t_dkv, mm, sdpa_bwd_ms))
     io = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * lse.numel() * 4
-    print(f"[kernels] head dim 32, q (2,2048,8,32) kv (2,2048,8,32) causal: "
+    print(f"[kernels] {what}, {shape}: "
           f"flash_fwd {t_fwd:.4f} ms (bound "
           f"{bound(io, 2 * mm)[0]:.5f} ms, SDPA {sdpa_fwd_ms:.4f} ms), "
           f"flash_bwd_dq {t_dq:.4f} ms (bound "
@@ -661,11 +687,15 @@ def head_dim_32(torch, dev, rows_out, cpm):
                         dtype=torch.int32, device=dev)
     qd = rnd(8, 1, H, D)
     got = ops.paged_decode_attention(qd, kp, vp, bt, lens)
-    e, ok = err_within(got, dec_ref.paged_decode_ref(qd, kp, vp, bt, lens), TOL)
-    check(ok, "paged_decode at head dim 32 differs from the plain version")
+    want = dec_ref.paged_decode_ref(qd, kp, vp, bt, lens)
+    e, ok = err_within(got, want, TOL)
+    r_paged = rel_l2(got, want)
+    check(ok and r_paged <= FWD_REL_L2_TOL, f"paged_decode at {what} "
+          f"differs from the plain version (relative L2 {r_paged:.3g})")
     check(torch.equal(got, ops.paged_decode_attention(qd, kp, vp, bt, lens)),
-          "paged_decode at head dim 32 gave other bits on a second run")
-    _fold(rows_out["paged_decode"], e, "; and at (8,1,8,32) over 8 KV heads")
+          f"paged_decode at {what} gave other bits on a second run")
+    _fold(rows_out["paged_decode"], e,
+          f"; and at (8,1,{H},{D}) over {HKV} KV heads")
     kg = kp[bt.long()].reshape(8, MAXP * PAGE, HKV, D).transpose(1, 2)
     vg = vp[bt.long()].reshape(8, MAXP * PAGE, HKV, D).transpose(1, 2)
     mask = (torch.arange(MAXP * PAGE, device=dev)[None, :]
@@ -675,34 +705,42 @@ def head_dim_32(torch, dev, rows_out, cpm):
         ms=median_ms(cpm, lambda: ops.paged_decode_attention(qd, kp, vp, bt,
                                                              lens)),
         library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
-            qd.transpose(1, 2), kg, vg, attn_mask=mask)),
+            qd.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=gqa)),
         bound=bound(2 * filled * HKV * D * 2 + 2 * qd.numel() * 2
                     + bt.numel() * 4, 4 * filled * H * D)),
-        "lammps-proxy (head dim 32)", 8 * HKV, MAXP)
+        f"{label} ({what})", 8 * HKV, MAXP)
     del kg, vg
-    pre = paged_prefill_row(torch, dev, rnd, cpm, "lammps-proxy (head dim 32)",
+    pre = paged_prefill_row(torch, dev, rnd, cpm, f"{label} ({what})",
                             H, kp, vp, bt[:1], ((0, 200), (256, 180)))
     _fold(rows_out["paged_prefill"], pre["max_abs_err"],
-          "; and at (1,256,8,32) over 8 KV heads")
+          f"; and at (1,256,{H},{D}) over {HKV} KV heads")
     del kp, vp
 
     L = 700
     qc, kc, vc = rnd(8, 1, H, D), rnd(8, 1024, HKV, D), rnd(8, 1024, HKV, D)
     got = ops.decode_attention(qc, kc, vc, L)
-    e, ok = err_within(got, dec_ref.decode_ref(qc, kc, vc, L), TOL)
-    check(ok, "decode_attention at head dim 32 differs from the plain version")
+    want = dec_ref.decode_ref(qc, kc, vc, L)
+    e, ok = err_within(got, want, TOL)
+    r = rel_l2(got, want)
+    check(ok and r <= FWD_REL_L2_TOL, f"decode_attention at {what} differs "
+          f"from the plain version (relative L2 {r:.3g})")
+    print(f"[kernels] {what}: relative L2 error against the plain version, "
+          f"paged_decode {r_paged:.3g}, decode_attention {r:.3g} (tol "
+          f"{FWD_REL_L2_TOL})")
     check(torch.equal(got, ops.decode_attention(qc, kc, vc, L)),
-          "decode_attention at head dim 32 gave other bits on a second run")
-    _fold(rows_out["decode_attention"], e, "; and at (8,1,8,32) over 8 KV heads")
+          f"decode_attention at {what} gave other bits on a second run")
+    _fold(rows_out["decode_attention"], e,
+          f"; and at (8,1,{H},{D}) over {HKV} KV heads")
     qt, kt, vt = (x.transpose(1, 2) for x in (qc, kc[:, :L], vc[:, :L]))
     t = median_ms(cpm, lambda: ops.decode_attention(qc, kc, vc, L))
-    lib = median_ms(cpm, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    lib = median_ms(cpm, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=gqa))
     least, by = bound(2 * 8 * L * HKV * D * 2 + 2 * qc.numel() * 2,
                       4 * 8 * L * H * D)
-    print(f"[kernels] decode_attention lammps-proxy (head dim 32) q (8,1,8,32),"
-          f" cache (8,1024,8,32), cache_len 700: max error {e:.3g} (tol {TOL});"
-          f" kernel {t:.4f} ms, SDPA {lib:.4f} ms ({t / lib:.2f}x), bound "
-          f"{least:.5f} ms ({by}, {least / t:.3f} of it)")
+    print(f"[kernels] decode_attention {label} ({what}) q (8,1,{H},{D}),"
+          f" cache (8,1024,{HKV},{D}), cache_len 700: max error {e:.3g} (tol "
+          f"{TOL}); kernel {t:.4f} ms, SDPA {lib:.4f} ms ({t / lib:.2f}x), "
+          f"bound {least:.5f} ms ({by}, {least / t:.3f} of it)")
 
 
 def fwd_rel_l2(out, ref_out, shape):
@@ -2003,7 +2041,8 @@ def comm_phase(torch, dev, build, smi):
 OP_PROMPT_LEN = 512       # the serve cell's max_prompt_len
 OP_NEW = 32
 OP_REQUESTS = 12
-# the plain versions a kernel replaces: none may run in the operator phase
+# the plain versions a kernel replaces: none may run in the operator,
+# SMOKE and pipeline phases
 PLAIN = {"flash_attention.ref": ("naive", "fwd", "bwd", "chunked"),
          "decode_attention.ref": ("decode_ref", "paged_decode_ref",
                                   "paged_prefill_ref"),
@@ -2027,8 +2066,8 @@ class _NoPlain:
     @staticmethod
     def _refuse(name):
         def f(*a, **k):
-            raise RuntimeError(f"chip_smoke: the plain version {name} ran in "
-                               f"the operator phase")
+            raise RuntimeError(f"chip_smoke: the plain version {name} ran "
+                               f"where only the kernels may run")
         return f
 
     def __exit__(self, *exc):
@@ -2061,7 +2100,8 @@ def _release(mc):
         for attr in ("_engines", "_fleets", "_meshes", "_cache", "_params"):
             getattr(ex, attr, {}).clear()
         for ses in getattr(ex, "sessions", {}).values():
-            ses.engine = ses.parked = None
+            ses.engine = ses.parked = ses.state = ses.router = None
+            ses.params = None
     mc.instance._workloads._executors.clear()
     torch.cuda.empty_cache()
 
@@ -2322,6 +2362,452 @@ def operator_phase(torch, dev, build):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the SMOKE configs on the card, the pipeline launcher, and the
+# train -> gate -> canary-promote pipeline at full size
+# ---------------------------------------------------------------------------
+
+SMOKE_ARCHS = {"yi-6b": 16, "granite-moe-1b-a400m": 16, "lammps-proxy": 16,
+               "qwen2-72b": 8}      # arch -> its SMOKE config's head dim
+
+
+def smoke_phase(torch, dev, build):
+    """The executors' default configs, SMOKE, on the card: WorkloadSpecs
+    applied without ``cfg=`` (every plain version refused throughout),
+    one for each executor kind: the reference's quickstart (yi-6b,
+    granite-moe-1b-a400m and lammps-proxy trained on 4, 2 and 2 nodes),
+    yi-6b served legacy and chunked, granite served chunked, qwen2-72b
+    (head dim 8) trained and served both ways, the committed
+    ``serve_fleet.json`` (two replicas) and ``serve_batch.json`` (elastic
+    serve), an elastic train of yi-6b and an elastic fleet of two yi-6b
+    replicas, and a plain Flux job whose payload is qwen2-72b's SMOKE
+    forward.  Every
+    handle completes through Pending, Bound and Running; each served
+    stream equals a direct Engine's over the executor's parameters; each
+    head dim's specs launched every attention kernel but the contiguous
+    decode (counted before the checks' Engines run).  Returns the launch
+    counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.core import (FluxMiniCluster, JobSpec, MiniClusterSpec,
+                                  NetModel, ResourceGraph, SimClock,
+                                  TorchWorkloadExecutor)
+    from repro_torch.serve import Engine
+    from repro_torch.spec import (ResourceSpec, ServeSpec, TrainSpec,
+                                  WorkloadSpec, load_spec)
+
+    for arch, d in SMOKE_ARCHS.items():
+        check(registry.smoke(arch).head_dim == d,
+              f"{arch}'s SMOKE config has head dim "
+              f"{registry.smoke(arch).head_dim}, not {d}")
+    t0 = time.perf_counter()
+    clock = SimClock(seed=0)
+    net = NetModel()
+    mc = FluxMiniCluster(clock, net, ResourceGraph(n_pods=2, hosts_per_pod=16,
+                                                   chips_per_host=4),
+                         MiniClusterSpec(name="smoke-cfg", size=16,
+                                         max_size=16))
+    mc.create()
+    mc.wait_ready()
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_smoke_",
+                                 dir=ROOT / "build"))
+    opts = dict(device=dev)
+    serve = dict(n_slots=4, page_size=8, max_prompt_len=16, max_seq_len=48,
+                 max_new=12, n_requests=3)
+
+    def spec(kind, arch, nodes=1, elastic=False, **kw):
+        sub = ({"train": TrainSpec(**kw)} if kind == "train"
+               else {"serve": ServeSpec(**kw)})
+        return WorkloadSpec(kind=kind, arch=arch, name=f"smoke-{arch}",
+                            resources=ResourceSpec(n_nodes=nodes,
+                                                   elastic=elastic), **sub)
+
+    # head dim 16 first, then 8 (qwen2-72b), each group's launches apart
+    groups = {16: [spec("train", a, n, total_steps=1, seq_len=16) for a, n in
+                   (("yi-6b", 4), ("granite-moe-1b-a400m", 2),
+                    ("lammps-proxy", 2))] + [
+        spec("serve", "yi-6b", **serve),
+        spec("serve", "yi-6b", prefill_chunk=8, **serve),
+        spec("serve", "granite-moe-1b-a400m", prefill_chunk=8, **serve),
+        load_spec(str(ROOT / "examples/specs/serve_fleet.json")),
+        load_spec(str(ROOT / "examples/specs/serve_batch.json")),
+        spec("train", "yi-6b", 2, elastic=True, total_steps=4, chunk_steps=2,
+             global_batch=4, seq_len=32, ckpt_dir=str(ckpt)),
+        spec("serve", "yi-6b", elastic=True, replicas=2, **serve)],
+        8: [spec("train", "qwen2-72b", 2, total_steps=1, seq_len=16),
+            spec("serve", "qwen2-72b", **serve),
+            spec("serve", "qwen2-72b", prefill_chunk=8, **serve)]}
+    ex = TorchWorkloadExecutor(clock, net, steps=2, device=dev)
+    total = dict.fromkeys(build.LAUNCHES, 0)
+    try:
+        for d, specs in groups.items():
+            build.reset_launches()
+            with _NoPlain():
+                handles = [mc.apply(s, executor_opts=opts) for s in specs]
+                job = None
+                if d == 8:
+                    mc.instance._set_executor(ex)   # plain JobSpecs go here
+                    job = mc.instance.submit(JobSpec(
+                        n_nodes=1, walltime=100.0, command="qwen2-72b"))
+                clock.run(until=clock.now + 1e6, stop_when=lambda: all(
+                    h.done for h in handles) and (job is None or job.t_done))
+                torch.cuda.synchronize()
+                launches = dict(build.LAUNCHES)  # the specs' own, no check's
+                for h in handles:
+                    phases = [e["phase"] for e in h.events()]
+                    check(phases[:3] == ["Pending", "Bound", "Running"]
+                          and phases[-1] == "Completed",
+                          f"{h.spec.name} ({h.spec.kind}): lifecycle {phases}")
+                    rec = h.executor.ran[h.job.jobid]
+                    engines = getattr(h.executor, "_engines", {})
+                    streams = ""
+                    if type(h.executor).__name__ == "ServeExecutor":
+                        eng, = [e for k, e in engines.items()
+                                if k[0] == h.spec.arch]
+                        direct = Engine(eng.cfg, h.spec.engine_config(),
+                                        params=eng.params, device=dev)
+                        plen = min(8, eng.ecfg.max_prompt_len)
+                        reqs = [direct.submit([(7 * i + j) % eng.cfg.vocab_size
+                                               for j in range(plen)],
+                                              max_new_tokens=len(t))
+                                for i, t in enumerate(rec["tokens"])]
+                        direct.run()
+                        check(rec["tokens"] == [r.tokens for r in reqs],
+                              f"{h.spec.name}: the served streams differ from a "
+                              f"direct Engine's")
+                        streams = "; streams equal a direct Engine's"
+                    res = h.result()
+                    print(f"[smoke] {h.spec.kind} {h.spec.arch} (head dim "
+                          f"{SMOKE_ARCHS[h.spec.arch]}, "
+                          f"{type(h.executor).__name__}): {' -> '.join(phases)};"
+                          f" {({k: v for k, v in res.items() if k in ('final_loss', 'steps', 'n_tokens', 'replicas')})}"
+                          f"{streams}")
+                if job is not None:
+                    check(job.result == "completed", "the plain Flux job failed")
+                    print(f"[smoke] plain Flux job, payload qwen2-72b SMOKE "
+                          f"(head dim 8): 2 forward steps measured "
+                          f"{ex.measured[job.jobid] * 1e3:.3f} ms")
+            print(f"[smoke] launches at head dim {d}: " + ", ".join(
+                f"{k} {n}" for k, n in launches.items() if n))
+            moe = ("moe_gemm",) if d == 16 else ()   # qwen2-72b is dense
+            for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "paged_prefill", "paged_decode") + moe:
+                check(launches[k] > 0, f"the SMOKE specs at head dim {d} "
+                      f"never launched {k}")
+            for k, n in launches.items():
+                total[k] += n
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[smoke] no plain version ran; {time.perf_counter() - t0:.1f} s")
+    _release(mc)
+    return total
+
+
+def pipeline_cli(torch):
+    """``python -m repro_torch.launch.pipeline`` on the committed
+    ``pipeline_canary.json`` (yi-6b SMOKE, head dim 16) on the card, with
+    its trace written and held to ``tools/validate_trace.py``."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_", dir=ROOT / "build"))
+    trace = tmp / "TRACE_pipeline.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    try:
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.pipeline",
+             "--pipeline", str(ROOT / "examples/specs/pipeline_canary.json"),
+             "--trace", str(trace)], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        check(run.returncode == 0, f"launch.pipeline exited {run.returncode}:"
+              f" {run.stdout[-2000:]} {run.stderr[-2000:]}")
+        status = json.loads(run.stdout[run.stdout.index("{"):
+                                       run.stdout.rindex("}") + 1])
+        val = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                                  "validate_trace.py"),
+                              str(trace)], capture_output=True, text=True,
+                             timeout=120)
+        check(val.returncode == 0, f"validate_trace.py refused the "
+              f"pipeline's trace: {val.stdout} {val.stderr}")
+        doc = json.loads(trace.read_text())
+        print(f"[pipeline] launch.pipeline on pipeline_canary.json (yi-6b "
+              f"SMOKE, head dim 16): {status['phase']}, stages "
+              f"{ {n: st['phase'] for n, st in status['stages'].items()} }; "
+              f"trace of {len(doc['traceEvents'])} events passes "
+              f"validate_trace.py (backend {doc['otherData']['backend']}, "
+              f"device {doc['otherData'].get('device')}); "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+PIPE_STEPS, PIPE_CHUNK, PIPE_BATCH, PIPE_SEQ = 6, 2, 4, 4096
+PIPE_EXTRA = 4              # requests submitted once the promotion is done
+
+
+def _timed(torch, ckpt, log):
+    """Record each save's and restore's seconds and the step's bytes on
+    disk (and the whole root's, for the peak) in ``log``."""
+    save, restore = ckpt.save, ckpt.restore_latest
+
+    def du(path):
+        return sum(f.stat().st_size for f in Path(path).rglob("*")
+                   if f.is_file())
+
+    def timed_save(state, step, meta=None):
+        t = time.perf_counter()
+        save(state, step, meta=meta)
+        ckpt.wait()
+        log.append(("save", step, time.perf_counter() - t,
+                    du(Path(ckpt.dir) / f"step_{step:08d}"), du(ckpt.dir)))
+
+    def timed_restore(template, device=None):
+        t = time.perf_counter()
+        out = restore(template, device)
+        torch.cuda.synchronize()
+        log.append(("restore", out[1], time.perf_counter() - t, None,
+                    du(ckpt.dir)))
+        return out
+
+    ckpt.save, ckpt.restore_latest = timed_save, timed_restore
+
+
+def granite_pipeline(torch, dev, build):
+    """The slice's path at full size: a PipelineSpec with the DAG of
+    ``pipeline_canary.json`` over granite-moe-1b-a400m (all 24 layers,
+    d_model 1024, 32 experts top-8):
+
+    * ``train``: an elastic train on 2 nodes, 6 steps of 4 x 4096 in
+      chunks of 2, grown to 4 nodes after the first chunk
+      (``patch_size(4)``) and shrunk to 2 once the grow has landed;
+      every checkpoint (the JAX format, under a temporary directory of
+      ``build/`` that the phase removes) timed and sized; its losses
+      against an uninterrupted Trainer of the same config and seed;
+    * ``eval-gate``: ``final_loss lt 12.0``;
+    * ``fleet``: an elastic fleet of 2 replicas (n_slots 8, page 16,
+      prompts up to 512, 12 requests of 512 tokens, 32 new), fired once
+      the train stage has completed, where ``pipeline_canary.json``
+      starts it at once: an elastic fleet follows a MiniCluster resize
+      as the elastic train does (both want the cluster's new size), so
+      the two cannot both grow in one cluster at once;
+    * ``promote``: the trained params rolled into the live fleet replica
+      by replica; then PIPE_EXTRA more requests, which the promoted
+      replicas serve.
+
+    Held: no request dropped; every stream's tokens up to its replica's
+    swap equal a direct Engine's over the fleet's first params; the
+    extra requests' streams equal a direct Engine's over the trained
+    params restored from the checkpoint.  The caller refuses every plain
+    version throughout (``_NoPlain``).  Returns the launch counts of the
+    pipeline's run, taken before the checks' Engines run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import TrainConfig, WorkloadShape, registry
+    from repro_torch.core import (FluxMiniCluster, MiniClusterSpec, NetModel,
+                                  ResourceGraph, SimClock)
+    from repro_torch.core.executor import serving_params
+    from repro_torch.dist import steps as dsteps
+    from repro_torch.flow import (GateSpec, PipelineSpec, PromoteSpec,
+                                  StageSpec, TriggerSpec)
+    from repro_torch.serve import Engine
+    from repro_torch.spec import (ResourceSpec, ServeSpec, TrainSpec,
+                                  WorkloadSpec)
+    from repro_torch.train import Trainer
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cfg = registry.get("granite-moe-1b-a400m")
+    tcfg = TrainConfig(total_steps=PIPE_STEPS, warmup_steps=0)
+    shape = WorkloadShape("elastic", "train", PIPE_SEQ, PIPE_BATCH)
+    tr = Trainer(cfg, tcfg, shape, seed=0, device=dev)
+    ref = [h["loss"] for h in tr.run(PIPE_STEPS, log_every=0)]
+    del tr
+    torch.cuda.empty_cache()
+    print(f"[pipeline] {cfg.name} uninterrupted Trainer, {PIPE_STEPS} steps "
+          f"of {PIPE_BATCH} x {PIPE_SEQ}: losses {[round(x, 6) for x in ref]}")
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_",
+                                 dir=ROOT / "build"))
+    log = []
+    try:
+        serve = ServeSpec(n_slots=8, page_size=16, max_prompt_len=512,
+                          max_seq_len=1024, max_new=OP_NEW, prefill_chunk=0,
+                          n_requests=OP_REQUESTS, replicas=2, tenant="canary")
+        pspec = PipelineSpec(name="canary-promote", stages=[
+            StageSpec(name="fleet", kind="workload",
+                      trigger=TriggerSpec(on="interval", every=1e5, count=1),
+                      workload=WorkloadSpec(
+                          kind="serve", arch=cfg.name, name="canary-fleet",
+                          resources=ResourceSpec(n_nodes=1, elastic=True),
+                          serve=serve)),
+            StageSpec(name="train", kind="workload", workload=WorkloadSpec(
+                kind="train", arch=cfg.name, name="canary-train",
+                resources=ResourceSpec(n_nodes=2, elastic=True),
+                train=TrainSpec(total_steps=PIPE_STEPS,
+                                global_batch=PIPE_BATCH, seq_len=PIPE_SEQ,
+                                chunk_steps=PIPE_CHUNK,
+                                ckpt_dir=str(root)))),
+            StageSpec(name="eval-gate", kind="gate", depends_on=["train"],
+                      gate=GateSpec(metric="final_loss", op="lt",
+                                    value=12.0)),
+            StageSpec(name="promote", kind="promote",
+                      depends_on=["eval-gate"],
+                      promote=PromoteSpec(from_stage="train", target="fleet",
+                                          note="canary rollout"))])
+        clock = SimClock(seed=0)
+        mc = FluxMiniCluster(clock, NetModel(),
+                             ResourceGraph(n_pods=1, hosts_per_pod=4,
+                                           chips_per_host=8),
+                             MiniClusterSpec(name="canary", size=2,
+                                             max_size=4))
+        mc.create()
+        mc.wait_ready()
+        stage_opts = {
+            "fleet": {"cfg": cfg, "executor_opts": dict(
+                device=dev, prompt_len=OP_PROMPT_LEN, sim_tick_time=1.0)},
+            "train": {"cfg": cfg, "executor_opts": dict(
+                device=dev, tcfg=tcfg, sim_step_time=100.0)}}
+        build.reset_launches()
+        h = mc.apply_pipeline(pspec, stage_opts=stage_opts)
+
+        def run(cond):
+            clock.run(until=clock.now + 1e6, stop_when=cond)
+            check(cond(), "the pipeline stalled")
+
+        run(lambda: h.stages["train"].handle is not None
+            and h.stages["train"].handle.job.jobid
+            in h.stages["train"].handle.executor.sessions)
+        th = h.stages["train"].handle
+        ses = th.executor.sessions[th.job.jobid]
+        _timed(torch, ses.ckpt, log)
+        run(lambda: ses.step >= PIPE_CHUNK)
+        mc.patch_size(4)
+        check(th.phase == "Resizing", "the grow did not open a resize")
+        run(lambda: len(ses.resumes) >= 1)
+        mc.patch_size(2)
+        check(th.phase == "Resizing", "the shrink did not open a resize")
+        run(lambda: h.stages["train"].phase == "Completed")
+        _lifecycle(th, elastic=True)
+        torch.cuda.synchronize()
+        rel = [abs(a - b) / abs(b) for a, b in zip(ses.losses, ref)]
+        check(len(ses.losses) == PIPE_STEPS and max(rel) <= RESUME_RTOL,
+              f"the elastic train's losses {ses.losses} differ from the "
+              f"uninterrupted run's {ref} by {rel}")
+        print(f"[pipeline] train: {[r['transition'] for r in ses.resumes]} at"
+              f" steps {[r['step'] for r in ses.resumes]}, segments "
+              f"{[(s['from_step'], s['steps'], len(s['hosts'])) for s in ses.segments]}"
+              f"; losses {[round(x, 6) for x in ses.losses]}, relative to the "
+              f"uninterrupted run's at most {max(rel):.3g} (rtol "
+              f"{RESUME_RTOL}), bit-equal {ses.losses == ref}")
+        for kind, step, sec, nbytes, total in log:
+            size = "" if nbytes is None else f", {nbytes / 1e9:.2f} GB"
+            print(f"[pipeline] checkpoint {kind} at step {step}: {sec:.2f} s"
+                  f"{size}; {total / 1e9:.2f} GB under the root")
+        print(f"[pipeline] checkpoint bytes on disk at the peak "
+              f"{max(x[4] for x in log) / 1e9:.2f} GB (keep "
+              f"{ses.ckpt.keep})")
+        run(lambda: h.stages["eval-gate"].phase in ("Completed", "Skipped"))
+        gate = h.stages["eval-gate"].result
+        check(gate["passed"], f"the gate refused the train: {gate}")
+        print(f"[pipeline] eval-gate: final_loss {gate['value']:.6f} lt "
+              f"{gate['threshold']}: passed")
+        check(h.fire("fleet"), "the fleet stage did not fire")
+        run(lambda: h.stages["promote"].phase in ("Completed", "Failed",
+                                                  "Skipped"))
+        check(h.stages["promote"].phase == "Completed",
+              f"the promote stage ended {h.stages['promote'].phase}: "
+              f"{h.status()}")
+        fh = h.stages["fleet"].handle
+        fex, fses = fh.executor, fh.executor.sessions[fh.job.jobid]
+        check(not fh.done, "the fleet finished its requests before the "
+              "promotion was done")
+        rng = np.random.default_rng(21)
+        extra_prompts = [rng.integers(0, cfg.vocab_size, 300).tolist()
+                         for _ in range(PIPE_EXTRA)]
+        extra = [fex.submit_request(fh.job, p, max_new=OP_NEW)
+                 for p in extra_prompts]
+        run(lambda: h.done)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)     # the pipeline's own run
+        check(h.phase == "Completed", f"the pipeline ended {h.phase}")
+        rec = fex.ran[fh.job.jobid]
+        promo = rec["promotions"][0]
+        check(all(len(t) == OP_NEW for t in rec["tokens"])
+              and rec["n_requests"] == OP_REQUESTS + PIPE_EXTRA,
+              f"requests were dropped: {[len(t) for t in rec['tokens']]}")
+        check(rec["version"] == 1 and len(promo["steps"]) == 2,
+              f"the promotion did not roll both replicas: {promo}")
+        # the streams before each swap: the fleet's first params
+        first, = fex._params.values()
+        prompts = [[(7 * i + j) % cfg.vocab_size for j in range(OP_PROMPT_LEN)]
+                   for i in range(OP_REQUESTS)]
+        control = Engine(cfg, fh.spec.engine_config(), params=first,
+                         device=dev)
+        creqs = [control.submit(p, max_new_tokens=OP_NEW) for p in prompts]
+        control.run()
+        idx = {r.rid: i for i, r in enumerate(fses.requests)}
+        checked = 0
+        for step in promo["steps"]:
+            for rid, n in step["token_progress"].items():
+                i = idx[rid]
+                check(rec["tokens"][i][:n] == creqs[i].tokens[:n],
+                      f"request {i}'s tokens before its replica's swap "
+                      f"differ from the unpromoted run's")
+                checked += 1
+        del control
+        # the promoted replicas: a direct Engine on the restored params
+        mgr = CheckpointManager(str(Path(root) / f"job{th.job.jobid}"))
+        template = {"params": dsteps.abstract_train_state(
+            cfg, tcfg)["params"]}
+        restored, step = mgr.restore_latest(template)
+        trained = serving_params(cfg, restored["params"], dev)
+        direct = Engine(cfg, fh.spec.engine_config(), params=trained,
+                        device=dev)
+        dreqs = [direct.submit(p, max_new_tokens=OP_NEW)
+                 for p in extra_prompts]
+        direct.run()
+        torch.cuda.synchronize()
+        check([r.tokens for r in extra] == [r.tokens for r in dreqs],
+              "the promoted replicas' streams differ from a direct Engine's "
+              "over the trained params")
+        differ = sum(a != b.tokens for a, b in zip(rec["tokens"], creqs))
+        print(f"[pipeline] fleet + promote: {rec['replicas']} replicas, "
+              f"{rec['n_requests']} requests, none dropped; promotion began "
+              f"with {promo['in_flight_at_begin']} in flight, replicas "
+              f"promoted at sim t {[round(s['t_sim'], 3) for s in promo['steps']]}"
+              f" in {[round(s['wall_s'], 4) for s in promo['steps']]} s wall "
+              f"each; {checked} streams equal the unpromoted run's up to "
+              f"their swap, {differ} of {OP_REQUESTS} part after it; the "
+              f"{PIPE_EXTRA} requests after the roll equal a direct Engine's "
+              f"over the params restored from step {step} token for token")
+        ev = h.events()
+        spans = {}
+        for e in ev:
+            if e.get("stage") and e["phase"] in ("Running", "Completed"):
+                spans.setdefault(e["stage"], []).append(e["t"])
+        print(f"[pipeline] stage sim times (Running, Completed): "
+              + ", ".join(f"{n} {[round(t, 2) for t in ts]}"
+                          for n, ts in spans.items()))
+        del direct, trained, restored, fex, fses, ses, th, fh
+        _release(mc)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[pipeline] launches in the pipeline's run: " + ", ".join(
+        f"{k} {launches[k]}" for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv", "moe_gemm",
+                                       "paged_decode"))
+        + f"; {time.perf_counter() - t_phase:.1f} s")
+    for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+              "moe_gemm", "paged_decode"):
+        check(launches[k] > 0, f"the pipeline never launched {k}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2429,6 +2915,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     runs.append(operator_phase(torch, dev, build))
+    runs.append(smoke_phase(torch, dev, build))
+    pipeline_cli(torch)
+    with _NoPlain():
+        runs.append(granite_pipeline(torch, dev, build))
 
     grad_check(torch, dev, "yi-6b")
     grad_check(torch, dev, "granite-moe-1b-a400m")

@@ -8,7 +8,9 @@ Either package restores the other's checkpoint.
 
 ``CheckpointManager`` adds step-tagged directories, retention, an
 asynchronous save (snapshot to host memory in the caller's thread,
-serialize on a worker thread), atomic publish by rename, and a terminal
+serialize on a worker thread; ``async_save=False`` serializes in the
+caller's thread, as the elastic train executor saves), atomic publish by
+rename, and a terminal
 ``COMMIT`` marker written only after every artifact of a step is on
 disk: ``latest_step()`` ignores unmarked (torn) step directories.
 
@@ -124,12 +126,13 @@ COMMIT_MARKER = "COMMIT"
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3, mesh=None,
-                 strategy=None):
+                 strategy=None, async_save: bool = True):
         """``mesh`` and ``strategy``: the ranks that save and restore
         together, and the residual's schema (``compress_pods``); without
         a strategy every rank holds the whole residual."""
         self.dir = directory
         self.keep = keep
+        self.async_save = async_save
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self._ef_pods = (max(strategy.compress_pods, 1)
                          if strategy is not None else None)
@@ -162,8 +165,11 @@ class CheckpointManager:
                 f.write(f"{step}\n")
             self._gc()
 
-        self._worker = threading.Thread(target=work, daemon=True)
-        self._worker.start()
+        if self.async_save:
+            self._worker = threading.Thread(target=work, daemon=True)
+            self._worker.start()
+        else:
+            work()
 
     def _whole_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """A rank's residual rows -> all ``(pods, ...)`` rows: gathered

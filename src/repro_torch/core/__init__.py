@@ -2,14 +2,15 @@
 operator over a GPU fleet, with TBON broker overlay, Fluxion graph
 scheduling, elasticity, autoscaling, bursting, queue state migration,
 and fault tolerance — plus the MPI Operator baseline it is evaluated
-against.  A copy of the JAX package's ``core`` whose executors run the
-port (``executor``: five of the reference's seven; the elastic train
-and elastic fleet executors are not ported yet)."""
+against.  A copy of the JAX package's ``core`` whose executors
+(``executor``, all seven of the reference's) run the port."""
 from repro_torch.core.autoscaler import (Autoscaler, FleetDemandPolicy,  # noqa: F401
                                          FluxMetricsPolicy, HPAPolicy)
 from repro_torch.core.broker import BrokerPool, BrokerState, TBON  # noqa: F401
 from repro_torch.core.burst import BurstService, make_plugin  # noqa: F401
-from repro_torch.core.executor import (ElasticServeExecutor,  # noqa: F401
+from repro_torch.core.executor import (ElasticFleetServeExecutor,  # noqa: F401
+                                       ElasticServeExecutor,
+                                       ElasticTrainExecutor,
                                        FleetServeExecutor, ServeExecutor,
                                        SubmeshExecutor,
                                        TorchWorkloadExecutor)

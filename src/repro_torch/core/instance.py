@@ -1,7 +1,7 @@
 """A Flux instance: brokers + scheduler + queue on a resource graph.
 A copy of the JAX package's ``core/instance.py`` whose ``apply`` binds
-the port's executors; the pipeline layer (``apply_pipeline``) and the
-elastic train executor are not ported yet (ROADMAP Queue 1 item 5).
+the port's executors and whose ``apply_pipeline`` runs the port's
+pipeline layer (``repro_torch.flow``).
 
 The lead broker (rank 0) owns the queue and the Fluxion matcher; jobs
 submitted through the instance go DEPEND->PRIORITY->SCHED->RUN->
@@ -57,7 +57,7 @@ class FluxInstance:
         # declarative submission path (repro_torch.spec); created on first
         # apply() and installed as the executor dispatch
         self._workloads = None
-        # pipeline layer (flow/, not ported yet: apply_pipeline raises)
+        # pipeline layer (repro_torch.flow); created on first apply_pipeline()
         self._pipelines = None
         # anti-starvation: once the top-priority unmatched job has
         # waited this long (sim seconds), stop backfilling smaller jobs
@@ -209,12 +209,21 @@ class FluxInstance:
 
     def apply_pipeline(self, pspec, *, cfg=None, strategy=None,
                        executor_opts=None, stage_opts=None):
-        """The JAX package reconciles a PipelineSpec (a DAG of
-        WorkloadSpecs with triggers, gates and canary promotion) here;
-        the port has no pipeline layer yet."""
-        raise NotImplementedError(
-            "apply_pipeline: the pipeline layer (flow/) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
+        """Reconcile a declarative :class:`repro_torch.flow.PipelineSpec` —
+        a DAG of WorkloadSpecs with triggers, gates and canary
+        promotion — and return its
+        :class:`repro_torch.flow.PipelineHandle`.  Validation (cycles,
+        unknown refs, per-stage cluster checks) happens HERE, in the
+        SpecError style; the DAG then walks event-driven off each
+        stage's WorkloadHandle transitions.  ``stage_opts`` maps stage
+        names to per-stage ``cfg``/``strategy``/``executor_opts``
+        overrides."""
+        from repro_torch.flow.reconcile import PipelineReconciler
+        if getattr(self, "_pipelines", None) is None:
+            self._pipelines = PipelineReconciler(self)
+        return self._pipelines.apply(pspec, cfg=cfg, strategy=strategy,
+                                     executor_opts=executor_opts,
+                                     stage_opts=stage_opts)
 
     # -- deprecated imperative executor attachment ------------------------------
     def _deprecated(self, name: str):
@@ -251,9 +260,12 @@ class FluxInstance:
         """Deprecated shim: ``apply(WorkloadSpec(kind="train",
         resources=ResourceSpec(elastic=True)))``."""
         self._deprecated("attach_elastic_executor")
-        raise NotImplementedError(
-            "the elastic train executor is not ported yet: it needs "
-            "Trainer.remesh (ROADMAP Queue 1 items 4 and 5)")
+        from repro_torch.core.executor import ElasticTrainExecutor
+        ex = ElasticTrainExecutor(self.clock, self.net, **kwargs)
+        if minicluster is not None:
+            ex.bind(minicluster)
+        self._set_executor(ex)
+        return ex
 
     # -- hierarchy -------------------------------------------------------------
     def spawn_subinstance(self, rset: ResourceSet,

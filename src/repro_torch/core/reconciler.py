@@ -282,7 +282,7 @@ class FluxMiniCluster:
 
     def apply_pipeline(self, pspec, **kw):
         """Apply a declarative PipelineSpec to this MiniCluster's
-        instance (not ported yet: raises, see FluxInstance)."""
+        instance (the pipeline layer, ``repro_torch.flow``)."""
         return self.instance.apply_pipeline(pspec, **kw)
 
     def attach_elastic_executor(self, **kwargs):

@@ -48,7 +48,11 @@ struct PagedKV {
 // fragments, K read as B fragments from rows padded by 16 bytes so the 8
 // rows of a fragment read hit distinct banks), keeps its own f32 running
 // max and normalizer per row, and adds p V with p in f32 on the CUDA
-// cores, each lane owning D / 32 adjacent output columns of every row.
+// cores, each lane owning D / 32 adjacent output columns of every row
+// (at head dims 16 and 8, one column on each of lanes 0..D-1: the other
+// lanes read column 0, hold garbage and store nothing).  A head dim
+// below 16 (8) takes one 16-deep step with the q fragment's depth 8..15
+// zero and the K fragment's too: the mma's depth is 16.
 // The warps' partials merge in shared memory by their maxima, and the
 // block writes its split's partial: the f32 sums (D a row), the max and
 // the normalizer.  `combine` then merges a row's splits in split order.
@@ -64,12 +68,25 @@ constexpr int PS = CK + 4;        // floats a row of a warp's p tile; column CK 
 
 template <int D>
 struct Layout {
-  static constexpr int KROW = D + 8;                // bf16 a staged key row
+  // bf16 a staged key row: a multiple of 8 (16-byte copies stay aligned
+  // at every head dim, 8 and 16 too) that is not one of 64 (the 8 rows of
+  // a fragment read fall in distinct banks at D = 32, 64 and 128)
+  static constexpr int KROW = D + 8;
   static constexpr int STAGE = 2 * CK * KROW;       // a chunk's K then V
   static constexpr int WARP = 2 * STAGE;            // two stages a warp
   static constexpr int P = 16 * PS;                 // a warp's p tile, f32
   static constexpr int BYTES = WARPS * (WARP * 2 + P * 4);
 };
+
+// The first of the NC output columns a lane owns: lane * NC, or at a head
+// dim below 32 column `lane` for lanes 0..D-1 and column 0 (read, never
+// stored) for the rest.  A function of the lane taken where it is used,
+// so at D >= 32 the code is the same as before narrower heads came.
+template <int D, int NC>
+__device__ __forceinline__ int lane_col(int lane) {
+  if constexpr (D >= 32) return lane * NC;
+  else return lane < D ? lane : 0;
+}
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -86,7 +103,7 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// NC bf16 at p (8, 4 or 2 bytes, aligned) to f32.
+// NC bf16 at p (8, 4 or 2 bytes, aligned, or one) to f32.
 template <int NC>
 __device__ __forceinline__ void load_cols(const bf16* p, float (&v)[NC]) {
   if constexpr (NC == 4) {
@@ -98,7 +115,7 @@ __device__ __forceinline__ void load_cols(const bf16* p, float (&v)[NC]) {
     const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     v[0] = f.x; v[1] = f.y;
   } else {
-    static_assert(NC == 1, "head dim 32, 64 or 128");
+    static_assert(NC == 1, "head dim 8, 16, 32, 64 or 128");
     v[0] = __bfloat162float(*p);
   }
 }
@@ -115,8 +132,13 @@ __device__ void decode_split(const KV& kv, const bf16* __restrict__ q, int g, in
                              long long acc_stride, float* __restrict__ ml,
                              long long ml_stride, unsigned char* smem) {
   using L = Layout<D>;
-  constexpr int NC = D / 32;      // output columns a lane
+  constexpr int NC = D >= 32 ? D / 32 : 1;   // output columns a lane
   constexpr int VPR = D / 8;      // 16-byte copies a key row
+  constexpr int COPIES = CK * VPR;            // ... a chunk's K (and its V)
+  constexpr int KQ = (D + 15) / 16;           // 16-deep steps of q k^T
+  // columns c + 8, c + 9 of a fragment exist: at D = 8 (the one head dim
+  // not a multiple of 16) no lane's do, and the fragment's upper half is 0
+  constexpr bool HI = D % 16 == 0;
   static_assert(G >= 1 && G <= MAX_G, "at most 16 query rows a KV head");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, t = lane & 3;   // fragment row group, pair
@@ -130,14 +152,14 @@ __device__ void decode_split(const KV& kv, const bf16* __restrict__ q, int g, in
   bf16* ring = reinterpret_cast<bf16*>(smem) + warp * L::WARP;
   float* ps = reinterpret_cast<float*>(smem + WARPS * L::WARP * 2) + warp * L::P;
 
-  uint32_t qa[D / 16][4];
+  uint32_t qa[KQ][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < KQ; ++kk) {
     const int c = 16 * kk + 2 * t;
     qa[kk][0] = gq < g ? ld32(q + gq * D + c) : 0u;
     qa[kk][1] = gq + 8 < g ? ld32(q + (gq + 8) * D + c) : 0u;
-    qa[kk][2] = gq < g ? ld32(q + gq * D + c + 8) : 0u;
-    qa[kk][3] = gq + 8 < g ? ld32(q + (gq + 8) * D + c + 8) : 0u;
+    qa[kk][2] = HI && gq < g ? ld32(q + gq * D + c + 8) : 0u;
+    qa[kk][3] = HI && gq + 8 < g ? ld32(q + (gq + 8) * D + c + 8) : 0u;
   }
 
   const int nchunk = (k_hi - k_lo + CK - 1) / CK;
@@ -147,8 +169,9 @@ __device__ void decode_split(const KV& kv, const bf16* __restrict__ q, int g, in
     bf16* sv = sk + CK * L::KROW;
     const int base = k_lo + c * CK;
 #pragma unroll
-    for (int u = 0; u < CK * VPR / 32; ++u) {
+    for (int u = 0; u < (COPIES + 31) / 32; ++u) {
       const int i = lane + 32 * u, j = i / VPR, col = (i % VPR) * 8, pos = base + j;
+      if (COPIES % 32 != 0 && i >= COPIES) break;   // D = 8: 16 copies a chunk
       const bool in = pos < k_hi;
       const long long o = in ? kv.offset(pos) + col : 0;
       hopper::cp16(sk + j * L::KROW + col, kv.k + o, in);
@@ -177,11 +200,11 @@ __device__ void decode_split(const KV& kv, const bf16* __restrict__ q, int g, in
     // s = q k^T: s[j][e] is row gq + 8 (e / 2), key 8 j + 2 t + e % 2
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < KQ; ++kk)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const bf16* kr = sk + (8 * j + gq) * L::KROW + 16 * kk + 2 * t;
-        const uint32_t b[2] = {ld32(kr), ld32(kr + 8)};
+        const uint32_t b[2] = {ld32(kr), HI ? ld32(kr + 8) : 0u};
         mma16816(s[j], qa[kk], b);
       }
     const int base = k_lo + c * CK;
@@ -232,11 +255,13 @@ __device__ void decode_split(const KV& kv, const bf16* __restrict__ q, int g, in
 #pragma unroll
       for (int c2 = 0; c2 < NC; ++c2) o[r][c2] *= a;
     }
-#pragma unroll
+    // unrolled whole at D >= 32; below it one key pair an iteration
+    // (unrolled, the G = 16 contiguous-cache instances spill)
+#pragma unroll (D >= 32 ? CK / 2 : 1)
     for (int k2 = 0; k2 < CK / 2; ++k2) {
       float v[2][NC];
-      load_cols<NC>(sv + (2 * k2) * L::KROW + lane * NC, v[0]);
-      load_cols<NC>(sv + (2 * k2 + 1) * L::KROW + lane * NC, v[1]);
+      load_cols<NC>(sv + (2 * k2) * L::KROW + lane_col<D, NC>(lane), v[0]);
+      load_cols<NC>(sv + (2 * k2 + 1) * L::KROW + lane_col<D, NC>(lane), v[1]);
 #pragma unroll
       for (int r = 0; r < G; ++r) {
         const float2 p2 = *reinterpret_cast<const float2*>(ps + r * PS + 2 * k2);
@@ -261,10 +286,13 @@ __device__ void decode_split(const KV& kv, const bf16* __restrict__ q, int g, in
   __syncthreads();              // every warp is done with its ring
   float* wo = reinterpret_cast<float*>(smem);   // [WARPS][G][D]
   float* wml = wo + WARPS * G * D;              // [WARPS][G][2]
+  if (D >= 32 || lane < D) {
 #pragma unroll
-  for (int r = 0; r < G; ++r)
+    for (int r = 0; r < G; ++r)
 #pragma unroll
-    for (int c2 = 0; c2 < NC; ++c2) wo[(warp * G + r) * D + lane * NC + c2] = o[r][c2];
+      for (int c2 = 0; c2 < NC; ++c2)
+        wo[(warp * G + r) * D + lane_col<D, NC>(lane) + c2] = o[r][c2];
+  }
   if (t == 0) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {

@@ -58,5 +58,11 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   if (D == 32)
     return attn::split::launch<32>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
                                    n_split, split_keys, scale, s);
+  if (D == 16)
+    return attn::split::launch<16>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                   n_split, split_keys, scale, s);
+  if (D == 8)
+    return attn::split::launch<8>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                  n_split, split_keys, scale, s);
   return (int)cudaErrorInvalidValue;
 }

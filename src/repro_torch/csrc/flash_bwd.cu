@@ -84,10 +84,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of a block: two resident tiles and a ring of two stages
 // of two streamed tiles, each 64 x D bf16 (TILE elements; 64 x 64 at D =
-// 32, columns 32..63 zero: wgmma.cuh), then for dk/dv the two stages' lse
-// and delta, in bytes.  At D = 32 the products that sum over the depth
-// (s, dp) take depth 32, and those whose N is D (dq, dk, dv) run at N = 64
-// and drop the zero upper half.
+// 32, 16 and 8, columns D..63 zero: wgmma.cuh), then for dk/dv the two
+// stages' lse and delta, in bytes.  At D < 64 the products that sum over
+// the depth (s, dp) take depth D (16 at D = 8), and those whose N is D
+// (dq, dk, dv) run at N = 64 and drop the zero columns past D.
 template <int D>
 struct Tile {
   static constexpr int TILE = tile_elems<D>();
@@ -380,6 +380,12 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (D == 32)
     return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, Hkv, causal,
                          q_offset, scale, s);
+  if (D == 16)
+    return launch_dq<16>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, Hkv, causal,
+                         q_offset, scale, s);
+  if (D == 8)
+    return launch_dq<8>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, Hkv, causal,
+                        q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -401,5 +407,11 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   if (D == 32)
     return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
                           causal, q_offset, scale, s);
+  if (D == 16)
+    return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
+                          causal, q_offset, scale, s);
+  if (D == 8)
+    return launch_dkv<8>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
+                         causal, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }

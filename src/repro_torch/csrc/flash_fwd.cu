@@ -76,9 +76,13 @@ template <>
 struct Cfg<64> {
   static constexpr int WGS = 2, MIN_BLOCKS = 2, KT = 1;
 };
-// head dim 32: D = 64's tiles with columns 32..63 zero (wgmma.cuh)
+// head dims 32, 16 and 8: D = 64's tiles with columns D..63 zero (wgmma.cuh)
 template <>
 struct Cfg<32> : Cfg<64> {};
+template <>
+struct Cfg<16> : Cfg<64> {};
+template <>
+struct Cfg<8> : Cfg<64> {};
 
 template <int D, int WGS, int MIN_BLOCKS, int KT>
 __global__ void __launch_bounds__(WG_THREADS * WGS, MIN_BLOCKS)
@@ -131,5 +135,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     return launch<64>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, q_offset, scale, s);
   if (D == 32)
     return launch<32>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, q_offset, scale, s);
+  if (D == 16)
+    return launch<16>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, q_offset, scale, s);
+  if (D == 8)
+    return launch<8>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }

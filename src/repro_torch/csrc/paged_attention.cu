@@ -79,9 +79,13 @@ template <>
 struct PrefillCfg<64> {
   static constexpr int WGS = 1, MIN_BLOCKS = 4, KT = 1;
 };
-// head dim 32: D = 64's tiles with columns 32..63 zero (wgmma.cuh)
+// head dims 32, 16 and 8: D = 64's tiles with columns D..63 zero (wgmma.cuh)
 template <>
 struct PrefillCfg<32> : PrefillCfg<64> {};
+template <>
+struct PrefillCfg<16> : PrefillCfg<64> {};
+template <>
+struct PrefillCfg<8> : PrefillCfg<64> {};
 
 // Block-table entries a slot may have: its row is staged in shared
 // memory beside the tiles.
@@ -159,6 +163,12 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp, const void* vp,
   if (D == 32)
     return attn::split::launch<32>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
                                    n_split, split_keys, scale, s);
+  if (D == 16)
+    return attn::split::launch<16>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                   n_split, split_keys, scale, s);
+  if (D == 8)
+    return attn::split::launch<8>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                  n_split, split_keys, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -183,5 +193,11 @@ extern "C" int paged_prefill_bf16(const void* q, const void* kp, const void* vp,
   if (D == 32)
     return launch_prefill<32>(q, kp, vp, bt, start, n_valid, out, B, C, H, Hkv, gp, page,
                               maxp, scale, s);
+  if (D == 16)
+    return launch_prefill<16>(q, kp, vp, bt, start, n_valid, out, B, C, H, Hkv, gp, page,
+                              maxp, scale, s);
+  if (D == 8)
+    return launch_prefill<8>(q, kp, vp, bt, start, n_valid, out, B, C, H, Hkv, gp, page,
+                             maxp, scale, s);
   return (int)cudaErrorInvalidValue;
 }

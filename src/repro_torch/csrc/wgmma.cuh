@@ -70,9 +70,10 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 // 8 rows of any 8 x 8 block (one 16-byte read each) fall in distinct
 // banks.  Element (r, c) is at sw(r, c).
 //
-// A head dim D below 64 (32: rows of 64 bytes) takes one whole column
-// block: the copies below fill its columns D..63 with zeros, a product
-// over the depth D reads columns 0..D-1 only, and a product whose N is
+// A head dim D below 64 (32, 16, 8: rows of 64, 32, 16 bytes) takes one
+// whole column block: the copies below fill its columns D..63 with zeros,
+// a product over the depth D reads columns 0..D-1 only (depth 16 at D =
+// 8, whose columns 8..15 are zeros), and a product whose N is
 // the tile's width (p v, ds k) runs at N = 64 with columns D..63 of its
 // sums zero, which the stores drop.  For D a multiple of 64 every test
 // of c < D below folds away at compile time.
@@ -295,11 +296,13 @@ __device__ __forceinline__ void wg_ss256(float (&c)[32][4], uint64_t da, uint64_
 }
 
 // c (the block's 64 rows x 64 columns) = a b^T over depth D: a the 64
-// rows of tile A, b the 64 rows of tile B.
+// rows of tile A, b the 64 rows of tile B.  D = 8 takes one step of 16
+// over the tiles' zero columns 8..15.
 template <int D>
 __device__ __forceinline__ void wg_abt(float (&c)[8][4], const bf16* A, const bf16* B) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wg_ss(c, desc_k(A, kk), desc_k(B, kk), kk > 0);
+  for (int kk = 0; kk < (D + 15) / 16; ++kk)
+    wg_ss(c, desc_k(A, kk), desc_k(B, kk), kk > 0);
 }
 
 // The f32 sums of a 64 x 64 product, rounded to bf16, as the A operand

@@ -2,7 +2,7 @@
 part of the JAX package's ``dist/sharding.py`` that turns a Fluxion
 ``ResourceSet`` into a mesh.  Its rule tables (parameters, optimizer
 state, caches), ``resolve_spec`` and ``batch_sharding`` wait for tensor
-parallelism and FSDP (ROADMAP Queue 1 item 4).
+parallelism and FSDP (ROADMAP Queue 1 item 5).
 
 The mesh is a ``dist.mesh.Mesh`` whose ``devices`` hold ``torch.device``s
 of this process.  The degrade rule is the JAX package's: an allocation

@@ -4,13 +4,31 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
       --steps 20 --batch 8 --seq 64 [--device cpu]
 
-Mesh, strategy, elastic and spec flags of the JAX launcher wait for the
-port's sharding.
+Elastic: ``--elastic`` splits the run into grow/shrink phases with a
+``Trainer.remesh`` between them (a checkpoint round trip, or one through
+host memory without ``--ckpt-dir``), as the JAX launcher does across its
+host's devices and the operator's ElasticTrainExecutor does at a
+MiniCluster resize.  A process here runs on one device, so every phase's
+mesh is (1, 1):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
+      --elastic --steps 12 --batch 8 --seq 64 [--device cpu]
+
+Mesh, strategy and spec flags of the JAX launcher wait for the port's
+sharding.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+
+
+def phase_steps(total: int, n_phases: int):
+    """Split ``total`` steps over the elastic phases, front-loaded so
+    the sum is EXACTLY ``total`` and trailing phases may get 0 (those
+    are skipped — never a negative run, never an overrun)."""
+    base, rem = divmod(total, n_phases)
+    return [base + (1 if i < rem else 0) for i in range(n_phases)]
 
 
 def main(argv=None):
@@ -32,6 +50,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--elastic", action="store_true",
+                    help="grow/shrink phases with a Trainer.remesh "
+                         "(checkpoint round trip) between them")
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
                     help="trace the train loop with torch.profiler: a "
                          "Chrome trace in DIR and a table of the "
@@ -51,7 +72,11 @@ def main(argv=None):
         prof = profile(activities=[ProfilerActivity.CPU]
                        + ([ProfilerActivity.CUDA] if on_cuda else []))
     with prof:
-        hist = tr.run(args.steps, ckpt_every=args.ckpt_every, log_every=5)
+        if args.elastic:
+            hist = _elastic(tr, args)
+        else:
+            hist = tr.run(args.steps, ckpt_every=args.ckpt_every,
+                          log_every=5)
     if args.profile_dir:
         import os
         os.makedirs(args.profile_dir, exist_ok=True)
@@ -65,6 +90,32 @@ def main(argv=None):
               f" GB")
     print(f"final loss: {hist[-1]['loss']:.4f} "
           f"(first {hist[0]['loss']:.4f})")
+
+
+def _elastic(tr, args):
+    """The JAX launcher's phases: one host, two hosts, one host, a
+    remesh between phases.  ``sharding.submesh_for`` lays each over the
+    trainer's one device, so every mesh is (1, 1) (several devices of
+    one process: ROADMAP Queue 1 item 5) and each remesh is the
+    checkpoint (or host memory) round trip alone."""
+    from repro_torch.core.resource_graph import ResourceSet
+    from repro_torch.dist.sharding import submesh_for
+    hist, started = [], False
+    hosts = [1, 2, 1]
+    for n_hosts, n in zip(hosts, phase_steps(args.steps, len(hosts))):
+        if n == 0:
+            continue
+        if started:
+            mesh = submesh_for(ResourceSet(hosts=tuple(range(n_hosts)),
+                                           chips_per_host=1), [tr.device])
+            dt = tr.remesh(mesh)
+            shape = tuple(mesh.shape.values())
+            print(f"[elastic] remesh -> {n_hosts} host(s), mesh {shape} "
+                  f"resumed at step {tr.start_step} in {dt:.2f}s",
+                  flush=True)
+        started = True
+        hist = tr.run(n, ckpt_every=args.ckpt_every, log_every=5)
+    return hist
 
 
 if __name__ == "__main__":

@@ -22,12 +22,10 @@
    had before — sim workloads keep working.
 
 A copy of the JAX package's ``spec/reconcile.py`` that binds the port's
-executors (``core/executor.py``).  Two bindings are not ported yet and
-raise ``NotImplementedError`` at apply: an elastic train spec (it needs
-``Trainer.remesh``) and an elastic serve spec with ``replicas > 1`` (the
-elastic fleet); ROADMAP Queue 1 item 5.  Meshes are laid over the
-devices the executor runs on (``executor_opts["device"]``; the card by
-default), so on one card every allocation is ``(1, 1)``.
+executors (``core/executor.py``), every one the JAX package binds.
+Meshes are laid over the devices the executor runs on
+(``executor_opts["device"]``; the card by default), so on one card every
+allocation is ``(1, 1)``.
 """
 from __future__ import annotations
 
@@ -224,20 +222,29 @@ class WorkloadReconciler:
         clock, net = inst.clock, inst.net
         mc = getattr(inst, "minicluster", None)
         if spec.kind == "train" and spec.resources.elastic:
-            raise NotImplementedError(
-                "an elastic train spec: the elastic train executor is not "
-                "ported yet, it needs Trainer.remesh (ROADMAP Queue 1 "
-                "items 4 and 5)")
-        elif (spec.kind == "serve" and spec.resources.elastic
-                and spec.serve.replicas > 1):
-            raise NotImplementedError(
-                "an elastic serve spec with replicas > 1: the elastic fleet "
-                "executor is not ported yet (ROADMAP Queue 1 item 5)")
+            from repro_torch.core.executor import ElasticTrainExecutor
+            t = spec.train
+            ex = ElasticTrainExecutor(
+                clock, net, total_steps=t.total_steps,
+                chunk_steps=t.chunk_steps, seq_len=t.seq_len,
+                global_batch=t.global_batch, strategy=strategy, cfg=cfg,
+                ckpt_root=t.ckpt_dir, **opts).bind(mc)
         elif spec.kind == "train":
             from repro_torch.core.executor import SubmeshExecutor
             opts.setdefault("steps", spec.train.total_steps)
             ex = SubmeshExecutor(clock, net, seq_len=spec.train.seq_len,
                                  strategy=strategy, cfg=cfg, **opts)
+        elif (spec.kind == "serve" and spec.resources.elastic
+                and spec.serve.replicas > 1):
+            from repro_torch.core.executor import ElasticFleetServeExecutor
+            s = spec.serve
+            ex = ElasticFleetServeExecutor(
+                clock, net, replicas=s.replicas,
+                nodes_per_replica=spec.resources.n_nodes,
+                n_requests=s.n_requests, max_new=s.max_new,
+                tenant=s.tenant, ttft_slo_s=s.ttft_slo_s,
+                strategy=strategy, engine_config=spec.engine_config(),
+                cfg=cfg, **opts).bind(mc)
         elif spec.kind == "serve" and spec.resources.elastic:
             from repro_torch.core.executor import ElasticServeExecutor
             s = spec.serve

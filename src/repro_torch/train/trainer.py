@@ -2,7 +2,7 @@
 The port of the JAX package's ``train/trainer.py``: on one device, or on
 every rank of a data-parallel mesh (``dist.mesh``), where each rank
 draws the same global batch and its step keeps the rank's rows.
-Elastic ``remesh`` waits for a later slice."""
+``remesh`` is the elastic transition between ``run`` calls."""
 from __future__ import annotations
 
 import time
@@ -18,6 +18,7 @@ from repro_torch.configs.base import (BASELINE, ModelConfig,
 from repro_torch.data import DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.dist import steps as dsteps
+from repro_torch.models import params as P
 
 
 class Trainer:
@@ -57,6 +58,52 @@ class Trainer:
             self.cfg, self.tcfg, gen, self.device, strategy=self.strategy,
             mesh=self.mesh)
         return "initialized"
+
+    # ------------------------------------------------------------------
+    def remesh(self, mesh=None, *, strategy: Optional[ShardingStrategy] = None
+               ) -> float:
+        """Elastic transition between ``run()`` calls: rebuild the step
+        on ``mesh`` (None: one device), checkpoint at ``start_step`` and
+        restore (params, opt state and the comm residual), then resume at
+        the same step and global batch.  Without a checkpoint manager the
+        state goes through host memory.  A process's ranks are fixed by
+        its process group, so the new mesh must hold as many ranks as the
+        old one: a remesh across rank counts raises (ROADMAP Queue 1 item
+        5).  On one process the new mesh is again one device, and the
+        round trip through the checkpoint (or the host) is real.  Returns
+        host seconds spent in the transition."""
+        t0 = time.perf_counter()
+        old_n = self.mesh.size if self.mesh is not None else 1
+        new_n = mesh.size if mesh is not None else 1
+        if new_n != old_n:
+            raise NotImplementedError(
+                f"remesh from {old_n} to {new_n} ranks: the ranks of a "
+                "process group are fixed (resizing one: ROADMAP Queue 1 "
+                "item 5)")
+        old_ckpt = self.ckpt
+        if strategy is not None:
+            self.strategy = strategy
+        self.mesh = mesh
+        self._step = dsteps.build_train_step(
+            self.cfg, self.tcfg, self.shape, strategy=self.strategy,
+            mesh=mesh)
+        if old_ckpt is not None:
+            self.ckpt = CheckpointManager(old_ckpt.dir, keep=old_ckpt.keep,
+                                          mesh=mesh, strategy=self.strategy)
+        if self.state is not None:
+            template = dsteps.abstract_train_state(self.cfg, self.tcfg,
+                                                   self.strategy)
+            if old_ckpt is not None:
+                old_ckpt.save(self.state, self.start_step)
+                old_ckpt.wait()
+                self.state, step = self.ckpt.restore_latest(template,
+                                                            self.device)
+                assert int(step) == self.start_step
+            else:
+                host = P.tree_map(
+                    lambda t: t.detach().to("cpu", copy=True), self.state)
+                self.state = P.tree_map(lambda t: t.to(self.device), host)
+        return time.perf_counter() - t0
 
     def _put_batch(self, batch):
         return {k: torch.from_numpy(np.asarray(v, np.int64)).to(self.device)

@@ -79,7 +79,11 @@ def test_rmsnorm_kernel(dev, rows, d):
     (2, 65, 200, 16, 1, 64, True),      # g = 16, offset 135
     # head dim 32 (lammps-proxy: 8 heads over 8 KV heads)
     (2, 130, 130, 8, 8, 32, True), (1, 65, 257, 8, 2, 32, True),
-    (2, 64, 192, 4, 4, 32, False), (1, 17, 17, 8, 1, 32, True)])
+    (2, 64, 192, 4, 4, 32, False), (1, 17, 17, 8, 1, 32, True),
+    # head dims 16 (the SMOKE configs') and 8 (qwen2-72b's SMOKE)
+    (2, 130, 130, 4, 2, 16, True), (1, 65, 257, 8, 2, 16, True),
+    (2, 64, 192, 4, 4, 16, False), (2, 130, 130, 8, 2, 8, True),
+    (1, 65, 257, 8, 1, 8, True), (2, 64, 192, 4, 4, 8, False)])
 def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
     q, k, v = (_rnd(dev, b, s, n, d, seed=i) for i, (s, n) in
                enumerate([(sq, h), (skv, hkv), (skv, hkv)]))
@@ -95,7 +99,8 @@ def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,qo", [
     (2, 300, 300, 8, 1, 128, True, 0), (1, 130, 257, 16, 2, 64, False, 0),
-    (1, 200, 130, 8, 2, 64, True, -70), (2, 300, 300, 8, 8, 32, True, 0)])
+    (1, 200, 130, 8, 2, 64, True, -70), (2, 300, 300, 8, 8, 32, True, 0),
+    (2, 300, 300, 4, 2, 16, True, 0), (1, 200, 130, 8, 2, 8, True, -70)])
 def test_flash_fwd_kernel_is_deterministic(dev, b, sq, skv, h, hkv, d, causal,
                                            qo):
     """Each block owns its output rows and sums in a fixed order (no
@@ -177,7 +182,8 @@ def _split_pool(dev, b, maxp, hkv, d, page=16, seed=11):
     (8, 8, 128), (16, 8, 128), (32, 4, 128), (16, 1, 128),   # g = 1, 2, 8, 16
     (8, 8, 64), (16, 8, 64), (64, 8, 64), (16, 1, 64),
     (32, 2, 128), (64, 8, 128),          # chatglm3-6b's and qwen2-72b's heads
-    (8, 8, 32), (16, 2, 32)])            # head dim 32 (lammps-proxy's: g = 1)
+    (8, 8, 32), (16, 2, 32),             # head dim 32 (lammps-proxy's: g = 1)
+    (4, 2, 16), (16, 1, 16), (8, 2, 8), (16, 2, 8)])   # head dims 16 and 8
 def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
     """Slots of 80 pages (many splits): lengths 1, page - 1, page, page +
     1, a split boundary - 1, + 0 and + 1 (the wrapper's plan), and the
@@ -210,7 +216,7 @@ def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
 def test_paged_decode_kernel_with_more_splits_than_filled_pages(dev, d):
     """Short slots in wide block tables: most splits start past their
     slot's length and write empty partials, which the merge skips."""
@@ -225,7 +231,7 @@ def test_paged_decode_kernel_with_more_splits_than_filled_pages(dev, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (16, 1, 64),
-                                     (8, 8, 32)])
+                                     (8, 8, 32), (4, 2, 16), (8, 2, 8)])
 def test_decode_attention_gives_paged_decodes_bits(dev, h, hkv, d):
     """One split kernel behind two KV addressers: a contiguous cache and
     a page pool holding the same keys give the same bits, at every
@@ -272,7 +278,7 @@ PREFILL_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,start,n_valid,chunk,page", PREFILL_CASES)
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
 def test_paged_prefill_kernel(dev, h, hkv, start, n_valid, chunk, page, d):
     """Two slots (the second at an earlier start with fewer real rows):
     the real rows within TOL per element and 4e-3 in relative L2 (both
@@ -324,9 +330,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ops.rmsnorm(x.float(), torch.ones(64, device=dev))
     with pytest.raises(ValueError):
         ops.rmsnorm(x, torch.ones(64, device=dev, dtype=torch.bfloat16))
-    q = _rnd(dev, 1, 8, 4, 16)
+    q = _rnd(dev, 1, 8, 4, 24)
     with pytest.raises(ValueError):
-        ops.flash_attention(q, q, q)          # head dim 16 is not built
+        ops.flash_attention(q, q, q)          # head dim 24 is not built
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, :1], q, q, 8)
 
 
 @pytest.mark.cuda
@@ -444,6 +452,51 @@ def test_apply_serve_and_train_specs_on_the_card(dev):
         assert build.LAUNCHES[k] > 0, k
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen2-72b"])
+def test_apply_smoke_specs_on_the_card(dev, arch):
+    """Without ``cfg=`` the executors take the arch's SMOKE config (head
+    dim 16, and 8 for qwen2-72b), as the JAX package's do: a train, a
+    chunked serve and an elastic fleet spec complete on the card through
+    Pending, Bound and Running, and the attention kernels launched."""
+    from repro_torch.configs import registry
+    from repro_torch.core import (FluxMiniCluster, MiniClusterSpec,
+                                  NetModel, ResourceGraph, SimClock)
+    from repro_torch.spec import (ResourceSpec, ServeSpec, TrainSpec,
+                                  WorkloadSpec)
+    assert registry.smoke(arch).head_dim == (8 if arch == "qwen2-72b" else 16)
+    clock = SimClock(seed=0)
+    mc = FluxMiniCluster(clock, NetModel(), ResourceGraph(1, 8, 8),
+                         MiniClusterSpec(name="smoke", size=4))
+    mc.create()
+    mc.wait_ready()
+    build.reset_launches()
+    serve = dict(n_slots=4, page_size=8, max_prompt_len=16, max_seq_len=48,
+                 max_new=8, n_requests=3)
+    handles = [
+        mc.apply(WorkloadSpec(kind="train", arch=arch,
+                              train=TrainSpec(total_steps=2, seq_len=32)),
+                 executor_opts=dict(device=dev)),
+        mc.apply(WorkloadSpec(kind="serve", arch=arch,
+                              serve=ServeSpec(prefill_chunk=8, **serve)),
+                 executor_opts=dict(device=dev)),
+        mc.apply(WorkloadSpec(kind="serve", arch=arch,
+                              resources=ResourceSpec(n_nodes=1, elastic=True),
+                              serve=ServeSpec(replicas=2, **serve)),
+                 executor_opts=dict(device=dev))]
+    clock.run(until=clock.now + 1e5, stop_when=lambda: all(h.done
+                                                          for h in handles))
+    torch.cuda.synchronize()
+    for h in handles:
+        assert [e["phase"] for e in h.events()] == \
+            ["Pending", "Bound", "Running", "Completed"]
+    assert handles[0].result()["final_loss"] == handles[0].result()[
+        "final_loss"]
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_prefill",
+              "paged_decode", "rmsnorm"):
+        assert build.LAUNCHES[k] > 0, k
+
+
 # ---------------------------------------------------------------------------
 # flash attention backward and the autograd Functions
 # ---------------------------------------------------------------------------
@@ -472,6 +525,12 @@ BWD_SHAPES = [
     # head dim 32 (lammps-proxy's 8 heads over 8 KV heads), g = 1 and 4
     (2, 300, 300, 8, 8, 32, True), (1, 129, 300, 8, 2, 32, True),
     (2, 100, 300, 4, 4, 32, False),
+    # head dims 16 (the SMOKE configs': 4 heads over 2) and 8 (qwen2-72b's
+    # SMOKE: the QK^T and dO V^T products over one 16-deep step whose
+    # depth 8..15 is zero)
+    (2, 300, 300, 4, 2, 16, True), (1, 129, 300, 4, 4, 16, False),
+    (2, 300, 300, 8, 2, 8, True), (1, 129, 300, 8, 1, 8, True),
+    (2, 100, 300, 4, 4, 8, False),
 ]
 
 
@@ -612,7 +671,8 @@ def test_attention_kernels_at_head_dim_64(dev, b, sq, h, hkv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,qo", [
     (2, 70, 90, 8, 2, 128, -3), (1, 130, 100, 16, 8, 64, -70),
-    (1, 33, 65, 2, 2, 64, -40), (1, 130, 100, 8, 8, 32, -70)])
+    (1, 33, 65, 2, 2, 64, -40), (1, 130, 100, 8, 8, 32, -70),
+    (1, 130, 100, 4, 2, 16, -70), (1, 130, 100, 8, 2, 8, -70)])
 def test_rows_that_see_no_key(dev, b, sq, skv, h, hkv, d, qo):
     """The first -q_offset query rows see no key: forward (the mean of V,
     lse -1e30) and backward as the plain version, which is the JAX
@@ -646,7 +706,8 @@ def test_rows_that_see_no_key(dev, b, sq, skv, h, hkv, d, qo):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (8, 8, 64),
-                                     (16, 1, 128), (8, 8, 32)])
+                                     (16, 1, 128), (8, 8, 32), (4, 2, 16),
+                                     (8, 2, 8)])
 @pytest.mark.parametrize("cache_len", [1, 37, 700])
 def test_decode_attention_kernel(dev, h, hkv, d, cache_len):
     q = _rnd(dev, 3, 1, h, d, seed=1)

@@ -1,7 +1,9 @@
 """The port's operator control plane against the JAX package: the copied
 ``core`` and ``spec`` (MiniCluster, brokers, queue, Fluxion graph,
 ``FluxInstance.apply``), ``dist.sharding.submesh_for``, the fleet Router
-and the five ported executors, run here on the CPU.
+and the executors, run here on the CPU (the elastic train executor and
+the elastic fleet's resizes and promotions are held in
+``tests/test_torch_elastic.py`` and ``tests/test_torch_flow.py``).
 
 Held exactly: mesh shapes, axes and device indices; the control plane's
 handle event logs (phase, simulated time, detail) and queue stats; the
@@ -13,6 +15,7 @@ because every executor here has a fixed measure (``fixed_measure``,
 ``time_scale=0`` or ``sim_tick_time``): no wall clock reaches them.
 """
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -487,25 +490,44 @@ def test_elastic_serve_resize_is_token_identical(size, patch_to,
 
 
 # ---------------------------------------------------------------------------
-# (v) what is not ported raises; what the registry lacks fails validation
+# (v) the elastic executors bind; what the registry lacks fails validation
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [
-    dict(kind="train", resources=dict(n_nodes=1, elastic=True)),
-    dict(kind="serve", resources=dict(n_nodes=1, elastic=True),
-         serve=dict(replicas=2))], ids=["elastic-train", "elastic-fleet"])
-def test_unported_executors_raise_not_implemented(kw):
-    _, mc = _mini(tcore)
-    kw = dict(kw)
-    res = tspec.ResourceSpec(**kw.pop("resources"))
-    serve = tspec.ServeSpec(**kw.pop("serve", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mc.apply(tspec.WorkloadSpec(arch="tiny-op", resources=res,
-                                    serve=serve, **kw),
-                 cfg=TINY, executor_opts=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mc.apply_pipeline(None)
+@pytest.mark.parametrize("kw,name", [
+    (dict(kind="train", resources=dict(n_nodes=1, elastic=True),
+          train=dict(total_steps=2, seq_len=16)), "ElasticTrainExecutor"),
+    (dict(kind="serve", resources=dict(n_nodes=1, elastic=True),
+          serve=dict(SERVE, replicas=2)), "ElasticFleetServeExecutor")],
+    ids=["elastic-train", "elastic-fleet"])
+def test_elastic_specs_bind_the_elastic_executors(kw, name):
+    """The two specs the port refused before its elastic executors came
+    bind them through apply and complete as the reference's do; a
+    one-stage pipeline of the same spec runs through apply_pipeline."""
+    _need_8()
+    out = {}
+    for pkg in ("torch", "jax"):
+        core, spec, cfg, _, opts = PKGS[pkg]
+        clock, mc = _mini(core)
+        doc = dict(kw, arch="tiny-op")
+        fixed = dict(opts, **({"sim_step_time": 5.0} if doc["kind"] == "train"
+                              else {"sim_tick_time": 5.0}))
+        h = mc.apply(spec.WorkloadSpec.from_dict(doc), cfg=cfg,
+                     executor_opts=fixed)
+        clock.run(until=clock.now + 10_000.0, stop_when=lambda: h.done)
+        flow = importlib.import_module(f"{spec.__name__.split('.')[0]}.flow")
+        p = mc.apply_pipeline(flow.PipelineSpec.from_dict(dict(
+            name="one", stages=[dict(name="s", kind="workload",
+                                     workload=doc)])),
+            cfg=cfg, executor_opts=fixed)
+        clock.run(until=clock.now + 10_000.0, stop_when=lambda: p.done)
+        out[pkg] = (h, p)
+    (h, p), (jh, jp) = out["torch"], out["jax"]
+    assert type(h.executor).__name__ == type(jh.executor).__name__ == name
+    assert h.phase == "Completed" and p.phase == "Completed"
+    assert _events(h) == _events(jh)
+    assert [{k: v for k, v in e.items() if k != "jobid"} for e in p.events()] \
+        == [{k: v for k, v in e.items() if k != "jobid"} for e in jp.events()]
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b",
