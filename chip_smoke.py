@@ -33,7 +33,10 @@ Phases, each printing its own lines:
              chatglm3-6b's heads (32 over 2 KV heads, g = 16) and
              qwen2-72b's (64 over 8), flash_fwd at chatglm3-6b's prompt,
              rmsnorm at d 8192, and rmsnorm timed again late in the call
-             beside F.rms_norm; then, each from a generator of its own,
+             beside F.rms_norm; the seqmix phase's shapes: rmsnorm at d
+             2048, flash_fwd at a 77-token prompt and moe_gemm at
+             jamba-v0.1-52b's widths (16 experts, 4096 <-> 14336), each
+             beside its library call; then, each from a generator of its own,
              the attention kernels at lammps-proxy's head dim 32 (8 heads
              over 8 KV heads), the SMOKE configs' 16 (4 over 2) and
              qwen2-72b SMOKE's 8 (8 over 2): flash_fwd and flash_bwd at
@@ -61,6 +64,15 @@ Phases, each printing its own lines:
              printed; then
              qwen2-72b (QKV bias, d_model 8192) at full width and 16 of
              its 80 layers, both modes, teacher-forced;
+   seqmix  - the sequence mixers: xlstm-1.3b at full size and
+             jamba-v0.1-52b at full width and 16 of its 32 layers through
+             the serve cell's engine (exact-length prefill; every plain
+             version refused): legacy, prefill_chunk=256 (no chunked tick
+             on these arches: the same streams) and the legacy run parked
+             and adopted (token for token); prefill ms by prompt length,
+             pool bytes and peak memory; teacher-forced logits through the
+             kernels, plain bf16 and (xlstm, and a 2-layer jamba) plain
+             float32;
 5. train   - the gradients of yi-6b, granite-moe-1b-a400m and chatglm3-6b
              at full width and 2 layers on one 2 x 4096 batch through the
              kernel path, the plain path in bf16 and the plain path in
@@ -95,7 +107,8 @@ Phases, each printing its own lines:
              lifecycle and the phase's launch counts are printed;
 8. smoke   - the executors' default SMOKE configs (head dims 16 and 8)
              on the card: a WorkloadSpec of every executor kind applied
-             without cfg= (no plain version may run); then
+             without cfg=, and jamba-v0.1-52b and xlstm-1.3b served and
+             elastic-served (no plain version may run); then
              ``repro_torch.launch.pipeline`` on pipeline_canary.json
              (yi-6b SMOKE) with its trace held to tools/validate_trace.py;
              then the pipeline at full size: granite-moe-1b-a400m trained
@@ -114,6 +127,7 @@ beside this file, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -476,6 +490,7 @@ def kernel_phase(torch, dev):
     rows_out["decode_attention"] = decode_attention_row(torch, dev, rnd, cpm)
     rows_out.update(quantize_rows(torch, dev, cpm))
     dense_shapes(torch, dev, cpm)
+    seqmix_shapes(torch, dev, cpm)
     # lammps-proxy's head dim 32 (8 heads over 8), the SMOKE configs' 16
     # (4 over 2) and qwen2-72b SMOKE's 8 (8 over 2)
     small_head_dim(torch, dev, rows_out, cpm, 32, 8, 8, 3232, "lammps-proxy")
@@ -586,6 +601,119 @@ def dense_shapes(torch, dev, cpm):
         print(f"[kernels] rmsnorm (512, {d}) timed late in the call: kernel "
               f"{t:.4f} ms, F.rms_norm {lib:.4f} ms ({t / lib:.2f}x), bound "
               f"{least:.5f} ms (bytes, {least / t:.3f} of it)")
+
+
+def seqmix_shapes(torch, dev, cpm):
+    """The kernels at the shapes the seqmix phase gives them, from a
+    generator of their own, each held against its plain version as the
+    rows above are (none is a row of its own): rmsnorm at xlstm-1.3b's d
+    2048 (a decode tick's 8 rows and a 512-token prefill's), timed at
+    the prefill's beside F.rms_norm; flash_fwd at jamba-v0.1-52b's exact
+    prompt of 77 tokens (32 heads over 8, D 128: no multiple of the
+    kernel's 64-row tiles or of a page); paged decode at jamba's decode
+    tick (8 slots, 32 query heads over 8 KV heads: g = 4 at D 128, no
+    other served arch's split kernel) over contexts of 1..1024 tokens,
+    timed beside SDPA; and moe_gemm at jamba's widths
+    (16 experts, 4096 -> 14336 and back): a decode tick's 8 rows an
+    expert (8 slots, capacity 1) and a 512-token prefill's 80 (capacity
+    ceil(512 x 2 x 1.25 / 16)), each timed beside torch.bmm."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.moe_gemm import ref as moe_ref
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+
+    g = torch.Generator(device=dev).manual_seed(2222)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    w = 1 + 0.1 * torch.randn(2048, generator=g, device=dev)
+    for rows in (8, 512):
+        x = rnd(rows, 2048)
+        e, ok = err_within(ops.rmsnorm(x, w), rn_ref.rmsnorm_ref(x, w), TOL)
+        check(ok, f"rmsnorm ({rows}, 2048) differs from the plain version")
+    wb = w.to(bf)
+    t = median_ms(cpm, lambda: ops.rmsnorm(x, w))
+    lib = median_ms(cpm, lambda: F.rms_norm(x, (2048,), wb, 1e-5))
+    plain = median_ms(cpm, lambda: rn_ref.rmsnorm_ref(x, w))
+    least, _ = bound(2 * x.numel() * 2 + w.numel() * 4, 4 * x.numel())
+    print(f"[kernels] rmsnorm xlstm-1.3b (512, 2048), held also at (8, 2048): "
+          f"max error {e:.3g} (tol {TOL}); kernel {t:.4f} ms, plain "
+          f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms ({t / lib:.2f}x), bound "
+          f"{least:.5f} ms (bytes, {least / t:.3f} of it)")
+
+    q, k, v = rnd(1, 77, 32, 128), rnd(1, 77, 8, 128), rnd(1, 77, 8, 128)
+    out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
+    ref_out, ref_lse = fa_ref.fwd(q, k, v, causal=True)
+    e, ok = err_within(out, ref_out, TOL)
+    e_lse = float((lse - ref_lse).abs().max())
+    check(ok and e_lse <= LSE_TOL, f"flash_fwd at jamba's 77-token prompt "
+          f"differs from the plain version (lse by {e_lse})")
+    least, by = bound((2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4,
+                      2 * 2 * 32 * (77 * 78 // 2) * 128)
+    print(f"[kernels] flash_fwd jamba-v0.1-52b q (1,77,32,128) kv "
+          f"(1,77,8,128) causal: max error {e:.3g} (tol {TOL}), lse error "
+          f"{e_lse:.3g} (tol {LSE_TOL}); bound {least:.5f} ms ({by})")
+    fwd_rel_l2(out, ref_out, "(1,77) over 8 KV heads")
+    fwd_rate(torch, cpm, "q (1,77,32,128) kv (1,77,8,128) causal", q, k, v)
+    del q, k, v, out, ref_out
+
+    PAGE, B, MAXP = 16, 8, 1024 // 16
+    n_pages = B * MAXP + 1
+    kp, vp = rnd(n_pages, PAGE, 8, 128), rnd(n_pages, PAGE, 8, 128)
+    bt = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)
+          [:B * MAXP]).to(torch.int32).reshape(B, MAXP)
+    lens = torch.tensor([1, 17, 77, 256, 511, 544, 1000, 1024],
+                        dtype=torch.int32, device=dev)
+    qd = rnd(B, 1, 32, 128)
+    got = ops.paged_decode_attention(qd, kp, vp, bt, lens)
+    want = dec_ref.paged_decode_ref(qd, kp, vp, bt, lens)
+    e, ok = err_within(got, want, TOL)
+    r = rel_l2(got, want)
+    check(ok and r <= FWD_REL_L2_TOL, f"paged_decode at jamba's heads differs "
+          f"from the plain version (relative L2 {r:.3g})")
+    check(torch.equal(got, ops.paged_decode_attention(qd, kp, vp, bt, lens)),
+          "paged_decode at jamba's heads gave other bits on a second run")
+    print(f"[kernels] paged_decode jamba-v0.1-52b q (8,1,32,128) over 8 KV "
+          f"heads, lengths {lens.tolist()}: max error {e:.3g} (tol {TOL}), "
+          f"relative L2 {r:.3g} (tol {FWD_REL_L2_TOL}); the same bits twice")
+    kg = kp[bt.long()].reshape(B, MAXP * PAGE, 8, 128).transpose(1, 2)
+    vg = vp[bt.long()].reshape(B, MAXP * PAGE, 8, 128).transpose(1, 2)
+    mask = (torch.arange(MAXP * PAGE, device=dev)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    filled = int(lens.sum())
+    paged_decode_rate(torch, dict(
+        ms=median_ms(cpm, lambda: ops.paged_decode_attention(
+            qd, kp, vp, bt, lens)),
+        library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True)),
+        bound=bound(2 * filled * 8 * 128 * 2 + 2 * qd.numel() * 2
+                    + bt.numel() * 4, 4 * filled * 32 * 128)),
+        "jamba-v0.1-52b", B * 8, MAXP)
+    del kp, vp, kg, vg
+
+    E, D, F_ = 16, 4096, 14336
+    w_in, w_out = rnd(E, D, F_, scale=0.02), rnd(E, F_, D, scale=0.02)
+    for label, T in (("jamba decode", 8), ("jamba prefill 512", 80)):
+        for a, b, depth, name in ((rnd(E, T, D), w_in, D, "up"),
+                                  (rnd(E, T, F_), w_out, F_, "down")):
+            got, want = moe_kernel.moe_gemm(a, b), moe_ref.moe_gemm_ref(a, b)
+            e, ok = err_within(got.float() * depth ** -0.5 / 0.02,
+                               want.float() * depth ** -0.5 / 0.02, TOL)
+            check(ok, f"moe_gemm at {label} {name} differs from the plain "
+                  f"version")
+            row = moe_rate(torch, cpm, f"{label} {name}", a, b, got)
+            plain = median_ms(cpm, lambda: moe_ref.moe_gemm_ref(a, b), n=3,
+                              reps=5)
+            print(f"[kernels] moe_gemm {label} {name}: max error {e:.3g} "
+                  f"(x 1/(0.02 sqrt({depth})), tol {TOL}); plain "
+                  f"{plain:.4f} ms; kernel {row['ms']:.4f} ms")
+    del w_in, w_out
 
 
 def small_head_dim(torch, dev, rows_out, cpm, D, H, HKV, seed, label):
@@ -1064,6 +1192,28 @@ def unseen_rows(torch, dev, rows_out, rnd):
               f"{e_fwd:.3g}, lse error {e_lse:.3g}, backward relative L2 {rels}")
 
 
+def moe_rate(torch, cpm, label, a, b, got):
+    """The same bits again, then the grouped GEMM's kernel and torch.bmm
+    timed on a @ b and printed beside the bound: (E, M, K) x (E, K, N)."""
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    check(torch.equal(got, moe_kernel.moe_gemm(a, b)),
+          f"moe_gemm {label} gave other bits on a second run")
+    e, m, k = a.shape
+    flops = 2 * e * m * k * b.shape[2]
+    ac, bc = a.contiguous(), b.contiguous()
+    row = dict(
+        ms=median_ms(cpm, lambda: moe_kernel.moe_gemm(a, b)),
+        library_ms=median_ms(cpm, lambda: torch.bmm(ac, bc)),
+        bound=bound((a.numel() + b.numel() + got.numel()) * 2, flops))
+    t, lib, (least, by) = row["ms"], row["library_ms"], row["bound"]
+    print(f"[kernels] moe_gemm {label} ({e},{m},{k}) x ({e},{k},"
+          f"{b.shape[2]}): kernel {t:.4f} ms = {flops / t / 1e9:.1f} "
+          f"TFLOP/s ({least / t:.3f} of the bound), torch.bmm {lib:.4f} "
+          f"ms = {flops / lib / 1e9:.1f} TFLOP/s ({t / lib:.2f}x), bound "
+          f"{least:.4f} ms ({by})")
+    return row
+
+
 def moe_gemm_row(torch, dev, rnd, cpm):
     """The grouped expert GEMM at the three shapes granite-moe-1b-a400m's
     path gives it (32 experts, D 1024, F 512): a decode tick's 8 rows
@@ -1080,25 +1230,6 @@ def moe_gemm_row(torch, dev, rnd, cpm):
 
     E, D, F_ = 32, 1024, 512
 
-    def rate(label, a, b, got):
-        """Time the kernel and torch.bmm on a @ b and print both."""
-        check(torch.equal(got, moe_kernel.moe_gemm(a, b)),
-              f"moe_gemm {label} gave other bits on a second run")
-        e, m, k = a.shape
-        flops = 2 * e * m * k * b.shape[2]
-        ac, bc = a.contiguous(), b.contiguous()
-        row = dict(
-            ms=median_ms(cpm, lambda: moe_kernel.moe_gemm(a, b)),
-            library_ms=median_ms(cpm, lambda: torch.bmm(ac, bc)),
-            bound=bound((a.numel() + b.numel() + got.numel()) * 2, flops))
-        t, lib, (least, by) = row["ms"], row["library_ms"], row["bound"]
-        print(f"[kernels] moe_gemm {label} ({e},{m},{k}) x ({e},{k},"
-              f"{b.shape[2]}): kernel {t:.4f} ms = {flops / t / 1e9:.1f} "
-              f"TFLOP/s ({least / t:.3f} of the bound), torch.bmm {lib:.4f} "
-              f"ms = {flops / lib / 1e9:.1f} TFLOP/s ({t / lib:.2f}x), bound "
-              f"{least:.4f} ms ({by})")
-        return row
-
     errs = []
     for label, T in (("decode", 8), ("legacy prefill", 160), ("train", 5120)):
         x, w = rnd(E, T, D), rnd(E, D, F_)
@@ -1107,7 +1238,7 @@ def moe_gemm_row(torch, dev, rnd, cpm):
                            TOL)
         check(ok, f"moe_gemm at T {T} differs from the plain version")
         errs.append(e)
-        row = rate(label, x, w, got)
+        row = moe_rate(torch, cpm, label, x, w, got)
         row["plain_ms"] = median_ms(cpm, lambda: moe_ref.moe_gemm_ref(x, w))
     dy = rnd(E, T, F_)
     grads = []
@@ -1123,8 +1254,10 @@ def moe_gemm_row(torch, dev, rnd, cpm):
         check(ok and r <= REL_L2_TOL, f"moe_gemm backward {name} differs from "
               f"the plain version's autograd (relative L2 {r:.3g})")
         errs.append(e)
-    rate("backward dX = dY W^T", dy, w.transpose(1, 2), grads[0][0])
-    rate("backward dW = X^T dY", x.transpose(1, 2), dy, grads[0][1])
+    moe_rate(torch, cpm, "backward dX = dY W^T", dy, w.transpose(1, 2),
+             grads[0][0])
+    moe_rate(torch, cpm, "backward dW = X^T dY", x.transpose(1, 2), dy,
+             grads[0][1])
     del grads
     row["max_abs_err"] = max(errs)
     row["shape"] = ("x (32,5120,1024), w (32,1024,512) bf16; held at T 8, "
@@ -1252,12 +1385,30 @@ def serve_engine(cfg, params, dev, chunk, dp_shards=1):
     return Engine(cfg, ecfg, params=params, device=dev)
 
 
-def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1):
+def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1,
+              report=None):
     """The prompts through ``serve_engine``, 32 new tokens each, with the
     host time of each tick by kind (decode, and mixed: every running
     slot's decode and a prompt chunk).  Returns the launch counts and
-    the token streams."""
+    the token streams.  With a ``report`` dict it also keeps each
+    prefill's milliseconds by prompt length (a prefill ends when its
+    sampled token reaches the host), the pool's bytes and the run's peak
+    device memory."""
     eng = serve_engine(cfg, params, dev, chunk, dp_shards)
+    if report is not None:
+        run_prefill = eng._run_prefill
+
+        def timed_prefill(req):
+            t = time.perf_counter()
+            run_prefill(req)
+            report["prefill_ms"].append((len(req.prompt),
+                                         (time.perf_counter() - t) * 1e3))
+
+        eng._run_prefill = timed_prefill
+        report.update(prefill_ms=[], pool_bytes=sum(
+            x.numel() * x.element_size() for leaves in eng.pool.values()
+            for x in leaves.values()))
+        torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
@@ -1276,6 +1427,10 @@ def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    if report is not None:
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del eng._run_prefill        # the wrapper's cycle would keep eng
+        report["mixed_ticks"] = eng.n_mixed_steps
     for r in reqs:
         check(r.finished and len(r.tokens) == 32,
               f"request {r.rid} did not finish with 32 tokens")
@@ -1443,6 +1598,13 @@ def draw_biases(torch, dev, cfg, params, seed):
                 b.copy_(torch.randn(b.shape, generator=g, device=dev) * 0.02)
 
 
+def _rel_steps(got, a, b):
+    """The relative L2 error of ``got[a]`` against ``got[b]`` at each
+    teacher-forced step (a row of logits each)."""
+    return [round(float(x), 5) for x in
+            (got[a] - got[b]).norm(dim=-1) / got[b].norm(dim=-1)]
+
+
 def teacher_force(torch, dev, cfg, params):
     """One prompt, then 4 forced decode steps, through the kernels in bf16,
     the plain versions in bf16 and the plain versions in float32."""
@@ -1481,12 +1643,9 @@ def teacher_force(torch, dev, cfg, params):
             logits.append(ld)
         got[name] = torch.cat(logits).float()
 
-    def rel(a, b):
-        return [round(float(x), 5) for x in
-                (got[a] - got[b]).norm(dim=-1) / got[b].norm(dim=-1)]
-
-    k_p, k_f, p_f = (rel("kernels", "plain"), rel("kernels", "plain_f32"),
-                     rel("plain", "plain_f32"))
+    k_p, k_f, p_f = (_rel_steps(got, "kernels", "plain"),
+                     _rel_steps(got, "kernels", "plain_f32"),
+                     _rel_steps(got, "plain", "plain_f32"))
     print(f"[serve] teacher-forced logits (prefill, chunk, 4 decode steps), "
           f"relative L2 error per step: kernels vs plain {k_p}; kernels vs "
           f"f32 {k_f}; plain vs f32 {p_f}; logit scale "
@@ -1494,6 +1653,195 @@ def teacher_force(torch, dev, cfg, params):
     check(max(k_f) <= LOGIT_NOISE_FACTOR * max(p_f),
           f"kernel path drifts from f32 by {max(k_f)}, plain bf16 by "
           f"{max(p_f)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the sequence mixers, xlstm-1.3b and jamba-v0.1-52b, served
+# ---------------------------------------------------------------------------
+
+JAMBA_LAYERS = 16           # of jamba's 32: 26.05e9 params, 52.1 GB in bf16
+# the f32 check's jamba: the attention position and one Mamba position at
+# a MoE index (pattern index 1), at full width
+JAMBA_F32_PATTERN = ("attn", "mamba")
+
+
+def seqmix_teacher_force(torch, dev, cfg, params, modes, plen=77):
+    """One prompt of ``plen`` tokens (77: no multiple of a page or of the
+    kernels' 64-row tiles) prefilled at its exact length, its KV padded
+    to a page boundary and scattered with its state into slot 0 of a
+    pool, then 4 forced decode steps, through each of ``modes`` (name,
+    impl, compute dtype).  Returns {name: logits (5, V) float32}."""
+    import numpy as np
+    from repro_torch.models.layers import PagedView
+    from repro_torch.models.model import Model
+    from repro_torch.serve import paging
+
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, plen + 4)
+    layout = paging.PagedLayout(page_size=16, pages_per_slot=64, n_pages=65)
+    bt = torch.arange(1, 65, dtype=torch.int32, device=dev)[None]
+    cap = paging.round_up(plen, 16)
+    got = {}
+    for name, impl, dtype in modes:
+        model = Model(cfg, impl=impl)
+        pool = paging.init_pool(cfg, 1, layout, dev)
+        lg, pc = model.prefill(
+            params, {"tokens": torch.tensor(toks[None, :plen], device=dev)},
+            compute_dtype=dtype)                             # flash_fwd
+        paging.scatter_prefill(cfg, pool, paging.pad_prefill_cache(
+            cfg, pc, cap), bt[:, :cap // 16], torch.tensor([0], device=dev))
+        del pc
+        logits = [lg]
+        for i in range(4):                                   # paged_decode
+            pos = torch.tensor([plen + i], dtype=torch.int32, device=dev)
+            ld, _ = model.decode_step(
+                params, pool, torch.tensor([[toks[plen + i]]], device=dev),
+                pos, compute_dtype=dtype, paging=PagedView(bt, pos))
+            logits.append(ld)
+        got[name] = torch.cat(logits).float()
+        del pool
+    return got
+
+
+def seqmix_phase(torch, dev, build):
+    """xlstm-1.3b at full size and jamba-v0.1-52b at full width and
+    JAMBA_LAYERS of its 32 layers through the serve cell's engine (8
+    slots, page 16, prompts up to 512, 1024 in all), both exact-length
+    prefill: 12 greedy prompts of 64-512 tokens (jamba's first cut to
+    77), 32 new, with every plain version refused; then
+    ``prefill_chunk=256`` (no chunked tick on these arches: the same
+    streams), and the legacy run parked after 5 decode ticks and adopted
+    (token for token).  Prefill ms by prompt length, pool bytes and peak
+    memory beside the serve lines.  Then teacher-forced logits (a
+    77-token prompt and 4 decode steps): xlstm through the kernels, the
+    plain versions in bf16 and in float32 at full depth; jamba through
+    the kernels and plain bf16 at the served depth, and all three on a
+    2-layer jamba of JAMBA_F32_PATTERN (one float32 copy of 16 layers'
+    weights would not fit).  Returns the launch counts of the runs."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    held_before = torch.cuda.memory_allocated()
+    runs, f32_drift = [], {}
+    modes3 = (("kernels", None, torch.bfloat16),
+              ("plain", "ref", torch.bfloat16),
+              ("plain_f32", "ref", torch.float32))
+    for arch in ("xlstm-1.3b", "jamba-v0.1-52b"):
+        t_arch = time.perf_counter()
+        cfg = registry.get(arch)
+        depth = f"{cfg.n_layers} layers"
+        if arch.startswith("jamba"):
+            depth = (f"{JAMBA_LAYERS} of {cfg.n_layers} layers (cut: all 32 "
+                     f"need 103 GB of bf16 weights)")
+            # the f32 check first, on its own 2-layer draw
+            small = dataclasses.replace(cfg, n_layers=2,
+                                        block_pattern=JAMBA_F32_PATTERN)
+            p2 = Model(small).init(torch.Generator(device=dev).manual_seed(1),
+                                   dtype=torch.bfloat16, device=dev)
+            got = seqmix_teacher_force(torch, dev, small, p2, modes3)
+            del p2
+            torch.cuda.empty_cache()
+            k_f, p_f = (_rel_steps(got, "kernels", "plain_f32"),
+                        _rel_steps(got, "plain", "plain_f32"))
+            print(f"[seqmix] jamba 2 layers {JAMBA_F32_PATTERN} (the Mamba "
+                  f"at a MoE index), teacher-forced logits (77-token "
+                  f"prefill, 4 decode steps), relative L2 per step: kernels "
+                  f"vs f32 {k_f}; plain vs f32 {p_f}")
+            check(max(k_f) <= LOGIT_NOISE_FACTOR * max(p_f),
+                  f"jamba 2 layers: the kernel path drifts from f32 by "
+                  f"{max(k_f)}, plain bf16 by {max(p_f)}")
+            f32_drift[arch] = max(p_f)
+            cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
+        params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        print(f"[seqmix] {cfg.name}: {depth}, d_model {cfg.d_model}, "
+              f"pattern {cfg.block_pattern}, "
+              f"{Model(cfg).n_params() / 1e9:.2f} B params in bf16, drawn "
+              f"in {time.perf_counter() - t_arch:.1f} s")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(64, 513, 12)]
+        if arch.startswith("jamba"):
+            prompts[0] = prompts[0][:77]
+        check(any(len(p) % 16 for p in prompts),
+              "no prompt off a page multiple")
+        report, c_report = {}, {}
+        with _NoPlain():
+            legacy, streams = serve_run(torch, dev, cfg, params, 0, prompts,
+                                        build, report=report)
+            chunked, c_streams = serve_run(torch, dev, cfg, params, 256,
+                                           prompts, build, report=c_report)
+        check(c_report["mixed_ticks"] == 0 and c_streams == streams,
+              f"{arch}: the prefill_chunk=256 engine ran "
+              f"{c_report['mixed_ticks']} mixed ticks or its streams differ "
+              f"from the legacy engine's")
+        by_len = sorted(report["prefill_ms"])
+        print(f"[seqmix] {cfg.name} exact-length prefill, (prompt length, "
+              f"ms) {[(n, round(ms, 2)) for n, ms in by_len]}; pool "
+              f"{report['pool_bytes'] / 1e9:.3f} GB; peak device memory "
+              f"{report['peak_bytes'] / 1e9:.2f} GB; prefill_chunk=256: 0 "
+              f"mixed ticks, all {len(streams)} streams equal the legacy "
+              f"run's token for token")
+        with _NoPlain():
+            parked = park_run(torch, dev, cfg, params, prompts, streams, build)
+        runs += [legacy, chunked, parked]
+        for name in ("rmsnorm",) + (("flash_fwd", "paged_decode", "moe_gemm")
+                                    if arch.startswith("jamba") else ()):
+            for label, launches in (("legacy", legacy), ("chunked", chunked),
+                                    ("parked", parked)):
+                check(launches[name] > 0, f"{arch} {label} serve never "
+                      f"launched {name}")
+        if arch.startswith("jamba"):
+            got = seqmix_teacher_force(torch, dev, cfg, params, modes3[:2])
+            k_p = _rel_steps(got, "kernels", "plain")
+            # a loose model-level check on an assumed rule (bf16 noise
+            # grows at most linearly with depth); the tight ones are the
+            # kernels phase's holds at jamba's shapes (seqmix_shapes)
+            limit = (LOGIT_NOISE_FACTOR * JAMBA_LAYERS / 2
+                     * f32_drift[arch])
+            print(f"[seqmix] {cfg.name} {JAMBA_LAYERS} layers, teacher-"
+                  f"forced logits, relative L2 per step: kernels vs plain "
+                  f"{k_p} (limit {limit:.5f} = {LOGIT_NOISE_FACTOR} x "
+                  f"{JAMBA_LAYERS}/2 x the 2-layer plain-vs-f32 drift); "
+                  f"logit scale {float(got['plain'].abs().max()):.3g}")
+            check(max(k_p) <= limit, f"jamba {JAMBA_LAYERS} layers: kernels "
+                  f"vs plain bf16 {max(k_p)} over {limit}")
+        else:
+            got = seqmix_teacher_force(torch, dev, cfg, params, modes3)
+            k_p, k_f, p_f = (_rel_steps(got, "kernels", "plain"),
+                             _rel_steps(got, "kernels", "plain_f32"),
+                             _rel_steps(got, "plain", "plain_f32"))
+            print(f"[seqmix] {cfg.name} teacher-forced logits (77-token "
+                  f"prefill, 4 decode steps), relative L2 per step: kernels "
+                  f"vs plain {k_p} (tol {FWD_REL_L2_TOL}); kernels vs f32 "
+                  f"{k_f}; plain vs f32 {p_f}; logit scale "
+                  f"{float(got['plain_f32'].abs().max()):.3g}")
+            # rmsnorm is xlstm's only kernel, so the two bf16 paths differ
+            # by its rounding alone; the f32 ratio below is far looser
+            check(max(k_p) <= FWD_REL_L2_TOL,
+                  f"xlstm: kernels vs plain bf16 {max(k_p)} over "
+                  f"{FWD_REL_L2_TOL}")
+            check(max(k_f) <= LOGIT_NOISE_FACTOR * max(p_f),
+                  f"xlstm: the kernel path drifts from f32 by {max(k_f)}, "
+                  f"plain bf16 by {max(p_f)}")
+        del params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() - held_before
+        check(held < 1e8, f"{arch}: {held / 1e9:.2f} GB still held after "
+              f"its runs")
+        print(f"[seqmix] {cfg.name}: {time.perf_counter() - t_arch:.1f} s")
+    total = {k: sum(r[k] for r in runs) for k in runs[0]}
+    print(f"[seqmix] launches in the phase's runs: "
+          + ", ".join(f"{k} {n}" for k, n in total.items() if n)
+          + f"; no plain version ran in them; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    for k in ("rmsnorm", "flash_fwd", "paged_decode", "moe_gemm"):
+        check(total[k] > 0, f"the seqmix phase never launched {k}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2368,6 +2716,7 @@ def operator_phase(torch, dev, build):
 # ---------------------------------------------------------------------------
 
 SMOKE_ARCHS = {"yi-6b": 16, "granite-moe-1b-a400m": 16, "lammps-proxy": 16,
+               "jamba-v0.1-52b": 16, "xlstm-1.3b": 16,
                "qwen2-72b": 8}      # arch -> its SMOKE config's head dim
 
 
@@ -2380,7 +2729,8 @@ def smoke_phase(torch, dev, build):
     (head dim 8) trained and served both ways, the committed
     ``serve_fleet.json`` (two replicas) and ``serve_batch.json`` (elastic
     serve), an elastic train of yi-6b and an elastic fleet of two yi-6b
-    replicas, and a plain Flux job whose payload is qwen2-72b's SMOKE
+    replicas, jamba-v0.1-52b and xlstm-1.3b served and elastic-served, and
+    a plain Flux job whose payload is qwen2-72b's SMOKE
     forward.  Every
     handle completes through Pending, Bound and Running; each served
     stream equals a direct Engine's over the executor's parameters; each
@@ -2435,7 +2785,9 @@ def smoke_phase(torch, dev, build):
         load_spec(str(ROOT / "examples/specs/serve_batch.json")),
         spec("train", "yi-6b", 2, elastic=True, total_steps=4, chunk_steps=2,
              global_batch=4, seq_len=32, ckpt_dir=str(ckpt)),
-        spec("serve", "yi-6b", elastic=True, replicas=2, **serve)],
+        spec("serve", "yi-6b", elastic=True, replicas=2, **serve)] + [
+        spec("serve", a, elastic=elastic, **serve)
+        for a in ("jamba-v0.1-52b", "xlstm-1.3b") for elastic in (False, True)],
         8: [spec("train", "qwen2-72b", 2, total_steps=1, seq_len=16),
             spec("serve", "qwen2-72b", **serve),
             spec("serve", "qwen2-72b", prefill_chunk=8, **serve)]}
@@ -2914,6 +3266,7 @@ def main() -> int:
                          "all 80 need ~145 GB of bf16 weights")[1]
     del params
     torch.cuda.empty_cache()
+    runs.extend(seqmix_phase(torch, dev, build))
     runs.append(operator_phase(torch, dev, build))
     runs.append(smoke_phase(torch, dev, build))
     pipeline_cli(torch)

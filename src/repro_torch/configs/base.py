@@ -1,10 +1,11 @@
 """Model, workload and training configuration for the PyTorch port.
 
 Copies of the fields and properties of the JAX package's
-``configs/base.py`` that the dense and MoE decoders' serving and
-single-device training paths read: ``MoEConfig``, ``ModelConfig`` (with
-its optimizer choice), ``WorkloadShape`` with ``SHAPES``,
-``TrainConfig``, and ``ShardingStrategy`` with its named instances.
+``configs/base.py`` that the decoders' serving and single-device
+training paths read: ``MoEConfig``, ``MambaConfig``, ``XLSTMConfig``,
+``ModelConfig`` (with its optimizer choice), ``WorkloadShape`` with
+``SHAPES``, ``TrainConfig``, and ``ShardingStrategy`` with its named
+instances.
 Field names and defaults match, so a config converts field for field.
 """
 from __future__ import annotations
@@ -31,9 +32,29 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    """Jamba-style Mamba (selective SSM) block settings."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block settings (mLSTM matrix memory / sLSTM scalar memory)."""
+
+    n_heads: int = 4
+    expand: int = 2          # up-projection factor inside the cell
+    d_conv: int = 4          # causal conv in mLSTM pre-projection
+    chunk_size: int = 64     # chunkwise-parallel training chunk
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe (the families ported so far)
+    family: str                      # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,10 +76,15 @@ class ModelConfig:
     tie_embeddings: bool = False
 
     # kinds cycle through this pattern; parameters are keyed "p{i}" by
-    # position and stacked over n_repeats (attention-only so far)
-    block_pattern: Tuple[str, ...] = ("attn",)
+    # position and stacked over n_repeats
+    block_pattern: Tuple[str, ...] = ("attn",)   # attn | mamba | mlstm | slstm
 
     moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+
+    # encoder-decoder (whisper): not ported, the stack raises for > 0
+    encoder_layers: int = 0
 
     # optimizer choice (production default per arch)
     optimizer: str = "adamw"         # adamw | adafactor
@@ -83,32 +109,61 @@ class ModelConfig:
 
     @property
     def sub_quadratic(self) -> bool:
+        """True if context cost does not grow quadratically (SSM / hybrid)."""
         return any(k in ("mamba", "mlstm", "slstm") for k in self.block_pattern)
 
     def n_params(self) -> int:
-        """Analytic parameter count of an attention-only decoder, as the
-        JAX package counts it (embeddings once when tied; QKV biases
-        counted, norm scales and biases not)."""
+        """Analytic parameter count, as the JAX package counts it
+        (embeddings once when tied; QKV biases counted, norm scales and
+        biases not)."""
         d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+
+        def attn_params() -> int:
+            p = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+            if self.qkv_bias:
+                p += h * hd + 2 * kv * hd
+            return p
 
         def mlp_params(dff: int) -> int:
             return (3 if self.mlp_type == "swiglu" else 2) * d * dff
 
-        for i in range(self.pattern_len):
-            blk = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
-            if self.qkv_bias:
-                blk += h * hd + 2 * kv * hd
+        def mamba_params() -> int:
+            mc = self.mamba or MambaConfig()
+            d_in = mc.expand * d
+            dtr = mc.dt_rank or -(-d // 16)
+            return (d * 2 * d_in + d_in * mc.d_conv
+                    + d_in * (dtr + 2 * mc.d_state) + dtr * d_in
+                    + d_in * mc.d_state + d_in + d_in * d)
+
+        def xlstm_params(kind: str) -> int:
+            xc = self.xlstm or XLSTMConfig()
+            d_in = xc.expand * d
+            if kind == "mlstm":
+                return (d * 2 * d_in + d_in * xc.d_conv + 3 * d_in * d_in
+                        + 3 * xc.n_heads * (d_in // xc.n_heads)  # gates
+                        + d_in * d)
+            return (4 * d * d_in + 4 * d_in * (d_in // xc.n_heads)
+                    + d_in * d)
+
+        for i, kind in enumerate(self.block_pattern):
+            if kind == "attn":
+                blk = attn_params()
+            elif kind == "mamba":
+                blk = mamba_params()
+            elif kind in ("mlstm", "slstm"):
+                blk = xlstm_params(kind)
+            else:
+                raise ValueError(kind)
             if self.moe is not None and (i % self.moe.every) == (self.moe.every - 1):
                 blk += self.moe.n_experts * mlp_params(self.moe.d_ff_expert)
                 blk += d * self.moe.n_experts                       # router
                 if self.moe.dense_residual:
                     blk += mlp_params(self.moe.d_ff_dense)
-            else:
+            elif kind in ("attn", "mamba"):
                 blk += mlp_params(self.d_ff)
             total += blk * self.n_repeats
         return total
-
 
 
 @dataclass(frozen=True)

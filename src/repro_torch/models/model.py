@@ -103,10 +103,14 @@ class Model(nn.Module):
     def prefill(self, params, batch: Dict, *, compute_dtype=torch.bfloat16,
                 last_index=None):
         """A whole prompt: (last_logits (B, V), caches) where caches are
-        the prompt's KV, ``{"p{i}": {"k", "v"}}`` of (reps, B, S, kv, hd).
+        the prompt's KV, ``{"p{i}": {"k", "v"}}`` of (reps, B, S, kv, hd),
+        and each sequence mixer's state after the prompt (from a zeroed
+        state, as the JAX package's prefill starts), ``(reps, B, ...)``.
 
         ``last_index``: per-row position of the last real prompt token
         (prompts padded to a fixed capacity); default the final column.
+        Padding would run through a sequence mixer's recurrence, so a
+        ``sub_quadratic`` config prefills at the exact prompt length.
         """
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -125,7 +129,12 @@ class Model(nn.Module):
 
         tokens (B, C) at positions ``paging.lengths[b] + j``; rows past
         ``paging.n_valid[b]`` are padding whose KV sinks into
-        ``paging.null_page``.  Returns (logits (B, C, V), pool)."""
+        ``paging.null_page``.  Returns (logits (B, C, V), pool).
+        Attention-only archs: a sequence mixer's recurrence cannot skip
+        the chunk's padded rows."""
+        if self.cfg.sub_quadratic:
+            raise ValueError(f"{self.cfg.name}: chunked prefill needs "
+                             f"masking; sequence mixers prefill exactly")
         positions = (paging.lengths.long()[:, None]
                      + torch.arange(tokens.shape[1], device=tokens.device))
         return self._trunk(params, tokens, positions, mode="prefill",
@@ -139,10 +148,12 @@ class Model(nn.Module):
         are the page pools of ``paged_cache_defs`` and ``cache_index`` a
         (B,) tensor of per-slot positions.  Without: caches are the
         contiguous ``{"p{i}": {"k", "v"}}`` of (reps, B, S, kv, hd) that
-        ``prefill`` returns (a prompt right-padded to S) and
-        ``cache_index`` one position for every row, an int (a one-element
-        tensor is read once on the host).  The new KV is written in
-        place.  Returns (logits (B, V), caches)."""
+        ``prefill`` returns (a prompt right-padded to S, or KV padded to
+        S by ``serve.paging.pad_prefill_cache``) and ``cache_index`` one
+        position for every row, an int (a one-element tensor is read once
+        on the host).  The new KV and sequence-mixer state are written in
+        place (every row's state, with paging every slot's).  Returns
+        (logits (B, V), caches)."""
         s = tokens.shape[1]
         if paging is None:
             cache_index = offset = int(cache_index)

@@ -9,6 +9,7 @@ with the same key paths and the same leading ``n_repeats`` stacking.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -21,8 +22,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class PDef:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]          # logical axis name per dim
-    init: str = "normal"                     # normal | zeros | ones
+    init: str = "normal"                     # normal | zeros | ones | fan_in
     scale: float = 0.02
+    custom: Optional[str] = None             # named custom init (mamba etc.)
     dtype: Optional[str] = None              # per-leaf dtype override
 
     def __post_init__(self):
@@ -71,26 +73,53 @@ def abstract_params(defs, dtype=torch.float32):
         device="meta"), defs)
 
 
+def _custom_init(name: str, generator, shape, device):
+    """The JAX package's named inits, in float32: ``mamba_a_log`` and
+    ``slstm_fgate_bias`` are deterministic (log 1..d_state over the
+    channels; 3.0), ``mamba_dt_bias`` draws dt log-uniform in [1e-3,
+    1e-1] and stores softplus^-1 of it."""
+    if name == "mamba_a_log":
+        a = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(shape).clone()
+    if name == "mamba_dt_bias":
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+        return dt + torch.log(-torch.expm1(-dt))
+    if name == "slstm_fgate_bias":
+        return torch.full(shape, 3.0, dtype=torch.float32, device=device)
+    raise ValueError(f"unknown custom init {name!r}")
+
+
 def init_params(defs, generator: torch.Generator, dtype=torch.float32,
                 device=None):
-    """Materialize a PDef tree: normal(0, scale), zeros or ones, in
-    ``dtype`` unless a leaf overrides it.  Normal draws are made in
-    float32 and then cast, so a bfloat16 tree is the rounding of the
-    float32 one from the same seed.
+    """Materialize a PDef tree: normal(0, scale), normal(0, 1 /
+    sqrt(fan_in)) with the JAX package's fan-in (the first dim of a
+    matrix, stacked dims included), zeros, ones or a named custom init,
+    in ``dtype`` unless a leaf overrides it.  Draws are made in float32
+    and then cast, so a bfloat16 tree is the rounding of the float32 one
+    from the same seed.
     """
     device = generator.device if device is None else torch.device(device)
 
     def make(d: PDef):
         dt = DTYPES[d.dtype] if d.dtype else dtype
+        if d.custom is not None:
+            return _custom_init(d.custom, generator, d.shape, device).to(dt)
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=dt, device=device)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=dt, device=device)
-        if d.init != "normal":
+        if d.init == "normal":
+            scale = d.scale
+        elif d.init == "fan_in":
+            fan_in = d.shape[0] if len(d.shape) > 1 else max(d.shape[-1], 1)
+            scale = 1.0 / math.sqrt(fan_in)
+        else:
             raise ValueError(f"unsupported init {d.init!r}")
         x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * d.scale).to(dt)
+        return (x * scale).to(dt)
 
     return tree_map(make, defs)
 

@@ -1,10 +1,14 @@
-"""Layer stack of the attention-only decoders (dense or MoE FFNs).
+"""Layer stack of the decoders: attention, Mamba, mLSTM and sLSTM
+positions, each with a dense or MoE FFN where the JAX package gives it
+one.
 
 Parameters for each block-pattern position are stacked over
 ``cfg.n_repeats`` under the keys ``p{i}`` (the JAX package's layout, so
 a JAX parameter tree carries across unchanged); the stack runs as a
 Python loop over the repeats, each stacked leaf unbound once into its
-layers' slices.
+layers' slices.  Attention keeps KV (contiguous, or paged in the
+engine's pool); a sequence mixer keeps a recurrent state, slot-major in
+the pool.
 """
 from __future__ import annotations
 
@@ -12,15 +16,22 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, moe
-from repro_torch.models.params import PDef, stack, tree_map
+from repro_torch.models import layers, mamba, moe, xlstm
+from repro_torch.models.params import DTYPES, PDef, stack, tree_map
+
+F32_STATES = ("ssm", "C", "n", "m", "c", "h")   # state leaves kept float32
+MIXERS = {"mamba": mamba.mamba_apply, "mlstm": xlstm.mlstm_apply,
+          "slstm": xlstm.slstm_apply}
+_STATE_SHAPES = {"mamba": mamba.mamba_cache_shape,
+                 "mlstm": xlstm.mlstm_cache_shape,
+                 "slstm": xlstm.slstm_cache_shape}
 
 
-def _check_attention_only(cfg: ModelConfig):
-    if any(k != "attn" for k in cfg.block_pattern):
+def _check_ported(cfg: ModelConfig):
+    if cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: only attention blocks are ported "
-            f"(pattern {cfg.block_pattern})")
+            f"{cfg.name}: the encoder-decoder stack (whisper) is not ported "
+            f"(ROADMAP Queue 1 item 6)")
 
 
 def _pos_has_ffn(cfg: ModelConfig, i: int) -> bool:
@@ -35,8 +46,19 @@ def _pos_is_moe(cfg: ModelConfig, i: int) -> bool:
 
 
 def position_defs(cfg: ModelConfig, i: int):
-    _check_attention_only(cfg)
-    d = {"norm1": layers.norm_defs(cfg), "attn": layers.attention_defs(cfg)}
+    _check_ported(cfg)
+    kind = cfg.block_pattern[i]
+    d = {"norm1": layers.norm_defs(cfg)}
+    if kind == "attn":
+        d["attn"] = layers.attention_defs(cfg)
+    elif kind == "mamba":
+        d["mamba"] = mamba.mamba_defs(cfg)
+    elif kind == "mlstm":
+        d["mlstm"] = xlstm.mlstm_defs(cfg)
+    elif kind == "slstm":
+        d["slstm"] = xlstm.slstm_defs(cfg)
+    else:
+        raise ValueError(kind)
     if _pos_has_ffn(cfg, i):
         d["norm2"] = layers.norm_defs(cfg)
         if _pos_is_moe(cfg, i):
@@ -51,36 +73,79 @@ def stack_defs(cfg: ModelConfig):
             for i in range(cfg.pattern_len)}
 
 
+def state_defs(cfg: ModelConfig, kind: str, batch: int):
+    """A sequence mixer's recurrent state for ``batch`` rows (one layer):
+    the conv ring in bfloat16, the rest (``F32_STATES``) in float32."""
+    return {n: PDef(sh, ("batch",) + (None,) * (len(sh) - 1), init="zeros",
+                    dtype="float32" if n in F32_STATES else "bfloat16")
+            for n, sh in _STATE_SHAPES[kind](cfg, batch).items()}
+
+
+def _kv_defs(batch: int, seq_len: int, kv: int, hd: int, axes):
+    return {n: PDef((batch, seq_len, kv, hd), axes, init="zeros",
+                    dtype="bfloat16") for n in ("k", "v")}
+
+
 def cache_defs(cfg: ModelConfig, batch: int, seq_len: int):
-    """Contiguous KV schema per position, stacked over the repeats."""
-    _check_attention_only(cfg)
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
-    c = {n: PDef((batch, seq_len, kv, hd),
-                 ("batch", "kv_seq", "kv_heads", None),
-                 init="zeros", dtype="bfloat16") for n in ("k", "v")}
-    return {f"p{i}": stack(c, cfg.n_repeats) for i in range(cfg.pattern_len)}
+    """Contiguous decode-state schema per position, stacked over the
+    repeats: bf16 KV ``(batch, seq_len, kv, hd)`` for attention, the
+    recurrent state (``state_defs``) for a sequence mixer."""
+    _check_ported(cfg)
+    out = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        c = (_kv_defs(batch, seq_len, cfg.n_kv_heads, cfg.head_dim,
+                      ("batch", "kv_seq", "kv_heads", None))
+             if kind == "attn" else state_defs(cfg, kind, batch))
+        out[f"p{i}"] = stack(c, cfg.n_repeats)
+    return out
 
 
 def paged_cache_defs(cfg: ModelConfig, n_slots: int, n_pages: int,
                      page_size: int):
-    """Paged KV schema: one bf16 pool ``(n_pages, page_size, kv, hd)``
-    per position and layer, indexed by the engine's block table.  Page 0
-    is the null page, never allocated."""
-    _check_attention_only(cfg)
-    del n_slots                    # attention keeps no slot-major state
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
-    c = {n: PDef((n_pages, page_size, kv, hd), (None, None, "kv_heads", None),
-                 init="zeros", dtype="bfloat16") for n in ("k", "v")}
-    return {f"p{i}": stack(c, cfg.n_repeats) for i in range(cfg.pattern_len)}
+    """Paged decode-state schema: attention KV in one bf16 pool
+    ``(n_pages, page_size, kv, hd)`` per position and layer, indexed by
+    the engine's block table (page 0 is the null page, never allocated);
+    sequence-mixer state slot-major, ``(n_slots, ...)``."""
+    _check_ported(cfg)
+    out = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        c = (_kv_defs(n_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
+                      (None, None, "kv_heads", None))
+             if kind == "attn" else state_defs(cfg, kind, n_slots))
+        out[f"p{i}"] = stack(c, cfg.n_repeats)
+    return out
 
 
-def _apply_position(cfg, i, p, x, *, positions, cache=None, cache_index=None,
-                    paging=None, impl=None):
-    """One pattern position: (x, (k, v), its MoE aux loss or None)."""
+def _zero_state(cfg, kind, batch, device):
+    return tree_map(lambda d: torch.zeros(d.shape, dtype=DTYPES[d.dtype],
+                                          device=device),
+                    state_defs(cfg, kind, batch))
+
+
+def _apply_position(cfg, i, p, x, *, positions, mode, cache=None,
+                    cache_index=None, paging=None, impl=None):
+    """One pattern position: (x, its cache leaves or None, its MoE aux
+    loss or None).  Attention returns its (k, v) as ``{"k", "v"}``.  A
+    sequence mixer starts from m = NEG in training (no cache, as the
+    JAX package's loss), from a zeroed state in a prompt prefill (as its
+    ``Model.prefill`` threads a zeroed cache), and from ``cache``
+    otherwise, whose leaves it overwrites in place."""
+    kind = cfg.block_pattern[i]
     h = layers.norm_apply(cfg, p["norm1"], x, impl=impl)
-    out, kvs = layers.attention_apply(
-        cfg, p["attn"], h, positions=positions, causal=cfg.causal,
-        cache=cache, cache_index=cache_index, paging=paging, impl=impl)
+    if kind == "attn":
+        out, kvs = layers.attention_apply(
+            cfg, p["attn"], h, positions=positions, causal=cfg.causal,
+            cache=cache, cache_index=cache_index, paging=paging, impl=impl)
+        new = {"k": kvs[0], "v": kvs[1]}
+    else:
+        state = cache
+        if mode == "prefill" and cache is None:
+            state = _zero_state(cfg, kind, x.shape[0], x.device)
+        out, new = MIXERS[kind](cfg, p[kind], h, cache=state)
+        if cache is not None:
+            for n, t in new.items():
+                cache[n].copy_(t)
+            new = cache
     x = x + out
     aux = None
     if _pos_has_ffn(cfg, i):
@@ -91,29 +156,30 @@ def _apply_position(cfg, i, p, x, *, positions, cache=None, cache_index=None,
         else:
             out = layers.mlp_apply(cfg, p["mlp"], h)
         x = x + out
-    return x, kvs, aux
+    return x, new, aux
 
 
-def _superblock(cfg, pslice, x, positions, cslice, cache_index, paging,
-                impl):
-    """All pattern positions of one repeat: (x, {"p{i}": (k, v)}, the sum
-    of their MoE aux losses, 0.0 without MoE)."""
-    kvs, aux_sum = {}, 0.0
+def _superblock(cfg, pslice, x, positions, mode, cslice, cache_index,
+                paging, impl):
+    """All pattern positions of one repeat: (x, {"p{i}": cache leaves},
+    the sum of their MoE aux losses, 0.0 without MoE)."""
+    caches, aux_sum = {}, 0.0
     for i in range(cfg.pattern_len):
         key = f"p{i}"
-        x, kvs[key], aux = _apply_position(
-            cfg, i, pslice[key], x, positions=positions,
+        x, caches[key], aux = _apply_position(
+            cfg, i, pslice[key], x, positions=positions, mode=mode,
             cache=None if cslice is None else cslice[key],
             cache_index=cache_index, paging=paging, impl=impl)
         if aux is not None:
             aux_sum = aux_sum + aux
-    return x, kvs, aux_sum
+    return x, caches, aux_sum
 
 
 def _train_superblock(cfg, pslice, x, positions, impl):
     # the aux loss is an output of the checkpointed block, so its
     # gradient flows through the recomputation like x's
-    x, _, aux = _superblock(cfg, pslice, x, positions, None, None, None, impl)
+    x, _, aux = _superblock(cfg, pslice, x, positions, "train", None, None,
+                            None, impl)
     return x, aux
 
 
@@ -124,16 +190,17 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
     sum of every MoE position's aux loss (0 without MoE), as the JAX
     package's stack returns it.
 
-    ``mode="train"`` (the loss) keeps no KV and returns caches None; with
-    ``remat`` each super-block (all pattern positions of one repeat) runs
-    under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package
-    checkpoints each scanned super-block: only its input is kept for the
-    backward, and everything inside it (the bfloat16 copies of its
-    weights included) is recomputed there.  Otherwise, without ``caches``
-    (prompt prefill) it returns each position's prompt KV stacked over
-    the repeats, ``{"p{i}": {"k", "v"}}``; with caches (page pools with
+    ``mode="train"`` (the loss) keeps no KV or state and returns caches
+    None; with ``remat`` each super-block (all pattern positions of one
+    repeat) runs under ``torch.utils.checkpoint`` (non-reentrant), as the
+    JAX package checkpoints each scanned super-block: only its input is
+    kept for the backward, and everything inside it (the bfloat16 copies
+    of its weights included) is recomputed there.  Otherwise, without
+    ``caches`` (prompt prefill) it returns each position's prompt KV,
+    ``{"k", "v"}``, or a sequence mixer's state after the prompt, stacked
+    over the repeats under ``p{i}``; with caches (page pools with
     ``paging``, contiguous caches with the int ``cache_index``) it writes
-    the new KV into them in place and returns them.
+    the new KV and state into them in place and returns them.
 
     Each stacked leaf is unbound once, so the backward stacks the layers'
     gradients once instead of scattering every layer into a zero-filled
@@ -141,7 +208,7 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
     per_layer = tree_map(lambda t: t.unbind(0), blocks)
     per_cache = None if caches is None else tree_map(
         lambda t: t.unbind(0), caches)
-    new = {f"p{i}": {"k": [], "v": []} for i in range(cfg.pattern_len)}
+    new = {f"p{i}": {} for i in range(cfg.pattern_len)}
     aux_total = 0.0
     for r in range(cfg.n_repeats):
         pslice = tree_map(lambda ts: ts[r], per_layer)
@@ -155,18 +222,18 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
             continue
         cslice = None if caches is None else tree_map(lambda ts: ts[r],
                                                       per_cache)
-        x, kvs, aux = _superblock(cfg, pslice, x, positions, cslice,
-                                  cache_index, paging, impl)
+        x, layer_caches, aux = _superblock(cfg, pslice, x, positions, mode,
+                                          cslice, cache_index, paging, impl)
         aux_total = aux_total + aux
         if caches is None:
-            for key, (k, v) in kvs.items():
-                new[key]["k"].append(k)
-                new[key]["v"].append(v)
+            for key, leaves in layer_caches.items():
+                for n, t in leaves.items():
+                    new[key].setdefault(n, []).append(t)
     aux_total = torch.as_tensor(aux_total, dtype=torch.float32,
                                 device=x.device)
     if mode == "train":
         return x, None, aux_total
     if caches is not None:
         return x, caches, aux_total
-    return x, {key: {n: torch.stack(ts) for n, ts in kv.items()}
-               for key, kv in new.items()}, aux_total
+    return x, {key: {n: torch.stack(ts) for n, ts in leaves.items()}
+               for key, leaves in new.items()}, aux_total

@@ -66,7 +66,9 @@ def sample_tokens(logits, temps, generator: torch.Generator):
 class EngineConfig:
     """Fixed shapes of one engine.  Prompts are right-padded to
     ``max_prompt_len`` for the legacy prefill; causal masking makes the
-    padding invisible (attention-only architectures)."""
+    padding invisible.  Sequence-mixer (Mamba, xLSTM) recurrences are not
+    masked by padding, so ``sub_quadratic`` architectures prefill at the
+    exact prompt length and take no chunked ticks."""
 
     n_slots: int = 4              # concurrent requests per step
     page_size: int = 16           # tokens per KV page
@@ -126,10 +128,14 @@ class Engine:
         self.tracer = tracer
         self.layout = ecfg.layout()
         self.alloc = paging.PageAllocator(ecfg.n_slots, self.layout)
-        self._chunked = ecfg.prefill_chunk > 0
-        self.scheduler = Scheduler(self.alloc, ecfg.max_prompt_len,
-                                   prefill_chunk=ecfg.prefill_chunk,
-                                   clock=self.clock)
+        # chunked prefill needs causal masking: a sequence mixer's
+        # recurrence cannot skip a chunk's padded rows, so those archs
+        # keep the legacy prefill-then-decode ticks (as the JAX engine)
+        self._chunked = ecfg.prefill_chunk > 0 and not cfg.sub_quadratic
+        self.scheduler = Scheduler(
+            self.alloc, ecfg.max_prompt_len,
+            prefill_chunk=ecfg.prefill_chunk if self._chunked else 0,
+            clock=self.clock)
         self.model = Model(cfg)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -308,19 +314,26 @@ class Engine:
         return sample_tokens(logits, self._dev(temps), self._gen).cpu().numpy()
 
     def _run_prefill(self, req: Request) -> None:
+        """The prompt right-padded to ``max_prompt_len`` (a page multiple,
+        so its KV reshapes into pages), or for a ``sub_quadratic`` config
+        at its exact length (padding would run through the recurrent
+        state), its KV then padded to a page boundary; the KV scattered
+        into the slot's pages and the state into the slot's rows."""
         ecfg, cfg, slot, plen = self.ecfg, self.cfg, req.slot, len(req.prompt)
-        step_len = ecfg.max_prompt_len
+        step_len = plen if cfg.sub_quadratic else ecfg.max_prompt_len
         tokens = np.full((1, step_len), ecfg.pad_id, np.int64)
         tokens[0, :plen] = req.prompt
         logits, pcache = self.model.prefill(
             self.params, {"tokens": self._dev(tokens)},
             compute_dtype=self.compute_dtype,
             last_index=self._dev(np.array([plen - 1])))
-        # max_prompt_len is a page multiple (EngineConfig.layout), so the
-        # prompt KV reshapes into pages without padding
+        cap = paging.round_up(step_len, ecfg.page_size)
+        if cap != step_len:
+            pcache = paging.pad_prefill_cache(cfg, pcache, cap)
         page_rows = self.alloc.block_table[slot:slot + 1,
-                                           :step_len // ecfg.page_size]
-        paging.scatter_prefill(cfg, self.pool, pcache, self._dev(page_rows))
+                                           :cap // ecfg.page_size]
+        paging.scatter_prefill(cfg, self.pool, pcache, self._dev(page_rows),
+                               self._dev(np.array([slot])))
         tok = self._sample(logits, np.array([req.temperature], np.float32))
         self.n_prefills += 1
         self.n_prefill_tokens += plen

@@ -8,8 +8,10 @@ Page 0 (with shards, each shard's first page) is the *null page*: never
 allocated, it absorbs KV writes from empty slots and prompt padding, so
 the steps need no masking.
 
-``scatter_prefill`` moves a legacy prefill's contiguous KV into the
-slot's pages.  The port updates the pool in place (the JAX engine
+Sequence-mixer state (Mamba, xLSTM) is slot-major in the same tree,
+``(reps, n_slots, ...)``.  ``scatter_prefill`` moves a legacy prefill's
+contiguous KV into the slot's pages and its state into the slot's rows.
+The port updates the pool in place (the JAX engine
 donates its pool to the jitted step, so the effect is the same).
 """
 from __future__ import annotations
@@ -49,8 +51,10 @@ def round_up(n_tokens: int, page_size: int) -> int:
 
 
 def init_pool(cfg: ModelConfig, n_slots: int, layout: PagedLayout, device):
-    """The zeroed bf16 page pools, ``{"p{i}": {"k", "v"}}`` of
-    ``(reps, n_pages, page_size, kv, hd)``."""
+    """The zeroed pool: bf16 page pools ``{"p{i}": {"k", "v"}}`` of
+    ``(reps, n_pages, page_size, kv, hd)`` for attention positions, and
+    ``(reps, n_slots, ...)`` state for sequence mixers (the dtypes of
+    ``transformer.state_defs``)."""
     defs = transformer.paged_cache_defs(cfg, n_slots, layout.n_pages,
                                         layout.page_size)
     return P.tree_map(
@@ -59,27 +63,35 @@ def init_pool(cfg: ModelConfig, n_slots: int, layout: PagedLayout, device):
 
 
 def pad_prefill_cache(cfg: ModelConfig, pcache, cap: int):
-    """Zero-pad a prefill cache's KV seq dim up to ``cap`` (a page
-    multiple) so ``scatter_prefill`` can reshape it into pages; the
+    """Zero-pad a prefill cache's attention KV seq dim up to ``cap`` (a
+    page multiple) so ``scatter_prefill`` can reshape it into pages; the
     padded positions stay masked by the slot's length until decode
-    overwrites them."""
-    return {key: {n: F.pad(a, (0, 0, 0, 0, 0, cap - a.shape[2]))
-                  for n, a in kv.items()}
-            for key, kv in pcache.items()}
+    overwrites them.  Sequence-mixer state has no seq dim and passes
+    through."""
+    return {f"p{i}": ({n: F.pad(a, (0, 0, 0, 0, 0, cap - a.shape[2]))
+                       for n, a in pcache[f"p{i}"].items()}
+                      if kind == "attn" else pcache[f"p{i}"])
+            for i, kind in enumerate(cfg.block_pattern)}
 
 
-def scatter_prefill(cfg: ModelConfig, pool, pcache, page_rows):
-    """Write a prefill's contiguous KV into the pool, in place.
+def scatter_prefill(cfg: ModelConfig, pool, pcache, page_rows, slots):
+    """Write a prefill's caches into the pool, in place.
 
-    pcache leaves are ``(reps, B, prefill_len, kv, hd)``; ``page_rows``
-    is ``(B, prefill_len / page_size)`` destination page ids,
-    null-padded past each prompt's pages.  Returns the pool."""
-    rows = page_rows.long()
-    for key, kv in pcache.items():
-        for n, src in kv.items():
-            dst = pool[key][n]          # (reps, n_pages, page, kv, hd)
-            reps, b, cap = src.shape[:3]
-            page = dst.shape[2]
+    Attention KV leaves are ``(reps, B, prefill_len, kv, hd)``, written
+    to ``page_rows``, ``(B, prefill_len / page_size)`` destination page
+    ids, null-padded past each prompt's pages; sequence-mixer state
+    leaves are ``(reps, B, ...)``, written to the rows ``slots`` (B,)
+    (every leaf, so nothing of a slot's last request survives).
+    Returns the pool."""
+    rows, slots = page_rows.long(), slots.long()
+    for i, kind in enumerate(cfg.block_pattern):
+        for n, src in pcache[f"p{i}"].items():
+            dst = pool[f"p{i}"][n]
+            if kind != "attn":          # (reps, n_slots, ...)
+                dst[:, slots] = src.to(dst.dtype)
+                continue
+            reps, b, cap = src.shape[:3]            # dst: (reps, n_pages,
+            page = dst.shape[2]                     # page, kv, hd)
             dst[:, rows] = src.reshape(reps, b, cap // page, page,
                                        *src.shape[3:]).to(dst.dtype)
     return pool

@@ -182,6 +182,7 @@ def _split_pool(dev, b, maxp, hkv, d, page=16, seed=11):
     (8, 8, 128), (16, 8, 128), (32, 4, 128), (16, 1, 128),   # g = 1, 2, 8, 16
     (8, 8, 64), (16, 8, 64), (64, 8, 64), (16, 1, 64),
     (32, 2, 128), (64, 8, 128),          # chatglm3-6b's and qwen2-72b's heads
+    (32, 8, 128),                        # jamba-v0.1-52b's heads (g = 4)
     (8, 8, 32), (16, 2, 32),             # head dim 32 (lammps-proxy's: g = 1)
     (4, 2, 16), (16, 1, 16), (8, 2, 8), (16, 2, 8)])   # head dims 16 and 8
 def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
@@ -494,6 +495,59 @@ def test_apply_smoke_specs_on_the_card(dev, arch):
         "final_loss"]
     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_prefill",
               "paged_decode", "rmsnorm"):
+        assert build.LAUNCHES[k] > 0, k
+
+
+# the plain versions a kernel replaces: none may run on the card's path
+PLAIN = {"flash_attention.ref": ("naive", "fwd", "bwd", "chunked"),
+         "decode_attention.ref": ("decode_ref", "paged_decode_ref",
+                                  "paged_prefill_ref"),
+         "rmsnorm.ref": ("rmsnorm_ref",), "moe_gemm.ref": ("moe_gemm_ref",)}
+
+
+def _refuse_plain(monkeypatch):
+    import importlib
+
+    def refuse(name):
+        def f(*a, **k):
+            raise AssertionError(f"the plain version {name} ran on the card")
+        return f
+
+    for mod, names in PLAIN.items():
+        m = importlib.import_module(f"repro_torch.kernels.{mod}")
+        for n in names:
+            monkeypatch.setattr(m, n, refuse(f"{mod}.{n}"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b"])
+def test_sequence_mixer_smoke_serves_on_the_card(dev, arch, monkeypatch):
+    """jamba and xlstm SMOKE through the Engine on the card with every
+    plain version refused: prompts of lengths off the page size and the
+    kernels' 64-row tiles prefill at their exact lengths; a second engine
+    over the same params and the same batch gives the same streams, and a
+    chunked engine takes no chunked tick."""
+    from repro_torch.configs import registry
+    from repro_torch.serve import Engine, EngineConfig
+    cfg = registry.smoke(arch)
+    _refuse_plain(monkeypatch)
+    ecfg = dict(n_slots=4, page_size=8, max_prompt_len=80, max_seq_len=96)
+    prompts = [[(5 * i + 3 * j) % cfg.vocab_size for j in range(n)]
+               for i, n in enumerate((3, 13, 77, 65, 9))]
+    build.reset_launches()
+    streams = []
+    for chunk in (0, 0, 16):
+        eng = Engine(cfg, EngineConfig(**ecfg, prefill_chunk=chunk),
+                     seed=0, device=dev)
+        reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run()
+        assert eng.n_mixed_steps == 0
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1] == streams[2]
+    assert all(0 <= t < cfg.vocab_size for s in streams[0] for t in s)
+    kernels = ("rmsnorm",) + (("flash_fwd", "paged_decode", "moe_gemm")
+                              if arch.startswith("jamba") else ())
+    for k in kernels:
         assert build.LAUNCHES[k] > 0, k
 
 

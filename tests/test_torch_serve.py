@@ -173,7 +173,8 @@ def test_pad_and_scatter_prefill_match_jax():
                                                  for n, a in kv.items()}}, 8)
     tp = tpaging.scatter_prefill(
         TINY, {"p0": {n: torch.from_numpy(a).to(torch.bfloat16)
-                      for n, a in pool.items()}}, tc, torch.from_numpy(rows))
+                      for n, a in pool.items()}}, tc, torch.from_numpy(rows),
+        torch.tensor([0]))
     for n in ("k", "v"):
         np.testing.assert_array_equal(
             tp["p0"][n].float().numpy(),

@@ -3,16 +3,19 @@
 ``chip_smoke.py``'s serve phase runs them, for comparing trees in one
 call:
 
-    python3 tools/serve_ticks.py [--src DIR]
+    python3 tools/serve_ticks.py [--src DIR] [--arch ARCH [--layers N]]
 
-yi-6b at full width and depth, random weights from seed 0, serves
-``chip_smoke.py``'s twelve prompts through the engine's legacy ticks
-(which also warm the process), then with ``prefill_chunk=256``; each
-run prints its tick medians by kind, TTFT and launches
-(``chip_smoke.serve_run``).  Then a third, chunked run of the prompts
-traces its fifth mixed tick (every running slot's decode and a prompt
-chunk) and stops: the card's busy time and idle share in that tick and
-its device time by kernel.  (The profiler starts and stops outside the
+An arch (default yi-6b) at full width and depth, or at ``--layers`` of
+its layers, random weights from seed 0, serves ``chip_smoke.py``'s
+twelve prompts through the engine's legacy ticks (which also warm the
+process), then with ``prefill_chunk=256``; each run prints its tick
+medians by kind, TTFT and launches (``chip_smoke.serve_run``).  Then a
+third, chunked run of the prompts traces its fifth mixed tick (every
+running slot's decode and a prompt chunk) and stops: the card's busy
+time and idle share in that tick and its device time by kernel.  A
+sequence-mixer arch takes no chunked tick: its sixth decode tick is
+traced instead, and then the exact-length prefill of the longest prompt
+alone.  (The profiler starts and stops outside the
 timed runs: its set-up takes seconds.)  ``--src`` runs another tree's
 ``repro_torch`` (e.g. an older commit's ``src``, unpacked into a
 directory ``.gitignore`` lists) with this tree's ``chip_smoke.py``
@@ -22,6 +25,7 @@ and nvcc.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -33,6 +37,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src directory whose repro_torch to run")
+    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve this many of the arch's layers")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -53,7 +60,10 @@ def main() -> int:
     print(f"[serve] {card(torch)}; repro_torch from "
           f"{Path(build.__file__).parents[2]}")
     build.build()
-    cfg = registry.get("yi-6b")
+    cfg = registry.get(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    print(f"[serve] {cfg.name}, {cfg.n_layers} layers")
     params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
                              dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
@@ -62,24 +72,42 @@ def main() -> int:
     for chunk in (0, 256):
         cs.serve_run(torch, dev, cfg, params, chunk, prompts, build)
 
-    eng = cs.serve_engine(cfg, params, dev, 256)
-    for p in prompts:
-        eng.submit(p, max_new_tokens=32)
-    while eng.n_mixed_steps < 4:
-        eng.step()
-    while True:                     # the next mixed tick
-        n_mix = eng.n_mixed_steps
+    def traced_step(eng):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             more = eng.step()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
-        cs.check(more, "the chunked run ended before its fifth mixed tick")
-        if eng.n_mixed_steps > n_mix:
+        cs.check(more, "the run ended before the tick to trace")
+        return prof, dt
+
+    mixers = cfg.sub_quadratic
+    eng = cs.serve_engine(cfg, params, dev, 0 if mixers else 256)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    count = "n_decode_steps" if mixers else "n_mixed_steps"
+    while getattr(eng, count) < (5 if mixers else 4):
+        eng.step()
+    while True:                     # the next tick of that kind
+        n = getattr(eng, count)
+        prof, dt = traced_step(eng)
+        if getattr(eng, count) > n:
             break
-    print("[serve] chunked(256): mixed tick 5 traced (the decode of every "
-          "running slot and a 256-row prompt chunk):")
+    if not mixers:
+        print("[serve] chunked(256): mixed tick 5 traced (the decode of "
+              "every running slot and a 256-row prompt chunk):")
+        cs.step_table(prof, dt, "serve")
+        return 0
+    print("[serve] legacy: decode tick 6 traced (8 running slots):")
+    cs.step_table(prof, dt, "serve")
+    del eng
+    eng = cs.serve_engine(cfg, params, dev, 0)
+    longest = max(prompts, key=len)
+    eng.submit(longest, max_new_tokens=32)
+    prof, dt = traced_step(eng)
+    print(f"[serve] the exact-length prefill of a {len(longest)}-token "
+          f"prompt alone, traced:")
     cs.step_table(prof, dt, "serve")
     return 0
 
