@@ -36,7 +36,10 @@ Phases, each printing its own lines:
              beside F.rms_norm; the seqmix phase's shapes: rmsnorm at d
              2048, flash_fwd at a 77-token prompt and moe_gemm at
              jamba-v0.1-52b's widths (16 experts, 4096 <-> 14336), each
-             beside its library call; then, each from a generator of its own,
+             beside its library call; the seqmix_train phase's: flash_fwd
+             and flash_bwd at jamba's (2, 4096, 32 over 8 heads, 128) and
+             moe_gemm forward, dX and dW at its training capacity (T
+             1280); then, each from a generator of its own,
              the attention kernels at lammps-proxy's head dim 32 (8 heads
              over 8 KV heads), the SMOKE configs' 16 (4 over 2) and
              qwen2-72b SMOKE's 8 (8 over 2): flash_fwd and flash_bwd at
@@ -77,13 +80,23 @@ Phases, each printing its own lines:
              at full width and 2 layers on one 2 x 4096 batch through the
              kernel path, the plain path in bf16 and the plain path in
              float32;
-             yi-6b at full width and 8 of its 32 layers trained 4 steps
+             yi-6b at full width and 4 of its 32 layers trained 4 steps
              through the port's Trainer (AdamW, float32 master weights,
              bf16 compute, remat) with the launch counts read around the
              run and a checkpoint saved at step 2, restored into a fresh
              Trainer and stepped on to 4; then granite-moe-1b-a400m at
              full width and all 24 layers trained 4 steps, batch 4 x 4096;
-6. comm    - granite-moe-1b-a400m at full width and 8 of its 24 layers,
+   seqmix_train - the sequence mixers trained: gradient checks (as
+             above) of a 2-layer ("attn", "mamba") jamba-v0.1-52b and a
+             2-layer ("mlstm", "slstm") xlstm-1.3b (2 x 512); then
+             jamba-v0.1-52b
+             at full width and those 2 layers and xlstm-1.3b at full
+             width and 8 of its 48 layers (one 7 mLSTM : 1 sLSTM
+             super-block; rows of 512 tokens, for time) trained as
+             yi-6b is (every plain version
+             refused), each traced step's shares of the Mamba scan's
+             forward and backward, flash_bwd, moe_gemm and the optimizer;
+6. comm    - granite-moe-1b-a400m at full width and 4 of its 24 layers,
              4 steps of 4 x 4096 tokens: on one device with grad_accum=4,
              then on four ranks of the one card (spawned processes, gloo,
              a (pod=2, data=2) mesh, one row each) under hierarchical
@@ -107,11 +120,13 @@ Phases, each printing its own lines:
              lifecycle and the phase's launch counts are printed;
 8. smoke   - the executors' default SMOKE configs (head dims 16 and 8)
              on the card: a WorkloadSpec of every executor kind applied
-             without cfg=, and jamba-v0.1-52b and xlstm-1.3b served and
-             elastic-served (no plain version may run); then
+             without cfg=, and jamba-v0.1-52b and xlstm-1.3b served,
+             elastic-served, trained and elastic-trained (no plain version
+             may run); then
              ``repro_torch.launch.pipeline`` on pipeline_canary.json
              (yi-6b SMOKE) with its trace held to tools/validate_trace.py;
-             then the pipeline at full size: granite-moe-1b-a400m trained
+             then the pipeline at full width: granite-moe-1b-a400m (8 of
+             its 24 layers) trained
              elastically (6 steps of 4 x 4096, grown 2 -> 4 nodes and
              shrunk back, every checkpoint timed and sized; the losses
              against an uninterrupted Trainer), gated on its final loss,
@@ -199,7 +214,11 @@ COMM_RTOL = 1e-4
 # block (1/127 of its absmax), and AdamW's step is bounded by the learning
 # rate whatever the gradient, so three steps move the loss far less than 1%
 COMPRESS_RTOL = 1e-2
-COMM_LAYERS = 8             # of granite's 24: four ranks of all 24 need ~150 GB
+# depths cut for the script's time limit (each path keeps its checks; the
+# checkpoints through host memory and npz are what take the time)
+COMM_LAYERS = 4             # of granite's 24: four ranks of all 24 need ~150 GB
+YI_TRAIN_LAYERS = 4         # of yi-6b's 32: a 15 GB checkpoint, not 25
+PIPE_LAYERS = 8             # of granite's 24 in the pipeline: 5.6 GB a step
 QWEN2_LAYERS = 16           # of qwen2-72b's 80: 16.5e9 params, 33 GB in bf16
 COMM_STEPS = 4
 COMM_TIMEOUT_S = 300        # each collective (gloo's own timeout)
@@ -491,6 +510,7 @@ def kernel_phase(torch, dev):
     rows_out.update(quantize_rows(torch, dev, cpm))
     dense_shapes(torch, dev, cpm)
     seqmix_shapes(torch, dev, cpm)
+    seqmix_train_shapes(torch, dev, rows_out, cpm)
     # lammps-proxy's head dim 32 (8 heads over 8), the SMOKE configs' 16
     # (4 over 2) and qwen2-72b SMOKE's 8 (8 over 2)
     small_head_dim(torch, dev, rows_out, cpm, 32, 8, 8, 3232, "lammps-proxy")
@@ -716,33 +736,18 @@ def seqmix_shapes(torch, dev, cpm):
     del w_in, w_out
 
 
-def small_head_dim(torch, dev, rows_out, cpm, D, H, HKV, seed, label):
-    """The attention kernels at a head dim below 64 (``label``: whose),
-    H query heads over HKV KV heads, from a generator of their own
-    (``seed``): flash_fwd and flash_bwd at the operator phase's train
-    shape (2 x 2048, causal), paged decode and decode over a contiguous
-    cache at the serve cell's 8 slots, paged prefill at its 256-row
-    chunk.  The wgmma kernels run D on 64-wide tiles whose columns
-    D..63 are zero (wgmma.cuh); the split decode kernel gives each of
-    lanes 0..D-1 one column below D = 32.  Each kernel is held against
-    its plain version at the head dim 64 rows' tolerances, its error
-    folded into its kernel's row, and timed beside SDPA (GQA through
-    ``enable_gqa``, the backward on a KV repeat) and its bound."""
+def flash_holds(torch, cpm, rnd, rows_out, B, S, H, HKV, D, what):
+    """flash_fwd and flash_bwd at (B, S) causal, H query heads over HKV
+    KV heads of dim D (``what``: whose): each held against its plain
+    version per element at TOL (lse at LSE_TOL) and in relative L2
+    (FWD_REL_L2_TOL, REL_L2_TOL), the same bits on a second run, its
+    error folded into its kernel's row; each timed beside SDPA (GQA
+    through ``enable_gqa``, the backward on a KV repeat) and its
+    bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    g = torch.Generator(device=dev).manual_seed(seed)
-    bf = torch.bfloat16
-    gqa = H != HKV
-
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
-
-    PAGE, B, S = 16, 2, 2048
-    what = f"head dim {D}"
     q, k, v, do = rnd(B, S, H, D), rnd(B, S, HKV, D), rnd(B, S, HKV, D), \
         rnd(B, S, H, D)
     out, lse = fa_kernel.flash_fwd(q, k, v, causal=True)
@@ -751,11 +756,11 @@ def small_head_dim(torch, dev, rows_out, cpm, D, H, HKV, seed, label):
     e_lse = float((lse - ref_lse).abs().max())
     check(ok and e_lse <= LSE_TOL, f"flash_fwd at {what} differs from "
           f"the plain version (lse by {e_lse})")
-    fwd_rel_l2(out, ref_out, f"(2,2048) {what}")
+    fwd_rel_l2(out, ref_out, f"({B},{S}) {what}")
     again = fa_kernel.flash_fwd(q, k, v, causal=True)
     check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
           f"flash_fwd at {what} gave other bits on a second run")
-    qkv = f"q (2,2048,{H},{D}), kv (2,2048,{HKV},{D})"
+    qkv = f"q ({B},{S},{H},{D}), kv ({B},{S},{HKV},{D})"
     _fold(rows_out["flash_fwd"], e, f"; and {qkv}")
     got = fa_kernel.flash_bwd(q, k, v, out, lse, do, causal=True)
     want = fa_ref.bwd(q, k, v, out, lse, do, causal=True)
@@ -773,7 +778,7 @@ def small_head_dim(torch, dev, rows_out, cpm, D, H, HKV, seed, label):
           f"flash_bwd at {what} gave other bits on a second run")
     del got, want, again, ref_out, ref_lse
     delta = (out.float() * do.float()).sum(-1)
-    shape = f"q (2,2048,{H},{D}) kv (2,2048,{HKV},{D}) causal"
+    shape = f"q ({B},{S},{H},{D}) kv ({B},{S},{HKV},{D}) causal"
     t_fwd, sdpa_fwd_ms = fwd_rate(torch, cpm, shape, q, k, v)
     t_dq = median_ms(cpm, lambda: fa_kernel.flash_bwd_dq(
         q, k, v, do, lse, delta, causal=True))
@@ -805,6 +810,101 @@ def small_head_dim(torch, dev, rows_out, cpm, D, H, HKV, seed, label):
           f" ms), SDPA backward {sdpa_bwd_ms:.4f} ms; relative L2 dq "
           f"{rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g}")
     del q, k, v, do, out, lse, delta, qt, kt, vt, dot
+
+
+def seqmix_train_shapes(torch, dev, rows_out, cpm):
+    """The kernels at the shapes the seqmix_train phase gives them, from
+    a generator of their own: flash_fwd and flash_bwd at jamba-v0.1-52b's
+    training attention (2 x 4096, 32 query heads over 8 KV heads: g = 4
+    at D 128, an instance no other trained arch takes) through
+    ``flash_holds``; moe_gemm at jamba's training capacity (16 experts,
+    2 groups of ceil(4096 x 2 x 1.25 / 16) = 640 slots: T 1280 an
+    expert), the two forward products (4096 -> 14336 and back) and the
+    backward's dX and dW of the first on the views the autograd Function
+    passes, each against its plain version (errors scaled to the size of
+    such a sum, as in ``seqmix_shapes``; the backward's also in relative
+    L2) and timed beside torch.bmm and its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.moe_gemm import ref as moe_ref
+
+    g = torch.Generator(device=dev).manual_seed(2323)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    flash_holds(torch, cpm, rnd, rows_out, 2, 4096, 32, 8, 128,
+                "jamba-v0.1-52b's training attention (g = 4)")
+
+    E, T, D, F_ = 16, 1280, 4096, 14336
+    w_in, w_out = rnd(E, D, F_, scale=0.02), rnd(E, F_, D, scale=0.02)
+    x = rnd(E, T, D)
+    for a, b, depth, name in ((x, w_in, D, "up"), (rnd(E, T, F_), w_out, F_,
+                                                   "down")):
+        got, want = moe_kernel.moe_gemm(a, b), moe_ref.moe_gemm_ref(a, b)
+        e, ok = err_within(got.float() * depth ** -0.5 / 0.02,
+                           want.float() * depth ** -0.5 / 0.02, TOL)
+        check(ok, f"moe_gemm at jamba's training capacity {name} differs "
+              f"from the plain version")
+        row = moe_rate(torch, cpm, f"jamba train {name}", a, b, got)
+        plain = median_ms(cpm, lambda: moe_ref.moe_gemm_ref(a, b), n=3,
+                          reps=5)
+        print(f"[kernels] moe_gemm jamba train (T {T}) {name}: max error "
+              f"{e:.3g} (x 1/(0.02 sqrt({depth})), tol {TOL}); plain "
+              f"{plain:.4f} ms; kernel {row['ms']:.4f} ms")
+        del got, want
+    dy = rnd(E, T, F_)
+    grads = []
+    for impl in (None, "ref"):
+        xl, wl = x.clone().requires_grad_(), w_in.clone().requires_grad_()
+        grads.append(torch.autograd.grad(ops.moe_gemm(xl, wl, impl=impl),
+                                         (xl, wl), dy))
+        del xl, wl
+    # dX = dY W^T sums F unit x 0.02 products, dW = X^T dY T unit ones
+    for name, a, b, depth, w in (("dX", grads[0][0], grads[1][0], F_, 0.02),
+                                 ("dW", grads[0][1], grads[1][1], T, 1.0)):
+        e, ok = err_within(a.float() * depth ** -0.5 / w,
+                           b.float() * depth ** -0.5 / w, TOL)
+        r = rel_l2(a, b)
+        check(ok and r <= REL_L2_TOL, f"moe_gemm backward {name} at jamba's "
+              f"training capacity differs from the plain version's autograd "
+              f"(relative L2 {r:.3g})")
+        print(f"[kernels] moe_gemm jamba train backward {name}: max error "
+              f"{e:.3g} (x 1/({w} sqrt({depth})), tol {TOL}), relative L2 "
+              f"{r:.3g} (tol {REL_L2_TOL})")
+    moe_rate(torch, cpm, "jamba train backward dX = dY W^T", dy,
+             w_in.transpose(1, 2), grads[0][0])
+    moe_rate(torch, cpm, "jamba train backward dW = X^T dY",
+             x.transpose(1, 2), dy, grads[0][1])
+    del grads, w_in, w_out, x, dy
+
+
+def small_head_dim(torch, dev, rows_out, cpm, D, H, HKV, seed, label):
+    """The attention kernels at a head dim below 64 (``label``: whose),
+    H query heads over HKV KV heads, from a generator of their own
+    (``seed``): flash_fwd and flash_bwd at the operator phase's train
+    shape (2 x 2048, causal), paged decode and decode over a contiguous
+    cache at the serve cell's 8 slots, paged prefill at its 256-row
+    chunk.  The wgmma kernels run D on 64-wide tiles whose columns
+    D..63 are zero (wgmma.cuh); the split decode kernel gives each of
+    lanes 0..D-1 one column below D = 32.  Each kernel is held against
+    its plain version at the head dim 64 rows' tolerances, its error
+    folded into its kernel's row, and timed beside SDPA (GQA through
+    ``enable_gqa``, the backward on a KV repeat) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    gqa = H != HKV
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    PAGE, what = 16, f"head dim {D}"
+    flash_holds(torch, cpm, rnd, rows_out, 2, 2048, H, HKV, D, what)
 
     MAXP = 1024 // PAGE
     n_pages = 8 * MAXP + 1
@@ -1874,11 +1974,13 @@ def _rel_by_group(params, a, b):
     return {g: round((num[g] / den[g]) ** 0.5, 5) for g in sorted(num)}
 
 
-def grad_check(torch, dev, arch):
-    """``arch`` at full width and 2 layers, one 2 x 4096 batch: gradients
-    through the kernels (bf16), the plain versions (bf16) and the plain
-    versions (float32).  The kernel path must be as close to float32 as
-    the plain bf16 path is, within LOGIT_NOISE_FACTOR, in every group."""
+def grad_check(torch, dev, arch, pattern=None, seq=4096):
+    """``arch`` at full width and 2 layers (of ``pattern`` where given),
+    one batch of 2 x ``seq`` tokens: gradients through the kernels (bf16), the plain
+    versions (bf16) and the plain versions (float32).  The kernel path
+    must be as close to float32 as the plain bf16 path is, within
+    LOGIT_NOISE_FACTOR, in every group.  Each bf16 set is compared as it
+    comes and dropped, so at most two sets are held."""
     import dataclasses
 
     from repro_torch.configs import TrainConfig, WorkloadShape, registry
@@ -1888,40 +1990,49 @@ def grad_check(torch, dev, arch):
     from repro_torch.models.model import Model
 
     cfg = dataclasses.replace(registry.get(arch), n_layers=2)
+    if pattern is not None:
+        cfg = dataclasses.replace(cfg, block_pattern=pattern)
     params = init_train_state(cfg, TrainConfig(), device=dev)["params"]
     draw_biases(torch, dev, cfg, params, seed=12)
     batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
-             synthetic_batch(cfg, WorkloadShape("chip", "train", 4096, 2)
+             synthetic_batch(cfg, WorkloadShape("chip", "train", seq, 2)
                              ).items()}
     leaves = P.tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
-    got, losses = {}, {}
+    f32, rel = None, {}
     for name, impl, dtype in (("plain_f32", "ref", torch.float32),
                               ("plain", "ref", torch.bfloat16),
                               ("kernels", None, torch.bfloat16)):
         t = time.perf_counter()
         loss, _ = Model(cfg, impl=impl).loss(params, batch, remat=True,
                                              compute_dtype=dtype)
-        got[name] = torch.autograd.grad(loss, leaves)
-        losses[name] = round(float(loss.detach()), 5)
+        grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
-        print(f"[train] grad check: {name} loss {losses[name]} in "
+        print(f"[train] grad check: {name} loss "
+              f"{round(float(loss.detach()), 5)} in "
               f"{time.perf_counter() - t:.2f} s")
-    k_f = _rel_by_group(params, got["kernels"], got["plain_f32"])
-    p_f = _rel_by_group(params, got["plain"], got["plain_f32"])
-    print(f"[train] grad check ({cfg.name} at 2 layers, batch 2 x 4096), "
+        del loss
+        if f32 is None:
+            f32 = grads
+        else:
+            rel[name] = _rel_by_group(params, grads, f32)
+        del grads
+    k_f, p_f = rel["kernels"], rel["plain"]
+    print(f"[train] grad check ({cfg.name} at 2 layers"
+          f"{'' if pattern is None else f' {pattern}'}, batch 2 x {seq}), "
           f"relative L2 error per group: kernels vs f32 {k_f}; plain bf16 "
           f"vs f32 {p_f}")
     for group in k_f:
         check(k_f[group] <= LOGIT_NOISE_FACTOR * p_f[group],
               f"kernel-path gradients of {group} drift from f32 by "
               f"{k_f[group]}, plain bf16 by {p_f[group]}")
-    del got, params
+    del f32, params, leaves
+    gc.collect()
     torch.cuda.empty_cache()
 
 
-def step_table(prof, step_s, tag="train"):
+def step_table(prof, step_s, tag="train", spans=(), kernels=()):
     """Device time of one traced train step by kernel, and the share of
     the step's host-clock time in which the card ran none (one stream,
     so kernels do not overlap).  Only device rows count: an operator row
@@ -1929,14 +2040,19 @@ def step_table(prof, step_s, tag="train"):
     the kernels it launched, a user annotation on the device (gloo's
     ``gloo:all_gather`` around its copies) the time of what it spans,
     and CUPTI's "Command Buffer Full" records a full launch queue, not
-    device work."""
+    device work.  Then the share of the busy time of each of ``spans``
+    (operators by their exact name, an autograd Function's
+    ``SelectiveScan`` and ``SelectiveScanBackward``: the kernels launched
+    inside them) and of ``kernels`` (device rows whose name holds the
+    word).  Returns the busy seconds and the shares."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    rows = sorted((e for e in prof.key_averages()
+    averages = prof.key_averages()
+    rows = sorted((e for e in averages
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)
                    and e.key != "Command Buffer Full"),
@@ -1951,6 +2067,24 @@ def step_table(prof, step_s, tag="train"):
         print(f"[{tag}]   {dev_us(e) / 1e3:10.2f} ms "
               f"{100 * dev_us(e) / 1e6 / busy:5.1f}%  {e.count:6d} calls  "
               f"{e.key[:70]}")
+    def inside_us(e):
+        return (sum(k.duration for k in e.kernels)
+                + sum(inside_us(c) for c in e.cpu_children))
+
+    shares = []
+    for name in spans:
+        hit = [e for e in prof.events() if e.device_type == DeviceType.CPU
+               and e.name == name]
+        shares.append((name, sum(inside_us(e) for e in hit), len(hit)))
+    for word in kernels:
+        hit = [e for e in rows if word in e.key]
+        shares.append((word, sum(dev_us(e) for e in hit),
+                       sum(e.count for e in hit)))
+    if shares:
+        print(f"[{tag}] shares of the busy time: " + "; ".join(
+            f"{name} {us / 1e3:.2f} ms {100 * us / 1e6 / busy:.1f}% "
+            f"({n} calls)" for name, us, n in shares))
+    return busy, {name: us / 1e6 / busy for name, us, _ in shares}
 
 
 def _check_history(history):
@@ -2004,45 +2138,82 @@ def train_granite(torch, dev, build):
     L, steps = cfg.n_layers, 4
     # per layer and step: 3 expert products forward, 3 again under remat,
     # 2 per product backward
-    want = {"moe_gemm": 12 * L * steps, "flash_fwd": 2 * L * steps,
-            "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
-            "rmsnorm": (2 * 2 * L + 1) * steps}
-    for name, n in want.items():
-        check(launches[name] == n, f"granite train launched {name} "
-              f"{launches[name]} times, expected {n}")
+    _check_launches("granite train", launches, {
+        "moe_gemm": 12 * L * steps, "flash_fwd": 2 * L * steps,
+        "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
+        "rmsnorm": (2 * 2 * L + 1) * steps})
     del tr, prof
     torch.cuda.empty_cache()
     return launches
 
 
-def train_phase(torch, dev, build):
-    """yi-6b at full width and 8 of 32 layers, 4 steps of 2 x 4096 tokens
-    through the Trainer, a checkpoint at step 2, then a fresh Trainer
-    restored from it and stepped on to 4.  Returns the launch counts of
-    the uninterrupted run."""
-    import dataclasses
-    import gc
+class _TimedOptimizer:
+    """Within the block, a train step that ``dist.steps`` builds times its
+    optimizer update with CUDA events, a synchronize before it, so the
+    events hold the update alone: ``ms``, one time a step, for as long as
+    the step lives.  Timed so because a named range around the update in
+    a trace taken late in this script read about 2.5x what the events
+    give, more than the busy time the step had left."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.dist import steps
+        self.steps, self.real, self.ms = steps, steps.make_optimizer, []
+
+        def make(cfg, tcfg):
+            update = self.real(cfg, tcfg)
+
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = update(*a, **k)
+                end.record()
+                end.synchronize()
+                self.ms.append(start.elapsed_time(end))
+                return out
+            return timed
+
+        steps.make_optimizer = make
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.make_optimizer = self.real
+
+
+def train_and_resume(torch, dev, build, cfg, shape, heading, spans=(),
+                     kernels=()):
+    """``cfg`` trained 4 steps of ``shape`` through the Trainer (AdamW,
+    float32 master weights, bf16 compute, remat) with a checkpoint at
+    step 2 (its save timed), step 3 traced (``step_table`` with
+    ``spans`` and ``kernels``), then a fresh Trainer restored from the
+    checkpoint and stepped on to 4: its losses against the uninterrupted
+    run's (RESUME_RTOL).  The uninterrupted run's optimizer updates are
+    timed (``_TimedOptimizer``).  ``heading`` says what was cut and why.
+    Returns
+    (launch counts of the uninterrupted run, its history, peak device
+    memory in GB, the traced step's shares with the optimizer's among
+    them)."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import TrainConfig, WorkloadShape, yi_6b
+    from repro_torch.configs import TrainConfig
     from repro_torch.models.model import Model
     from repro_torch.train import Trainer
 
-    cfg = dataclasses.replace(yi_6b.CONFIG, n_layers=8)
     tcfg = TrainConfig()
-    shape = WorkloadShape("chip", "train", 4096, 2)
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
-    tr = Trainer(cfg, tcfg, shape, ckpt_dir=str(ckpt_dir), seed=0,
-                 device=dev)
+    with _TimedOptimizer() as opt:
+        tr = Trainer(cfg, tcfg, shape, ckpt_dir=str(ckpt_dir), seed=0,
+                     device=dev)
     t = time.perf_counter()
     tr.init_or_resume()
     torch.cuda.synchronize()
-    print(f"[train] {cfg.name} at {cfg.n_layers} of 32 layers, d_model "
-          f"{cfg.d_model}: {Model(cfg).n_params() / 1e9:.3f} B params, "
+    print(f"[train] {heading}: {Model(cfg).n_params() / 1e9:.3f} B params, "
           f"float32 with AdamW state, drawn in {time.perf_counter() - t:.1f} "
           f"s; batch {shape.global_batch} x {shape.seq_len}, {tcfg}")
     build.reset_launches()
@@ -2061,16 +2232,15 @@ def train_phase(torch, dev, build):
     print(f"[train] 4 steps and one checkpoint in {time.perf_counter() - t:.1f}"
           f" s (the save at step 2, {save_s:.1f} s of it, host copy and npz "
           f"write); peak device memory {peak:.2f} GB; launches {launches}")
-    step_table(prof, tr.history[-1]["step_time_s"])
-    L, steps = cfg.n_layers, 4
-    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps, "rmsnorm": (2 * 2 * L + 1) * steps}
-    for name, n in want.items():
-        check(launches[name] == n, f"train launched {name} {launches[name]} "
-              f"times, expected {n} (each forward runs twice under remat)")
+    busy, shares = step_table(prof, tr.history[-1]["step_time_s"],
+                              spans=spans, kernels=kernels)
+    shares["optimizer"] = opt.ms[-1] / 1e3 / busy
+    print(f"[train] the optimizer's update (CUDA events, steps 0-3): "
+          f"{[round(ms, 2) for ms in opt.ms]} ms, the traced step's "
+          f"{100 * shares['optimizer']:.1f}% of its busy time")
 
     ref = tr.history
-    del tr
+    del tr, prof
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -2092,7 +2262,108 @@ def train_phase(torch, dev, build):
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches, ref, peak, shares
+
+
+def _check_launches(label, launches, want):
+    for name, n in want.items():
+        check(launches[name] == n, f"{label} launched {name} "
+              f"{launches[name]} times, expected {n}")
+
+
+def train_phase(torch, dev, build):
+    """yi-6b at full width and YI_TRAIN_LAYERS of 32 layers, 4 steps of
+    2 x 4096 tokens
+    through ``train_and_resume``.  Returns the launch counts of the
+    uninterrupted run."""
+    from repro_torch.configs import WorkloadShape, yi_6b
+
+    cfg = dataclasses.replace(yi_6b.CONFIG, n_layers=YI_TRAIN_LAYERS)
+    launches = train_and_resume(
+        torch, dev, build, cfg, WorkloadShape("chip", "train", 4096, 2),
+        f"{cfg.name} at {cfg.n_layers} of 32 layers, d_model "
+        f"{cfg.d_model}")[0]
+    L, steps = cfg.n_layers, 4
+    # each forward runs twice under remat
+    _check_launches("train", launches, {
+        "flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+        "flash_bwd_dkv": L * steps, "rmsnorm": (2 * 2 * L + 1) * steps})
     return launches
+
+
+# the seqmix_train phase's cuts.  jamba at 2 layers of JAMBA_F32_PATTERN:
+# the attention position, one Mamba block and one MoE FFN, every kernel
+# jamba trains through (3.68e9 params, ~59 GB of float32 weights,
+# gradients and AdamW moments); in the natural order the attention
+# position is the 5th layer (7.2e9 params, ~115 GB).  xlstm at one whole
+# 7 mLSTM : 1 sLSTM super-block of its 48 layers, for time: the sLSTM
+# recurrence is the host's loop (a step about a minute at 48 layers); and
+# at 2 x XLSTM_SEQ tokens: at 2 x 4096 its step took 20-26 s on an H100,
+# and reading the trace of one step about 400 s more.
+XLSTM_TRAIN_LAYERS = 8
+XLSTM_SEQ = 512
+SEQMIX_SPANS = ("SelectiveScan", "SelectiveScanBackward")
+SEQMIX_KERNELS = ("flash_fwd", "flash_bwd", "moe_gemm", "rmsnorm")
+
+
+def seqmix_train_phase(torch, dev, build):
+    """The sequence mixers trained on the card with every plain version
+    refused: the gradient checks (``grad_check``) of a 2-layer jamba of
+    JAMBA_F32_PATTERN and a 2-layer ("mlstm", "slstm") xlstm; then
+    jamba-v0.1-52b at full width and 2 layers (JAMBA_F32_PATTERN) and
+    xlstm-1.3b at full width and XLSTM_TRAIN_LAYERS of 48, each 4 steps
+    of 2 rows (``train_4k``'s batch cut to 2; xlstm's rows cut to
+    XLSTM_SEQ tokens, jamba's 4096) through ``train_and_resume``, the traced step's shares of the Mamba scan's
+    forward and backward, flash_bwd, moe_gemm and the optimizer printed.
+    Returns the launch counts of the two runs."""
+    from repro_torch.configs import WorkloadShape, registry
+
+    t_phase = time.perf_counter()
+    grad_check(torch, dev, "jamba-v0.1-52b", JAMBA_F32_PATTERN)
+    grad_check(torch, dev, "xlstm-1.3b", ("mlstm", "slstm"), XLSTM_SEQ)
+    runs = []
+    jamba = dataclasses.replace(registry.get("jamba-v0.1-52b"), n_layers=2,
+                                block_pattern=JAMBA_F32_PATTERN)
+    xlstm = dataclasses.replace(registry.get("xlstm-1.3b"),
+                                n_layers=XLSTM_TRAIN_LAYERS)
+    for cfg, seq, heading, want in (
+            (jamba, 4096, f"{jamba.name} at full width (d_model {jamba.d_model}), "
+             f"2 of 32 layers, pattern {JAMBA_F32_PATTERN} (cut: every "
+             f"kernel jamba trains through; reaching the attention position "
+             f"in the natural order takes 5 layers, 7.2e9 params, ~115 GB "
+             f"of float32 state)",
+             # per step: rmsnorm 2 a layer a forward (twice under remat)
+             # and the final norm; moe_gemm 3 forward, 3 again, 6 backward
+             {"rmsnorm": 9 * 4, "flash_fwd": 2 * 4, "flash_bwd_dq": 4,
+              "flash_bwd_dkv": 4, "moe_gemm": 12 * 4}),
+            (xlstm, XLSTM_SEQ,
+             f"{xlstm.name} at full width (d_model {xlstm.d_model}), "
+             f"{XLSTM_TRAIN_LAYERS} of 48 layers, one 7 mLSTM : 1 sLSTM "
+             f"super-block, {XLSTM_SEQ}-token rows (cut for time: the "
+             f"sLSTM steps and the mLSTM chunks are the host's loops)",
+             {"rmsnorm": (2 * XLSTM_TRAIN_LAYERS + 1) * 4})):
+        t = time.perf_counter()
+        shape = WorkloadShape("chip", "train", seq, 2)
+        with _NoPlain():
+            launches, hist, peak, shares = train_and_resume(
+                torch, dev, build, cfg, shape, heading, SEQMIX_SPANS,
+                SEQMIX_KERNELS)
+        _check_launches(f"{cfg.name} train", launches, want)
+        steps_ms = [round(h["step_time_s"] * 1e3, 1) for h in hist]
+        best = min(h["step_time_s"] for h in hist[1:])
+        scan = ""
+        if "mamba" in cfg.block_pattern:
+            share = shares["SelectiveScan"] + shares["SelectiveScanBackward"]
+            scan = (f"; the Mamba scan {100 * share:.1f}% of the traced "
+                    f"step's busy time")
+        print(f"[seqmix_train] {cfg.name}: step ms {steps_ms} (the last "
+              f"traced), {shape.global_batch * shape.seq_len / best:.0f} "
+              f"tokens/s at the fastest; peak {peak:.2f} GB{scan}; "
+              f"{time.perf_counter() - t:.1f} s")
+        runs.append(launches)
+    print(f"[seqmix_train] no plain version ran in the trains; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2712,7 +2983,7 @@ def operator_phase(torch, dev, build):
 
 # ---------------------------------------------------------------------------
 # phase 8: the SMOKE configs on the card, the pipeline launcher, and the
-# train -> gate -> canary-promote pipeline at full size
+# train -> gate -> canary-promote pipeline at full width
 # ---------------------------------------------------------------------------
 
 SMOKE_ARCHS = {"yi-6b": 16, "granite-moe-1b-a400m": 16, "lammps-proxy": 16,
@@ -2729,8 +3000,8 @@ def smoke_phase(torch, dev, build):
     (head dim 8) trained and served both ways, the committed
     ``serve_fleet.json`` (two replicas) and ``serve_batch.json`` (elastic
     serve), an elastic train of yi-6b and an elastic fleet of two yi-6b
-    replicas, jamba-v0.1-52b and xlstm-1.3b served and elastic-served, and
-    a plain Flux job whose payload is qwen2-72b's SMOKE
+    replicas, jamba-v0.1-52b and xlstm-1.3b served, elastic-served,
+    trained and elastic-trained, and a plain Flux job whose payload is qwen2-72b's SMOKE
     forward.  Every
     handle completes through Pending, Bound and Running; each served
     stream equals a direct Engine's over the executor's parameters; each
@@ -2787,7 +3058,12 @@ def smoke_phase(torch, dev, build):
              global_batch=4, seq_len=32, ckpt_dir=str(ckpt)),
         spec("serve", "yi-6b", elastic=True, replicas=2, **serve)] + [
         spec("serve", a, elastic=elastic, **serve)
-        for a in ("jamba-v0.1-52b", "xlstm-1.3b") for elastic in (False, True)],
+        for a in ("jamba-v0.1-52b", "xlstm-1.3b") for elastic in (False, True)
+    ] + [spec("train", a, 1, total_steps=1, seq_len=16)
+         for a in ("jamba-v0.1-52b", "xlstm-1.3b")] + [
+        spec("train", a, 2, elastic=True, total_steps=4, chunk_steps=2,
+             global_batch=4, seq_len=32, ckpt_dir=str(ckpt))
+        for a in ("jamba-v0.1-52b", "xlstm-1.3b")],
         8: [spec("train", "qwen2-72b", 2, total_steps=1, seq_len=16),
             spec("serve", "qwen2-72b", **serve),
             spec("serve", "qwen2-72b", prefill_chunk=8, **serve)]}
@@ -2927,8 +3203,8 @@ def _timed(torch, ckpt, log):
 
 
 def granite_pipeline(torch, dev, build):
-    """The slice's path at full size: a PipelineSpec with the DAG of
-    ``pipeline_canary.json`` over granite-moe-1b-a400m (all 24 layers,
+    """The slice's path at full width: a PipelineSpec with the DAG of
+    ``pipeline_canary.json`` over granite-moe-1b-a400m (PIPE_LAYERS of 24,
     d_model 1024, 32 experts top-8):
 
     * ``train``: an elastic train on 2 nodes, 6 steps of 4 x 4096 in
@@ -2973,15 +3249,18 @@ def granite_pipeline(torch, dev, build):
     import numpy as np
 
     t_phase = time.perf_counter()
-    cfg = registry.get("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(registry.get("granite-moe-1b-a400m"),
+                              n_layers=PIPE_LAYERS)
     tcfg = TrainConfig(total_steps=PIPE_STEPS, warmup_steps=0)
     shape = WorkloadShape("elastic", "train", PIPE_SEQ, PIPE_BATCH)
     tr = Trainer(cfg, tcfg, shape, seed=0, device=dev)
     ref = [h["loss"] for h in tr.run(PIPE_STEPS, log_every=0)]
     del tr
     torch.cuda.empty_cache()
-    print(f"[pipeline] {cfg.name} uninterrupted Trainer, {PIPE_STEPS} steps "
-          f"of {PIPE_BATCH} x {PIPE_SEQ}: losses {[round(x, 6) for x in ref]}")
+    print(f"[pipeline] {cfg.name} at full width and {cfg.n_layers} of 24 "
+          f"layers (cut for time: a checkpoint at every resize), "
+          f"uninterrupted Trainer, {PIPE_STEPS} steps of {PIPE_BATCH} x "
+          f"{PIPE_SEQ}: losses {[round(x, 6) for x in ref]}")
 
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_",
                                  dir=ROOT / "build"))
@@ -3278,6 +3557,7 @@ def main() -> int:
     grad_check(torch, dev, "chatglm3-6b")
     runs.append(train_phase(torch, dev, build))
     runs.append(train_granite(torch, dev, build))
+    runs.extend(seqmix_train_phase(torch, dev, build))
     runs.extend(comm_phase(torch, dev, build, smi))
 
     kernels = []

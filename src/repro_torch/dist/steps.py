@@ -117,16 +117,9 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     The state is updated in place (see ``optim``) and returned.  The
     kernels or their plain versions run by the state's device
-    (``kernels/ops``).
-
-    A ``sub_quadratic`` config (Mamba, xLSTM) raises: its backward needs
-    the reference's memory-bounded recompute (autograd through the plain
-    scan keeps O(S * d_in * d_state) a layer), which is ROADMAP Queue 1
-    item 6(a), training the sequence mixers."""
-    if cfg.sub_quadratic:
-        raise NotImplementedError(
-            f"{cfg.name}: training the sequence mixers (Mamba, xLSTM) is "
-            f"not ported yet (ROADMAP Queue 1 item 6(a)); serve it instead")
+    (``kernels/ops``).  Every block kind trains: a Mamba position through
+    ``models.mamba.SelectiveScan``'s recompute backward, mLSTM and sLSTM
+    by autograd."""
     mesh = mesh if mesh is not None else dmesh.make_mesh((1,), ("data",))
     model = Model(cfg)
     update = make_optimizer(cfg, tcfg)

@@ -1,12 +1,15 @@
 """Mamba (selective SSM) block, Jamba flavor: the port of the JAX
-package's ``models/mamba.py``, forward only.
+package's ``models/mamba.py``.
 
-Prefill runs the selective scan chunk by chunk: parallel within a chunk
-of ``CHUNK`` steps (a log-step doubling scan), a carry across chunks,
-so the working set is one chunk's ``(B, CHUNK, d_in, d_state)`` float32
-at a time.  Decode is the one-step recurrence over a conv ring state.
-The reference's memory-bounded recompute backward is not ported:
-training these blocks is the next slice (ROADMAP Queue 1 item 6).
+Training and prefill run the selective scan chunk by chunk: parallel
+within a chunk of ``CHUNK`` steps (a log-step doubling scan), a carry
+across chunks, so the working set is one chunk's ``(B, CHUNK, d_in,
+d_state)`` float32 at a time.  ``SelectiveScan`` is its autograd
+Function, the reference's memory-bounded recompute backward: it keeps
+dt, B, C and u in bfloat16 and the state at each chunk's start, never
+the ``(B, S, d_in, d_state)`` states (about 2.1 GB a batch row a layer
+at jamba's width).  Decode is the one-step recurrence over a conv ring
+state.
 """
 from __future__ import annotations
 
@@ -89,24 +92,102 @@ def _doubling_scan(a, b):
     return a, b
 
 
-def selective_scan(dt, bmat, cmat, u, a, h0, ch):
+def _reverse_scan(a, b):
+    """The adjoint's scan, ``b_i += a_i * b_{i+1}`` from the last step
+    back along dim 1, in log2(L) doubling steps, in place: ``a`` (one
+    step shorter than ``b``) links step i to i+1 and is consumed; b
+    becomes the scan."""
+    s, n = 1, b.shape[1]
+    while s < n:
+        b[:, :n - s] += a[:, :n - s] * b[:, s:]
+        if n > 2 * s:
+            a[:, :n - 2 * s] = a[:, :n - 2 * s] * a[:, s:n - s]
+        s *= 2
+    return b
+
+
+def _decay_and_input(dt, bmat, u, a):
+    """A chunk's exp(dt A) and dt u B, each (B, L, d_in, N) float32."""
+    da = torch.exp(dt[..., None] * a)
+    dbx = (dt * u)[..., None] * bmat[:, :, None, :]
+    return da, dbx
+
+
+RESIDUAL_DTYPE = torch.bfloat16     # the reference's: half the saved bytes;
+                                    # the cotangents lie a few tenths of a
+                                    # percent from float32 autograd's
+
+
+class SelectiveScan(torch.autograd.Function):
     """The chunked scan of ``h_t = exp(dt_t A) h_{t-1} + dt_t u_t B_t``,
-    ``y_t = h_t C_t``: dt, u (B, S, d_in), B and C (B, S, N), h0 (B,
-    d_in, N), all float32.  A chunk's tail past S is never formed (the
-    reference pads it with dt = 0, a step that leaves h unchanged).
-    Returns (y (B, S, d_in), h after the last step)."""
-    ys, h = [], h0
-    for c0 in range(0, dt.shape[1], ch):
-        sl = slice(c0, c0 + ch)
-        dtc, uc = dt[:, sl], u[:, sl]
-        da = torch.exp(dtc[..., None] * a)                    # B L C N
-        dbx = (dtc * uc)[..., None] * bmat[:, sl, None, :]
-        aa, bb = _doubling_scan(da, dbx)
-        hs = bb.addcmul_(aa, h[:, None])
-        del aa
-        ys.append(torch.einsum("blcn,bln->blc", hs, cmat[:, sl]))
-        h = hs[:, -1]
-    return torch.cat(ys, dim=1), h
+    ``y_t = h_t C_t``: dt, u (B, S, d_in), B and C (B, S, N), A (d_in,
+    N), h0 (B, d_in, N), all float32, chunks of ``ch`` steps.  A chunk's
+    tail past S is never formed, in either direction (the reference pads
+    it with dt = 0, a step that leaves h unchanged).  Returns (y (B, S,
+    d_in), h after the last step).
+
+    The twin of the reference's ``_fused_ssm``.  The forward keeps dt,
+    B, C and u rounded to RESIDUAL_DTYPE and the float32 state at each
+    chunk's start.  The backward walks the chunks in reverse: it
+    recomputes a chunk's decays and states from its start (from the
+    rounded residuals, as the reference does), runs the adjoint
+    recurrence ``lam_i = g_i + da_{i+1} lam_{i+1}`` (g = dy C, the
+    incoming dh joining the chunk's last step) as a reversed doubling
+    scan, forms the chunk's cotangents and carries ``da_0 lam_0`` into
+    the chunk before."""
+
+    @staticmethod
+    def forward(ctx, dt, bmat, cmat, u, a, h0, ch):
+        ys, starts, h = [], [], h0
+        for c0 in range(0, dt.shape[1], ch):
+            sl = slice(c0, c0 + ch)
+            starts.append(h)
+            aa, bb = _doubling_scan(*_decay_and_input(dt[:, sl], bmat[:, sl],
+                                                      u[:, sl], a))
+            hs = bb.addcmul_(aa, h[:, None])
+            del aa
+            ys.append(torch.einsum("blcn,bln->blc", hs, cmat[:, sl]))
+            h = hs[:, -1].clone()           # a view would keep hs alive
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(*(t.to(RESIDUAL_DTYPE)
+                                    for t in (dt, bmat, cmat, u)),
+                                  a, torch.stack(starts))
+            ctx.ch = ch
+        return torch.cat(ys, dim=1), h
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        *res, a, starts = ctx.saved_tensors
+        ch = ctx.ch
+        ddt, dbmat, dcmat, du = (torch.empty(t.shape, dtype=torch.float32,
+                                             device=t.device) for t in res)
+        grad_a = torch.zeros_like(a)
+        dh = (torch.zeros_like(starts[0]) if dh_last is None
+              else dh_last.float())
+        for i in reversed(range(starts.shape[0])):
+            sl = slice(i * ch, (i + 1) * ch)
+            dtc, bc, cc, uc = (t[:, sl].float() for t in res)
+            dyc, h_start = dy[:, sl].float(), starts[i]
+            da, dbx = _decay_and_input(dtc, bc, uc, a)
+            aa, hs = _doubling_scan(da.clone(), dbx)
+            hs.addcmul_(aa, h_start[:, None])                # B L C N
+            del aa
+            dcmat[:, sl] = torch.einsum("blcn,blc->bln", hs, dyc)
+            lam = dyc[..., None] * cc[:, :, None, :]          # dL/dh_i
+            lam[:, -1] += dh
+            lam = _reverse_scan(da[:, 1:].clone(), lam)       # dL/d(dbx)
+            lb = torch.einsum("blcn,bln->blc", lam, bc)       # dL/d(dt u)
+            dbmat[:, sl] = torch.einsum("blcn,blc->bln", lam, dtc * uc)
+            du[:, sl] = lb * dtc
+            lam.mul_(da)
+            del da
+            dh = lam[:, 0].clone()                            # da_0 lam_0
+            lam[:, 0] *= h_start                              # dL/d(da) da
+            lam[:, 1:] *= hs[:, :-1]
+            del hs
+            ddt[:, sl] = lb * uc + torch.einsum("blcn,cn->blc", lam, a)
+            grad_a += torch.einsum("blcn,blc->cn", lam, dtc)
+        return ddt, dbmat, dcmat, du, grad_a, dh, None
 
 
 def mamba_apply(cfg: ModelConfig, p, x, cache=None):
@@ -130,7 +211,8 @@ def mamba_apply(cfg: ModelConfig, p, x, cache=None):
         h0 = (torch.zeros((b, d_in, mc.d_state), dtype=torch.float32,
                           device=x.device)
               if cache is None else cache["ssm"].float())
-        y, h_last = selective_scan(dt, bmat, cmat, uf, a, h0, min(CHUNK, s))
+        y, h_last = SelectiveScan.apply(dt, bmat, cmat, uf, a, h0,
+                                        min(CHUNK, s))
     else:                                                 # decode: one step
         da = torch.exp(dt[:, 0, :, None] * a)             # B C N
         dbx = (dt[:, 0] * uf[:, 0])[..., None] * bmat[:, 0, None, :]

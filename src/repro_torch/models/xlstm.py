@@ -1,5 +1,5 @@
 """xLSTM blocks, mLSTM (matrix memory) and sLSTM (scalar memory): the
-port of the JAX package's ``models/xlstm.py``, forward only.
+port of the JAX package's ``models/xlstm.py``.
 
 mLSTM prefill runs the chunkwise-parallel form (within a chunk the
 quadratic form under a decay mask, across chunks a recurrent carry);
@@ -10,7 +10,10 @@ recurrent gate connections and runs step by step.
 State per mLSTM head: C (dh x dh), n (dh), m (a scalar); per sLSTM: c,
 n, h and m (d_model each).  Without a cache (training) both start at m =
 NEG; the serving paths hand in a zeroed cache (m = 0), as the JAX
-package's prefill does.
+package's prefill does.  Training differentiates both by autograd, as
+the reference differentiates them by autodiff; where a max meets a tie,
+the gradient splits as JAX's does (``torch.maximum`` halves it, and
+``_cummax`` is JAX's ``cummax``).
 """
 from __future__ import annotations
 
@@ -32,6 +35,31 @@ def _dims(cfg: ModelConfig):
     xc = _xc(cfg)
     d_in = xc.expand * cfg.d_model
     return xc, d_in, d_in // xc.n_heads
+
+
+def _scan_max(x):
+    """Running max along the last dim, as JAX's ``associative_scan`` of
+    ``maximum`` forms it (pairs reduced, the reduction scanned, the even
+    positions combined back): the same combines, so a tie's gradient
+    splits as there."""
+    n = x.shape[-1]
+    if n < 2:
+        return x
+    odd = _scan_max(torch.maximum(x[..., 0:n - 1:2], x[..., 1::2]))
+    even = torch.maximum(odd[..., :(n - 1) // 2], x[..., 2::2])
+    even = torch.cat([x[..., :1], even], dim=-1)
+    out = torch.stack([even[..., :n // 2], odd], dim=-1).flatten(-2)
+    return torch.cat([out, even[..., n // 2:]], dim=-1)
+
+
+def _cummax(x):
+    """``lax.cummax`` over the last dim.  Its gradient is that of the
+    associative scan above (``torch.cummax`` would route a tie's whole
+    gradient to one index); the values are the same, so without autograd
+    it is ``torch.cummax``, one launch."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _scan_max(x)
+    return torch.cummax(x, dim=-1).values
 
 
 # ==========================================================================
@@ -150,7 +178,7 @@ def mlstm_chunked(q, k, v, ig, lf, state, ch):
         qc, kc, vc, igc, lfc = q[:, :, sl], k[:, :, sl], v[:, :, sl], \
             ig[:, :, sl], lf[:, :, sl]
         bcum = torch.cumsum(lfc, dim=-1)                    # B H ch
-        gl = torch.cummax(igc - bcum, dim=-1).values
+        gl = _cummax(igc - bcum)
         mloc = bcum + torch.maximum(m[..., None], gl)       # B H ch
         # intra-chunk decay matrix D[t, j] for j <= t
         dlog = (bcum[..., :, None] - bcum[..., None, :]
@@ -226,6 +254,7 @@ def slstm_apply(cfg: ModelConfig, p, x, cache=None):
         c, n, hp, m = (cache[k].float() for k in ("c", "n", "h", "m"))
 
     r = p["r"].float()
+    eps = torch.tensor(1e-6, device=x.device)
     bias = torch.cat([p[k].float() for k in ("b_i", "b_f", "b_z", "b_o")])
     hs = []
     for t in range(s):
@@ -237,7 +266,7 @@ def slstm_apply(cfg: ModelConfig, p, x, cache=None):
         fp = torch.exp(ft + m - m1)
         c = fp * c + ip * torch.tanh(zt)
         n = fp * n + ip
-        hp = torch.sigmoid(ot) * c / torch.clamp_min(n, 1e-6)
+        hp = torch.sigmoid(ot) * c / torch.maximum(n, eps)
         m = m1
         hs.append(hp)
     hs = torch.stack(hs, dim=1) * p["hnorm"].float()         # B S D

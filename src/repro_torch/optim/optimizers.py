@@ -28,7 +28,9 @@ from repro_torch.optim.schedules import lr_schedule
 
 
 def _adamw_defs(model_defs, dtype: str):
-    zero = lambda d: dataclasses.replace(d, init="zeros", dtype=dtype)
+    # zeros whatever the leaf's own init (a named custom init included)
+    zero = lambda d: dataclasses.replace(d, init="zeros", custom=None,
+                                         dtype=dtype)
     return {"m": P.tree_map(zero, model_defs),
             "v": P.tree_map(zero, model_defs)}
 
@@ -36,7 +38,8 @@ def _adamw_defs(model_defs, dtype: str):
 def _adafactor_defs(model_defs, dtype: str):
     def row(d: PDef):
         if len(d.shape) < 2:
-            return dataclasses.replace(d, init="zeros", dtype=dtype)
+            return dataclasses.replace(d, init="zeros", custom=None,
+                                       dtype=dtype)
         return PDef(d.shape[:-1], d.axes[:-1], init="zeros", dtype=dtype)
 
     def col(d: PDef):

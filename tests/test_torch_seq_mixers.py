@@ -37,7 +37,6 @@ from repro.serve import EngineConfig as JEngineConfig  # noqa: E402
 from repro.serve import paging as jpaging  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.configs.base import (MambaConfig, ModelConfig,  # noqa: E402
-                                      TrainConfig, WorkloadShape,
                                       XLSTMConfig)
 from repro_torch.models import mamba as tmamba  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
@@ -47,7 +46,6 @@ from repro_torch.models.layers import PagedView  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig  # noqa: E402
 from repro_torch.serve import paging as tpaging  # noqa: E402
-from repro_torch.train import Trainer  # noqa: E402
 
 MIX_TOL = 1e-4
 MODEL_TOL = 2e-4
@@ -199,6 +197,197 @@ def test_xlstm_apply_matches_jax(kind, start):
     _close(to, jo, MIX_TOL)
     if jc is not None:
         _close_state(tc, jc, MIX_TOL)
+
+
+# ---------------------------------------------------------------------------
+# training: the scan's recompute backward and the mixers' gradients
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = 1e-4       # against jax.vjp of _fused_ssm: the same bf16
+                      # residuals, float32 sums in another order
+# against float32 autograd: the backward recomputes from dt, B, C and u
+# rounded to bf16, whose rounding alone moves a value by 2^-8 / sqrt(3) =
+# 2.3e-3 in RMS (the reference's "~0.2%"); a cotangent takes two or three
+# such factors, so it lies several such roundings from float32's
+RESIDUAL_TOL = 1e-2
+GRAD_FLOOR = 1e-5     # a gradient leaf's scale, at least this share of
+                      # the largest leaf's: below it lies rounding noise
+
+
+def _rel(a, b):
+    a, b = _np(a).astype(np.float64), _np(b).astype(np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _scan_inputs(s, h0, seed=0, b=2, c=6, n=4):
+    """dt, B, C, u, A, h0 and the cotangents dy, dh_last (numpy float32):
+    dt positive and small as softplus gives it, A = -exp(.)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)  # noqa: E731
+    ins = [np.abs(f(b, s, c)) * 0.3, f(b, s, n), f(b, s, n), f(b, s, c),
+           -np.exp(f(c, n) * 0.5), f(b, c, n) if h0 else
+           np.zeros((b, c, n), np.float32)]
+    return ins, f(b, s, c), f(b, c, n)
+
+
+def _plain_scan(dt, bmat, cmat, u, a, h0):
+    """The recurrence one step at a time, out of place, for autograd."""
+    h, ys = h0, []
+    for t in range(dt.shape[1]):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * u[:, t])[..., None] * bmat[:, t, None, :])
+        ys.append(torch.einsum("bcn,bn->bc", h, cmat[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _scan_grads(fn, ins, dy, dh):
+    leaves = [torch.from_numpy(x).requires_grad_() for x in ins]
+    y, h = fn(*leaves)
+    return (y, h) + torch.autograd.grad(
+        (y, h), leaves, (torch.from_numpy(dy), torch.from_numpy(dh)))
+
+
+@pytest.mark.parametrize("s,ch", [(20, 8), (16, 8)])      # a tail; whole
+@pytest.mark.parametrize("h0", [False, True], ids=["h0-zero", "h0-drawn"])
+@pytest.mark.parametrize("dh", [False, True], ids=["dh-zero", "dh-drawn"])
+def test_selective_scan_matches_jax_vjp(s, ch, h0, dh):
+    """SelectiveScan's y, h_last and six cotangents (dt, B, C, u, A, h0)
+    against jax.vjp of the reference's ``_fused_ssm``, float32, a
+    ragged last chunk (20 over 8) and none (16 over 8)."""
+    ins, dy, dh_last = _scan_inputs(s, h0)
+    if not dh:
+        dh_last = np.zeros_like(dh_last)
+    (jy, jh), vjp = jax.vjp(lambda *x: jmamba._fused_ssm(*x, ch),
+                            *map(jnp.asarray, ins))
+    want = (jy, jh) + vjp((jnp.asarray(dy), jnp.asarray(dh_last)))
+    got = _scan_grads(lambda *x: tmamba.SelectiveScan.apply(*x, ch), ins,
+                      dy, dh_last)
+    names = ("y", "h_last", "dt", "B", "C", "u", "A", "h0")
+    for name, g, w in zip(names, got, want):
+        assert _rel(g, w) <= SCAN_TOL, name
+
+
+@pytest.mark.parametrize("s,ch", [(20, 8), (13, 4)])
+def test_selective_scan_matches_float32_autograd(s, ch):
+    """The Function against autograd through the plain step-by-step
+    recurrence in float32: the cotangents within the bf16 residuals'
+    rounding (RESIDUAL_TOL), the forward (float32 throughout) within
+    SCAN_TOL."""
+    ins, dy, dh_last = _scan_inputs(s, True, seed=1)
+    got = _scan_grads(lambda *x: tmamba.SelectiveScan.apply(*x, ch), ins,
+                      dy, dh_last)
+    want = _scan_grads(_plain_scan, ins, dy, dh_last)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _rel(g, w) <= (SCAN_TOL if i < 2 else RESIDUAL_TOL), i
+
+
+def test_selective_scan_saves_residuals_not_states():
+    """What the Function keeps for its backward: dt, B, C, u in bfloat16
+    (O(S (d_in + 2N))), A, and one float32 state a chunk, never the
+    (B, S, d_in, N) states; nothing when no input needs a gradient."""
+    b, s, c, n, ch = 2, 40, 6, 4, 8
+    ins, _, _ = _scan_inputs(s, True, b=b, c=c, n=n)
+    saved = []
+
+    def pack(t):
+        saved.append((tuple(t.shape), t.dtype))
+        return t
+
+    leaves = [torch.from_numpy(x).requires_grad_() for x in ins]
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        tmamba.SelectiveScan.apply(*leaves, ch)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert saved == [((b, s, c), bf), ((b, s, n), bf), ((b, s, n), bf),
+                     ((b, s, c), bf), ((c, n), f32),
+                     ((s // ch, b, c, n), f32)]
+    saved.clear()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        tmamba.SelectiveScan.apply(*map(torch.from_numpy, ins), ch)
+    assert saved == []
+
+
+def test_selective_scan_forward_keeps_the_serving_bits():
+    """The Function's forward is the chunked in-place scan the serving
+    path ran before the backward existed, bit for bit (a prefill gives
+    the same logits and state as before)."""
+    ins, _, _ = _scan_inputs(300, True, seed=2, c=16, n=8)
+    dt, bmat, cmat, u, a, h = map(torch.from_numpy, ins)
+    ys = []
+    for c0 in range(0, 300, 256):
+        sl = slice(c0, c0 + 256)
+        da = torch.exp(dt[:, sl][..., None] * a)
+        dbx = (dt[:, sl] * u[:, sl])[..., None] * bmat[:, sl, None, :]
+        aa, bb = tmamba._doubling_scan(da, dbx)
+        hs = bb.addcmul_(aa, h[:, None])
+        ys.append(torch.einsum("blcn,bln->blc", hs, cmat[:, sl]))
+        h = hs[:, -1]
+    with torch.no_grad():
+        y, h_last = tmamba.SelectiveScan.apply(*map(torch.from_numpy, ins),
+                                               256)
+    assert torch.equal(y, torch.cat(ys, dim=1)) and torch.equal(h_last, h)
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+def test_mixer_gradients_match_jax(kind):
+    """Each mixer in training (no cache: xLSTM from m = NEG) under
+    autograd, against jax.grad of the reference's mixer: the gradients
+    of sum(out * w) for the input and every parameter leaf, float32.
+    S = 13 leaves a ragged chunk in mLSTM (chunks of 4)."""
+    jcfg, tcfg, jp, tp = _mixer(kind, seed=5)
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((2, 13, 32)) * 0.5).astype(np.float32)
+    w = rng.standard_normal((2, 13, 32)).astype(np.float32)
+    japply, tapply = MODULES[kind][1], MODULES[kind][3]
+    jg = jax.jit(jax.grad(lambda p, x: jnp.sum(
+        japply(jcfg, p, x, cache=None)[0] * w), argnums=(0, 1)))(
+        jp, jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    leaves = P.tree_leaves(tp)
+    for t in leaves:
+        t.requires_grad_(True)
+    out, cache = tapply(tcfg, tp, tx)
+    assert cache is None
+    tg = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                             [tx] + leaves)
+    _close(tg[0], jg[1], MIX_TOL, "x")
+    want = {n: np.asarray(j, np.float32)
+            for n, j in jax.device_get(jg[0]).items()}
+    got = P.tree_unflatten(tp, tg[1:])
+    assert set(got) == set(want)
+    # each leaf to its own scale, floored at GRAD_FLOOR of the largest
+    # gradient: the sLSTM's input-gate bias has none in exact arithmetic
+    # (a shift of every input gate cancels in c / n), only rounding noise
+    top = max(float(np.abs(j).max()) for j in want.values())
+    for name, j in want.items():
+        scale = max(float(np.abs(j).max()), GRAD_FLOOR * top)
+        np.testing.assert_allclose(_np(got[name]), j, rtol=0,
+                                   atol=MIX_TOL * scale, err_msg=name)
+
+
+def test_cummax_routes_a_tie_as_jax():
+    """``_cummax``'s gradient on tied running maxima equals JAX's
+    ``lax.cummax`` (an associative scan of maximum: each combine splits
+    a tie's gradient), where ``torch.cummax`` sends it to one index;
+    ``torch.maximum`` halves a tie as ``jnp.maximum`` does.  The values
+    equal torch.cummax's."""
+    for row in ([1., 3., 3., 2., 3., 0.], [2.] * 5, [0., 1., 1.],
+                [1., 1., 0., 1., 1., 1., 1.]):
+        x = np.array(row, np.float32)
+        wt = np.arange(1, len(row) + 1, dtype=np.float32)
+        t = torch.from_numpy(x).requires_grad_()
+        v = txlstm._cummax(t)
+        assert torch.equal(v, torch.cummax(t, dim=0).values)
+        got = torch.autograd.grad((v * torch.from_numpy(wt)).sum(), t)[0]
+        want = jax.grad(lambda a: jnp.sum(jax.lax.cummax(a, 0) * wt))(
+            jnp.asarray(x))
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+    a = torch.tensor([1., 2.], requires_grad=True)
+    b = torch.tensor([1., 3.], requires_grad=True)
+    ja, jb = jax.grad(lambda a, b: jnp.sum(jnp.maximum(a, b)), (0, 1))(
+        jnp.array([1., 2.]), jnp.array([1., 3.]))
+    ga, gb = torch.autograd.grad(torch.maximum(a, b).sum(), (a, b))
+    np.testing.assert_array_equal(_np(ga), np.asarray(ja))
+    np.testing.assert_array_equal(_np(gb), np.asarray(jb))
 
 
 def test_custom_inits_deterministic_leaves_equal_jax():
@@ -387,15 +576,14 @@ def test_prefill_and_contiguous_decode_match_jax(arch):
         _close_state(tc[key], jc[key], MODEL_TOL, key)
 
 
-def test_chunk_prefill_and_training_refuse_sequence_mixers(arch):
+def test_chunk_prefill_refuses_sequence_mixers(arch):
+    """A sequence mixer's recurrence cannot skip a chunk's padded rows
+    (training them is held in tests/test_torch_train.py)."""
     _, _, tcfg, _, tp = arch
     with pytest.raises(ValueError, match="prefill exactly"):
         Model(tcfg).prefill_chunk(tp, None, torch.zeros((1, 4), dtype=torch.long),
                                   PagedView(torch.zeros((1, 1)),
                                             torch.zeros(1)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Trainer(tcfg, TrainConfig(total_steps=1),
-                WorkloadShape("t", "train", 16, 2), device="cpu")
 
 
 # ---------------------------------------------------------------------------

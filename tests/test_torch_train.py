@@ -42,6 +42,26 @@ from repro_torch.train import Trainer  # noqa: E402
 JCFG = jreg.smoke("yi-6b")
 CFG = treg.smoke("yi-6b")
 SHAPE = dict(name="t", kind="train", seq_len=32, global_batch=4)
+# the sequence mixers' SMOKE configs (a Mamba block with a MoE FFN, and
+# mLSTM / sLSTM) held to the same parity as yi-6b's
+SEQMIX = ["jamba-v0.1-52b", "xlstm-1.3b"]
+# a gradient leaf's scale is at least this share of the largest leaf's:
+# below it lies rounding noise (the sLSTM's input-gate bias has no
+# gradient in exact arithmetic: a shift of every input gate cancels in
+# c / n); yi-6b's smallest leaf is 2e-3 of its largest, so its cases
+# hold each leaf to its own scale as before
+GRAD_FLOOR = 1e-5
+# bfloat16 gradients of the sequence mixers: the reference's own bf16
+# gradients of the small Mamba and mLSTM leaves (conv, dt and x
+# projections) lie several percent of the leaf's largest from its float32
+# ones, more than 3e-2, and the port's bf16 ones as far, so two bf16 runs
+# part by more than yi-6b's 3e-2; float32 holds them to 1e-4 as yi-6b
+SEQMIX_BF16_TOL = 6e-2
+
+
+def _cfgs(arch):
+    """(JAX SMOKE config, port SMOKE config) of ``arch``."""
+    return jreg.smoke(arch), treg.smoke(arch)
 
 
 def _leaves(tree, path=()):
@@ -145,18 +165,26 @@ def test_optimizer_updates_match_jax(optimizer, state_dtype):
 
 
 def test_train_state_defs_mirror_the_jax_schema():
-    for optimizer in ("adamw", "adafactor"):
-        jcfg = dataclasses.replace(JCFG, optimizer=optimizer)
-        cfg = dataclasses.replace(CFG, optimizer=optimizer)
+    """yi-6b's and the sequence mixers' schemas, named custom inits
+    included (the optimizer's moments start at zero whatever the
+    parameter's init)."""
+    for arch, optimizer in [("yi-6b", "adamw"), ("yi-6b", "adafactor")] + [
+            (a, o) for a in SEQMIX for o in ("adamw", "adafactor")]:
+        j0, t0 = _cfgs(arch)
+        jcfg = dataclasses.replace(j0, optimizer=optimizer)
+        cfg = dataclasses.replace(t0, optimizer=optimizer)
         jdefs = dict(_leaves(jsteps.train_state_defs(jcfg)))
         tdefs = dict(_leaves(tsteps.train_state_defs(cfg)))
         assert jdefs.keys() == tdefs.keys()
         for path, jd in jdefs.items():
             td = tdefs[path]
-            assert (td.shape, td.axes, td.init) == \
-                (jd.shape, jd.axes, jd.init), path
+            assert (td.shape, td.axes, td.init, td.custom) == \
+                (jd.shape, jd.axes, jd.init, jd.custom), path
             assert str(jd.resolve_dtype(jnp.float32)) == \
                 str(td.dtype or "float32"), path
+        ts = tsteps.init_train_state(cfg, tbase.TrainConfig(), device="cpu")
+        assert all(bool((t == 0).all()) for _, t in _leaves(ts["opt"])), \
+            (arch, optimizer)
     jabs = jsteps.abstract_train_state(JCFG, jbase.TrainConfig())
     tabs = tsteps.abstract_train_state(CFG, tbase.TrainConfig())
     for (jpath, j), (tpath, t) in zip(_leaves(jabs), _leaves(tabs)):
@@ -199,34 +227,48 @@ def test_data_batches_equal_jax_bit_for_bit():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
-                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("arch,dtype,tol", [
+    pytest.param("yi-6b", "float32", 1e-4, id="float32-0.0001"),
+    pytest.param("yi-6b", "bfloat16", 3e-2, id="bfloat16-0.03")] + [
+    pytest.param(a, d, t, id=f"{a}-{d}-{t}") for a in SEQMIX
+    for d, t in (("float32", 1e-4), ("bfloat16", SEQMIX_BF16_TOL))])
 @pytest.mark.parametrize("remat", [True, False])
-def test_loss_and_grads_match_jax(dtype, tol, remat):
+def test_loss_and_grads_match_jax(arch, dtype, tol, remat):
+    """Loss, xent, moe_aux and every gradient leaf against
+    jax.value_and_grad of the reference's loss: yi-6b, and jamba's Mamba
+    (the reference's recompute backward and the port's SelectiveScan)
+    with its MoE aux loss and xlstm's mLSTM and sLSTM by autodiff and
+    autograd."""
+    jcfg, cfg = _cfgs(arch)
     tshape, jshape = _shapes()
-    batch = jpipe.synthetic_batch(JCFG, jshape, seed=0, step=0)
-    jp = JModel(JCFG).init(jax.random.PRNGKey(0))
+    batch = jpipe.synthetic_batch(jcfg, jshape, seed=0, step=0)
+    jp = JModel(jcfg).init(jax.random.PRNGKey(0))
     (jl, jm), jg = jax.value_and_grad(
-        lambda p: JModel(JCFG).loss(p, batch, remat=remat,
+        lambda p: JModel(jcfg).loss(p, batch, remat=remat,
                                     compute_dtype=jnp.dtype(dtype)),
         has_aux=True)(jp)
     tp = P.from_numpy(jax.device_get(jp))
     leaves = P.tree_leaves(tp)
     for t in leaves:
         t.requires_grad_(True)
-    tl, tm = Model(CFG).loss(
+    tl, tm = Model(cfg).loss(
         tp, {k: torch.from_numpy(v).long() for k, v in batch.items()},
         remat=remat, compute_dtype=P.DTYPES[dtype])
     tg = P.tree_unflatten(tp, torch.autograd.grad(tl, leaves))
-    assert set(tm) == {"loss", "xent", "moe_aux"} and float(tm["moe_aux"]) == 0
-    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=tol)
-    np.testing.assert_allclose(float(tm["xent"].detach()), float(jm["xent"]),
-                               rtol=tol)
-    # gradients relative to each leaf's own scale
-    for (path, j), (_, t) in zip(_leaves(jax.device_get(jg)), _leaves(tg)):
-        j, t = np.asarray(j, np.float32), _np(t)
-        np.testing.assert_allclose(t, j, rtol=0,
-                                   atol=tol * float(np.abs(j).max()),
+    assert set(tm) == {"loss", "xent", "moe_aux"}
+    assert (float(tm["moe_aux"].detach()) == 0) == (cfg.moe is None)
+    for k, t, j in (("loss", tl, jl), ("xent", tm["xent"], jm["xent"]),
+                    ("moe_aux", tm["moe_aux"], jm["moe_aux"])):
+        np.testing.assert_allclose(float(t.detach()), float(j), rtol=tol,
+                                   err_msg=k)
+    # gradients relative to each leaf's own scale (at least GRAD_FLOOR
+    # of the largest leaf's)
+    want = [(path, np.asarray(j, np.float32))
+            for path, j in _leaves(jax.device_get(jg))]
+    top = max(float(np.abs(j).max()) for _, j in want)
+    for (path, j), (_, t) in zip(want, _leaves(tg)):
+        scale = max(float(np.abs(j).max()), GRAD_FLOOR * top)
+        np.testing.assert_allclose(_np(t), j, rtol=0, atol=tol * scale,
                                    err_msg=str(path))
 
 
@@ -235,14 +277,17 @@ def test_loss_and_grads_match_jax(dtype, tol, remat):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("grad_accum", [1, 2])
-def test_trainer_matches_jax_train_step_for_five_steps(grad_accum):
+@pytest.mark.parametrize("grad_accum,arch", [
+    pytest.param(1, "yi-6b", id="1"), pytest.param(2, "yi-6b", id="2")] + [
+    pytest.param(1, a, id=f"{a}-1") for a in SEQMIX])
+def test_trainer_matches_jax_train_step_for_five_steps(grad_accum, arch):
+    jcfg, cfg = _cfgs(arch)
     tcfg, jtcfg = _tcfg(compute_dtype="float32", grad_accum=grad_accum,
                         warmup_steps=2, total_steps=5)
     tshape, jshape = _shapes()
-    jtr = JTrainer(JCFG, jtcfg, jshape, make_local_mesh(1, 1))
+    jtr = JTrainer(jcfg, jtcfg, jshape, make_local_mesh(1, 1))
     jtr.init_or_resume()
-    tr = Trainer(CFG, tcfg, tshape, device="cpu")
+    tr = Trainer(cfg, tcfg, tshape, device="cpu")
     tr.state = P.from_numpy(jax.device_get(jtr.state))
     jh = jtr.run(5, log_every=0)
     th = tr.run(5, log_every=0)
@@ -345,6 +390,48 @@ def test_checkpoint_round_trip_keeps_every_leaf_and_dtype(tmp_path):
     _close_trees(back, jb, 0)
 
 
+def _assert_same(got, want):
+    """Every leaf of ``want`` in ``got`` with its dtype and bits."""
+    for (path, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("arch", SEQMIX)
+def test_sequence_mixer_leaves_keep_their_dtypes_through_resume_and_remesh(
+        arch, tmp_path):
+    """A bf16 train state of jamba or xlstm SMOKE keeps each mixer leaf in
+    its own dtype (a_log and the xLSTM gate biases, head norms and sLSTM
+    recurrence float32; dt_bias and d_skip in the tree's bf16) through a
+    checkpoint the Trainer wrote and a remesh at an unchanged rank count,
+    bit for bit, and the remeshed run continues the uninterrupted one."""
+    _, cfg = _cfgs(arch)
+    tcfg = tbase.TrainConfig(param_dtype="bfloat16", compute_dtype="float32",
+                             warmup_steps=1, total_steps=4)
+    tshape, _ = _shapes()
+    f32 = {"a_log", "b_i", "b_f", "b_z", "b_o", "hnorm", "r"}
+    state = tsteps.init_train_state(cfg, tcfg, device="cpu")
+    kinds = set()
+    for path, t in _leaves(state["params"]):
+        if path[0] == "blocks" and path[2] in ("mamba", "mlstm", "slstm"):
+            kinds.add(path[2])
+            want = torch.float32 if path[3] in f32 else torch.bfloat16
+            assert t.dtype == want, path
+    assert kinds == ({"mamba"} if arch.startswith("jamba")
+                     else {"mlstm", "slstm"})
+    tr = Trainer(cfg, tcfg, tshape, ckpt_dir=str(tmp_path), device="cpu")
+    tr.run(2, ckpt_every=2, log_every=0)
+    before = P.tree_map(lambda t: t.detach().clone(), tr.state)
+    restored, step = tckpt.CheckpointManager(str(tmp_path)).restore_latest(
+        tsteps.abstract_train_state(cfg, tcfg))
+    assert step == 2
+    _assert_same(restored, before)
+    assert tr.remesh() >= 0.0
+    _assert_same(tr.state, before)
+    ref = Trainer(cfg, tcfg, tshape, device="cpu")
+    ref_losses = [h["loss"] for h in ref.run(4, log_every=0)]
+    assert [h["loss"] for h in tr.run(2, log_every=0)] == ref_losses
+
+
 def test_manager_commits_keeps_and_ignores_torn_steps(tmp_path):
     tcfg = tbase.TrainConfig()
     state = tsteps.init_train_state(CFG, tcfg, device="cpu")
@@ -363,28 +450,34 @@ def test_manager_commits_keeps_and_ignores_torn_steps(tmp_path):
     assert jckpt.CheckpointManager(str(tmp_path)).latest_step() == 3
 
 
-@pytest.mark.parametrize("writer", ["jax", "port"])
-def test_checkpoint_written_by_one_package_resumes_in_the_other(writer,
+@pytest.mark.parametrize("writer,arch", [
+    pytest.param("jax", "yi-6b", id="jax"),
+    pytest.param("port", "yi-6b", id="port")] + [
+    pytest.param(w, a, id=f"{w}-{a}") for a in SEQMIX
+    for w in ("jax", "port")])
+def test_checkpoint_written_by_one_package_resumes_in_the_other(writer, arch,
                                                                 tmp_path):
     """Two steps in one package, a checkpoint, then two more steps in
-    each package from it: the same losses."""
+    each package from it: the same losses (the sequence mixers' float32
+    leaves, a_log and the sLSTM's, carried as they are)."""
+    jcfg, cfg = _cfgs(arch)
     tcfg, jtcfg = _tcfg(compute_dtype="float32", warmup_steps=1,
                         total_steps=4)
     tshape, jshape = _shapes()
     ck = str(tmp_path / "ck")
     if writer == "jax":
-        first = JTrainer(JCFG, jtcfg, jshape, make_local_mesh(1, 1),
+        first = JTrainer(jcfg, jtcfg, jshape, make_local_mesh(1, 1),
                          ckpt_dir=ck)
         first.run(2, ckpt_every=2, log_every=0)
     else:
-        jtr = JTrainer(JCFG, jtcfg, jshape, make_local_mesh(1, 1))
+        jtr = JTrainer(jcfg, jtcfg, jshape, make_local_mesh(1, 1))
         jtr.init_or_resume()
-        first = Trainer(CFG, tcfg, tshape, ckpt_dir=ck, device="cpu")
+        first = Trainer(cfg, tcfg, tshape, ckpt_dir=ck, device="cpu")
         first.state = P.from_numpy(jax.device_get(jtr.state))
         first.run(2, ckpt_every=2, log_every=0)
     cont = first.run(2, log_every=0)[2:]
-    tr = Trainer(CFG, tcfg, tshape, ckpt_dir=ck, device="cpu")
-    jtr = JTrainer(JCFG, jtcfg, jshape, make_local_mesh(1, 1), ckpt_dir=ck)
+    tr = Trainer(cfg, tcfg, tshape, ckpt_dir=ck, device="cpu")
+    jtr = JTrainer(jcfg, jtcfg, jshape, make_local_mesh(1, 1), ckpt_dir=ck)
     assert tr.init_or_resume() == jtr.init_or_resume() == "resumed"
     assert tr.start_step == jtr.start_step == 2
     th, jh = tr.run(2, log_every=0), jtr.run(2, log_every=0)
@@ -397,6 +490,31 @@ def test_checkpoint_written_by_one_package_resumes_in_the_other(writer,
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("elastic", [False, True], ids=["plain", "elastic"])
+@pytest.mark.parametrize("arch", SEQMIX)
+def test_train_launcher_trains_the_sequence_mixers(arch, elastic, capsys,
+                                                   tmp_path):
+    """``launch.train`` on jamba's and xlstm's SMOKE configs, on the CPU,
+    and with ``--elastic`` through a grow and a shrink (each a remesh
+    through a checkpoint); the elastic run's final loss is the plain
+    one's."""
+    from repro_torch.launch import train
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "5",
+            "--batch", "2", "--seq", "16"]
+    train.main(args)
+    plain = capsys.readouterr().out
+    if not elastic:
+        assert "final loss" in plain and "nan" not in plain
+        return
+    train.main(args + ["--elastic", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("[elastic]")]
+    assert len(lines) == 2 and "resumed at step 2" in lines[0]
+    final = [ln for ln in out.splitlines() if ln.startswith("final loss")]
+    assert final == [ln for ln in plain.splitlines()
+                     if ln.startswith("final loss")]
 
 
 def test_train_launcher_runs_on_the_cpu(capsys, tmp_path):
