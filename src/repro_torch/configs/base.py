@@ -54,7 +54,7 @@ class XLSTMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -83,8 +83,12 @@ class ModelConfig:
     mamba: Optional[MambaConfig] = None
     xlstm: Optional[XLSTMConfig] = None
 
-    # encoder-decoder (whisper): not ported, the stack raises for > 0
-    encoder_layers: int = 0
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0          # >0 -> enc-dec with cross attention
+    encoder_seq_divisor: int = 1     # encoder frames = seq_len // divisor
+
+    # modality frontend stub: precomputed frame or patch embeddings
+    frontend: Optional[str] = None   # audio | vision | None
 
     # optimizer choice (production default per arch)
     optimizer: str = "adamw"         # adamw | adafactor
@@ -163,6 +167,9 @@ class ModelConfig:
             elif kind in ("attn", "mamba"):
                 blk += mlp_params(self.d_ff)
             total += blk * self.n_repeats
+        if self.encoder_layers:          # the encoder, cross-attention
+            total += ((attn_params() + mlp_params(self.d_ff))
+                      * self.encoder_layers + attn_params() * self.n_layers)
         return total
 
 

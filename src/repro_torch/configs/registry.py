@@ -12,7 +12,7 @@ from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = ["chatglm3-6b", "yi-6b", "qwen2-72b", "deepseek-67b",
             "xlstm-1.3b", "arctic-480b", "granite-moe-1b-a400m",
-            "jamba-v0.1-52b"]
+            "pixtral-12b", "jamba-v0.1-52b", "whisper-base"]
 
 # The paper itself has no model; its workload proxy (LAMMPS / CORAL-2
 # stand-in) is a small compute-bound config used by orchestration benches.

@@ -157,16 +157,15 @@ class TorchWorkloadExecutor:
         if command in self._cache:
             return self._cache[command]
         from repro_torch.configs.base import WorkloadShape
-        from repro_torch.data import synthetic_batch
+        from repro_torch.data import synthetic_batch, to_tensors
         from repro_torch.models.model import Model
 
         cfg = self.cfg or smoke_config_for(command)
         dev = self.device
         model = Model(cfg)
         params = _params(cfg, 0, dev, torch.float32)
-        batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
-                 synthetic_batch(cfg, WorkloadShape("bench", "train", 32,
-                                                    2)).items()}
+        batch = to_tensors(synthetic_batch(
+            cfg, WorkloadShape("bench", "train", 32, 2)), dev)
 
         @torch.no_grad()
         def step():
@@ -254,7 +253,7 @@ class SubmeshExecutor:
             return self._cache[key]
         from repro_torch.configs import BASELINE, TrainConfig
         from repro_torch.configs.base import WorkloadShape
-        from repro_torch.data import synthetic_batch
+        from repro_torch.data import synthetic_batch, to_tensors
         from repro_torch.dist import steps as dsteps
 
         dev = _one_device(mesh)
@@ -268,8 +267,7 @@ class SubmeshExecutor:
         gen = torch.Generator(device=dev).manual_seed(0)
         state = dsteps.init_train_state(cfg, tcfg, gen, dev,
                                         strategy=strategy)
-        batch = {k: torch.from_numpy(v).long().to(dev)
-                 for k, v in synthetic_batch(cfg, shape).items()}
+        batch = to_tensors(synthetic_batch(cfg, shape), dev)
         state, metrics = step(state, batch)        # build outside timing
         float(metrics["loss"])
 
@@ -573,9 +571,7 @@ class ElasticTrainExecutor(SubmeshExecutor):
 
     # -- the chunked train loop -----------------------------------------------
     def _chunk(self, job: Job, ses: _ElasticSession, gen: int, done):
-        import numpy as np
-
-        from repro_torch.data import synthetic_batch
+        from repro_torch.data import synthetic_batch, to_tensors
 
         if gen != ses.generation or job.state != JobState.RUN:
             return                     # superseded by a requeue/remesh
@@ -584,10 +580,8 @@ class ElasticTrainExecutor(SubmeshExecutor):
         n = min(self.chunk_steps, self.total_steps - ses.step)
         t0 = time.perf_counter()
         for _ in range(n):
-            batch = synthetic_batch(ses.cfg, ses.shape, ses.seed, ses.step)
-            batch = {k: torch.from_numpy(np.asarray(v, np.int64)).to(
-                ses.device) for k, v in batch.items()
-                if not k.startswith("_")}
+            batch = to_tensors(synthetic_batch(ses.cfg, ses.shape, ses.seed,
+                                               ses.step), ses.device)
             ses.state, metrics = ses.jitted(ses.state, batch)
             ses.losses.append(float(metrics["loss"]))
             ses.step += 1

@@ -48,9 +48,13 @@ struct PagedKV {
 // fragments, K read as B fragments from rows padded by 16 bytes so the 8
 // rows of a fragment read hit distinct banks), keeps its own f32 running
 // max and normalizer per row, and adds p V with p in f32 on the CUDA
-// cores, each lane owning D / 32 adjacent output columns of every row
-// (at head dims 16 and 8, one column on each of lanes 0..D-1: the other
-// lanes read column 0, hold garbage and store nothing).  A head dim
+// cores, each lane owning D / 32 output columns of every row: adjacent
+// ones where they make one 2- or 4-byte load; at head dim 160 (5
+// columns, 10 bytes, which no aligned load takes) columns lane, lane +
+// 32, ..., lane + 128, a 2-byte load each with neighbouring lanes on
+// neighbouring columns; at head dims 16 and 8, one column on each of
+// lanes 0..D-1 (the other lanes read column 0, hold garbage and store
+// nothing).  A head dim
 // below 16 (8) takes one 16-deep step with the q fragment's depth 8..15
 // zero and the K fragment's too: the mma's depth is 16.
 // The warps' partials merge in shared memory by their maxima, and the
@@ -70,7 +74,7 @@ template <int D>
 struct Layout {
   // bf16 a staged key row: a multiple of 8 (16-byte copies stay aligned
   // at every head dim, 8 and 16 too) that is not one of 64 (the 8 rows of
-  // a fragment read fall in distinct banks at D = 32, 64 and 128)
+  // a fragment read fall in distinct banks at D = 32, 64, 128 and 160)
   static constexpr int KROW = D + 8;
   static constexpr int STAGE = 2 * CK * KROW;       // a chunk's K then V
   static constexpr int WARP = 2 * STAGE;            // two stages a warp
@@ -78,14 +82,16 @@ struct Layout {
   static constexpr int BYTES = WARPS * (WARP * 2 + P * 4);
 };
 
-// The first of the NC output columns a lane owns: lane * NC, or at a head
-// dim below 32 column `lane` for lanes 0..D-1 and column 0 (read, never
-// stored) for the rest.  A function of the lane taken where it is used,
-// so at D >= 32 the code is the same as before narrower heads came.
+// Output column c < NC of a lane: lane * NC + c; at D = 160 (NC = 5)
+// lane + 32 c; at a head dim below 32 column `lane` for lanes 0..D-1 and
+// column 0 (read, never stored) for the rest.  A function of the lane
+// taken where it is used, so at D = 32..128 the code is the same as
+// before the other head dims came.
 template <int D, int NC>
-__device__ __forceinline__ int lane_col(int lane) {
-  if constexpr (D >= 32) return lane * NC;
-  else return lane < D ? lane : 0;
+__device__ __forceinline__ int lane_col(int lane, int c) {
+  if constexpr (D < 32) return lane < D ? lane : 0;
+  else if constexpr (NC == 5) return lane + 32 * c;
+  else return lane * NC + c;
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -103,10 +109,15 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// NC bf16 at p (8, 4 or 2 bytes, aligned, or one) to f32.
-template <int NC>
-__device__ __forceinline__ void load_cols(const bf16* p, float (&v)[NC]) {
-  if constexpr (NC == 4) {
+// A lane's NC columns of the bf16 row (lane_col: 8, 4 or 2 aligned
+// bytes, one value, or at D = 160 five values 32 apart) to f32.
+template <int D, int NC>
+__device__ __forceinline__ void load_cols(const bf16* row, int lane, float (&v)[NC]) {
+  const bf16* p = row + lane_col<D, NC>(lane, 0);
+  if constexpr (NC == 5) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) v[c] = __bfloat162float(p[32 * c]);
+  } else if constexpr (NC == 4) {
     const uint2 u = *reinterpret_cast<const uint2*>(p);
     const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
     const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
@@ -115,7 +126,7 @@ __device__ __forceinline__ void load_cols(const bf16* p, float (&v)[NC]) {
     const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     v[0] = f.x; v[1] = f.y;
   } else {
-    static_assert(NC == 1, "head dim 8, 16, 32, 64 or 128");
+    static_assert(NC == 1, "head dim 8, 16, 32, 64, 128 or 160");
     v[0] = __bfloat162float(*p);
   }
 }
@@ -256,12 +267,15 @@ __device__ void decode_split(const KV& kv, const bf16* __restrict__ q, int g, in
       for (int c2 = 0; c2 < NC; ++c2) o[r][c2] *= a;
     }
     // unrolled whole at D >= 32; below it one key pair an iteration
-    // (unrolled, the G = 16 contiguous-cache instances spill)
+    // (unrolled, the G = 16 contiguous-cache instances spill).  Whole,
+    // ptxas spills 4 B in paged split_kernel<64,8>, at no measured cost;
+    // four pairs an iteration drop that spill but spill 24 B in
+    // split_kernel<32,16> (tools/paged_decode_variants.py, PERF.md)
 #pragma unroll (D >= 32 ? CK / 2 : 1)
     for (int k2 = 0; k2 < CK / 2; ++k2) {
       float v[2][NC];
-      load_cols<NC>(sv + (2 * k2) * L::KROW + lane_col<D, NC>(lane), v[0]);
-      load_cols<NC>(sv + (2 * k2 + 1) * L::KROW + lane_col<D, NC>(lane), v[1]);
+      load_cols<D, NC>(sv + (2 * k2) * L::KROW, lane, v[0]);
+      load_cols<D, NC>(sv + (2 * k2 + 1) * L::KROW, lane, v[1]);
 #pragma unroll
       for (int r = 0; r < G; ++r) {
         const float2 p2 = *reinterpret_cast<const float2*>(ps + r * PS + 2 * k2);
@@ -291,7 +305,7 @@ __device__ void decode_split(const KV& kv, const bf16* __restrict__ q, int g, in
     for (int r = 0; r < G; ++r)
 #pragma unroll
       for (int c2 = 0; c2 < NC; ++c2)
-        wo[(warp * G + r) * D + lane_col<D, NC>(lane) + c2] = o[r][c2];
+        wo[(warp * G + r) * D + lane_col<D, NC>(lane, c2)] = o[r][c2];
   }
   if (t == 0) {
 #pragma unroll

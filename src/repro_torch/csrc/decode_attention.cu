@@ -49,6 +49,9 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   const int blocks = (S + KEY_BLOCK - 1) / KEY_BLOCK;
   const int split_keys = max(1, (blocks + n_split - 1) / n_split) * KEY_BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 160)
+    return attn::split::launch<160>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                    n_split, split_keys, scale, s);
   if (D == 128)
     return attn::split::launch<128>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
                                     n_split, split_keys, scale, s);

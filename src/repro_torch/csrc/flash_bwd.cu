@@ -48,6 +48,12 @@
 // M: at head dim 128 a block holds 97 KB of tiles and the dk/dv sums are
 // 128 floats a thread, so two blocks share an SM and one's elementwise
 // work overlaps the other's products.
+// At head dim 160 (three 64-column blocks: wgmma.cuh) the two sums are
+// 192 floats a thread before s, dp and their bf16 copies, past the 255
+// registers a thread may hold, and ptxas would spill.  So that head dim
+// runs the dk/dv kernel twice over the same keys (PART below): dv alone
+// (s, then dv += p^T dO: p needs no dp), then dk alone (s and dp, then
+// dk += ds^T q): five products where one pass takes four, none spilled.
 // A tile that every row sees whole skips the masks.  Times, and what
 // the design choices are worth (tools/flash_bwd_variants.py builds the
 // kernels without each), are in PERF.md.
@@ -87,7 +93,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 // 32, 16 and 8, columns D..63 zero: wgmma.cuh), then for dk/dv the two
 // stages' lse and delta, in bytes.  At D < 64 the products that sum over
 // the depth (s, dp) take depth D (16 at D = 8), and those whose N is D
-// (dq, dk, dv) run at N = 64 and drop the zero columns past D.
+// (dq, dk, dv) run at N = 64 and drop the zero columns past D; at D =
+// 160 they run over three column blocks, columns 160..191 zero (144 KB
+// of tiles: one block an SM).
 template <int D>
 struct Tile {
   static constexpr int TILE = tile_elems<D>();
@@ -205,7 +213,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dq + (long long)b * Sq * qs + (long long)h * D, qs, q0, Sq, acc);
 }
 
-template <int D>
+// PART: 0 dk and dv in one pass, 1 dv alone, 2 dk alone (head dim 160).
+template <int D, int PART>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -213,6 +222,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
                      int H, int Hkv, int causal, int q_offset, float scale) {
   using T = Tile<D>;
+  constexpr bool DV = PART != 2, DK = PART != 1;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);
   bf16* sv = sk + T::TILE;
@@ -280,7 +290,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float p[8][4], ds[8][4];
     wg_fence();
     wg_abt<D>(p, sk, sq);
-    wg_abt<D>(ds, sv, sdo);
+    if constexpr (DK) wg_abt<D>(ds, sv, sdo);
     wg_commit_wait();
     // p^T, then ds^T = p^T (dp^T - delta) scale, over their registers
     // a tile whose keys every row sees needs no mask
@@ -292,7 +302,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * j + 2 * t + (e & 1);
           p[j][e] = exp2f(fmaf(p[j][e], scale2, -slse[c] * LOG2E));
-          ds[j][e] = p[j][e] * (ds[j][e] - sdelta[c]) * scale;
+          if constexpr (DK) ds[j][e] = p[j][e] * (ds[j][e] - sdelta[c]) * scale;
         }
     } else {
 #pragma unroll
@@ -304,21 +314,21 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bool seen = !causal || kpos <= qraw + q_offset;
           const float x = seen ? fmaf(p[j][e], scale2, -l * LOG2E) : (NEG_INF - l) * LOG2E;
           p[j][e] = kpos < Skv && qraw < Sq ? exp2f(x) : 0.f;
-          ds[j][e] = p[j][e] * (ds[j][e] - sdelta[c]) * scale;
+          if constexpr (DK) ds[j][e] = p[j][e] * (ds[j][e] - sdelta[c]) * scale;
         }
     }
     uint32_t xp[4][4], xds[4][4];
-    to_a(xp, p);
-    to_a(xds, ds);
+    if constexpr (DV) to_a(xp, p);
+    if constexpr (DK) to_a(xds, ds);
     wg_fence();
-    wg_xb<D>(dv_acc, xp, sdo);
-    wg_xb<D>(dk_acc, xds, sq);
+    if constexpr (DV) wg_xb<D>(dv_acc, xp, sdo);
+    if constexpr (DK) wg_xb<D>(dk_acc, xds, sq);
     wg_commit_wait();
   }
 
   cp_wait_all();
-  store_rows<D>(dk + kv_off, ks, k0, Skv, dk_acc);
-  store_rows<D>(dv + kv_off, ks, k0, Skv, dv_acc);
+  if constexpr (DK) store_rows<D>(dk + kv_off, ks, k0, Skv, dk_acc);
+  if constexpr (DV) store_rows<D>(dv + kv_off, ks, k0, Skv, dv_acc);
 }
 
 template <int D>
@@ -337,21 +347,40 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int D, int PART>
+int launch_dkv_part(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+                    int Skv, int H, int Hkv, int causal, int q_offset, float scale,
+                    cudaStream_t s) {
+  const int smem = Tile<D>::DKV_SMEM;
+  auto kernel = flash_bwd_dkv_kernel<D, PART>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Skv + ROWS - 1) / ROWS, Hkv, B);
+  kernel<<<grid, THREADS, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Skv, H, Hkv,
+      causal, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+// dk and dv in one pass, or at head dim 160 dv and then dk (see above)
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                int Skv, int H, int Hkv, int causal, int q_offset, float scale,
                cudaStream_t s) {
-  const int smem = Tile<D>::DKV_SMEM;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Skv + ROWS - 1) / ROWS, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Skv, H, Hkv,
-      causal, q_offset, scale);
-  return (int)cudaGetLastError();
+  if constexpr (D <= 128) {
+    return launch_dkv_part<D, 0>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
+                                 causal, q_offset, scale, s);
+  } else {
+    const int e = launch_dkv_part<D, 1>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H,
+                                        Hkv, causal, q_offset, scale, s);
+    if (e != 0) return e;
+    return launch_dkv_part<D, 2>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
+                                 causal, q_offset, scale, s);
+  }
 }
 
 bool bad_shape(int B, int Sq, int Skv, int H, int Hkv) {
@@ -371,6 +400,9 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (bad_shape(B, Sq, Skv, H, Hkv)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 160)
+    return launch_dq<160>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, Hkv, causal,
+                          q_offset, scale, s);
   if (D == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, Hkv, causal,
                           q_offset, scale, s);
@@ -398,6 +430,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   if (bad_shape(B, Sq, Skv, H, Hkv)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Skv == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 160)
+    return launch_dkv<160>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
+                           causal, q_offset, scale, s);
   if (D == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
                            causal, q_offset, scale, s);

@@ -76,6 +76,15 @@ template <>
 struct Cfg<64> {
   static constexpr int WGS = 2, MIN_BLOCKS = 2, KT = 1;
 };
+// head dim 160 (pixtral-12b): three column blocks, 192 wide with columns
+// 160..191 zero (wgmma.cuh), 24 KB a tile.  D = 128's 3 warpgroups and
+// 2-tile steps would need (3 + 8) tiles, 264 KB of shared memory; 2 and
+// 1 need 6, 144 KB, so one block an SM.  The output's sums are three
+// 64-column blocks: 96 f32 registers a thread.
+template <>
+struct Cfg<160> {
+  static constexpr int WGS = 2, MIN_BLOCKS = 1, KT = 1;
+};
 // head dims 32, 16 and 8: D = 64's tiles with columns D..63 zero (wgmma.cuh)
 template <>
 struct Cfg<32> : Cfg<64> {};
@@ -129,6 +138,8 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || H % Hkv != 0 || H > 65535 || B > 65535 || Skv < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 160)
+    return launch<160>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, q_offset, scale, s);
   if (D == 128)
     return launch<128>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, q_offset, scale, s);
   if (D == 64)

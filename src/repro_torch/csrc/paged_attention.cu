@@ -79,6 +79,12 @@ template <>
 struct PrefillCfg<64> {
   static constexpr int WGS = 1, MIN_BLOCKS = 4, KT = 1;
 };
+// head dim 160: 192-wide tiles (columns 160..191 zero), five of them,
+// 120 KB: one block an SM
+template <>
+struct PrefillCfg<160> {
+  static constexpr int WGS = 1, MIN_BLOCKS = 1, KT = 1;
+};
 // head dims 32, 16 and 8: D = 64's tiles with columns D..63 zero (wgmma.cuh)
 template <>
 struct PrefillCfg<32> : PrefillCfg<64> {};
@@ -154,6 +160,9 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp, const void* vp,
                                      (const int*)lengths, Hkv, D, page, maxp};
   const int split_keys = max(1, (maxp + n_split - 1) / n_split) * page;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 160)
+    return attn::split::launch<160>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
+                                    n_split, split_keys, scale, s);
   if (D == 128)
     return attn::split::launch<128>((const bf16*)q, src, (bf16*)out, (float*)ws, B, H,
                                     n_split, split_keys, scale, s);
@@ -184,6 +193,9 @@ extern "C" int paged_prefill_bf16(const void* q, const void* kp, const void* vp,
     return (int)cudaErrorInvalidValue;
   const int gp = H / Hkv;       // query heads packed into a tile's rows: a KV head's g
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 160)
+    return launch_prefill<160>(q, kp, vp, bt, start, n_valid, out, B, C, H, Hkv, gp, page,
+                               maxp, scale, s);
   if (D == 128)
     return launch_prefill<128>(q, kp, vp, bt, start, n_valid, out, B, C, H, Hkv, gp, page,
                                maxp, scale, s);

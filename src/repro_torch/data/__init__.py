@@ -1,1 +1,2 @@
-from repro_torch.data.pipeline import DataPipeline, synthetic_batch  # noqa: F401
+from repro_torch.data.pipeline import (DataPipeline, synthetic_batch,  # noqa: F401
+                                       to_tensors)

@@ -1,5 +1,6 @@
 """Deterministic data pipeline: a copy of the JAX package's
-``data/pipeline.py`` (numpy only), for the port's dense decoders.
+``data/pipeline.py`` (numpy only; ``to_tensors`` moves a batch to
+torch).
 
   * deterministic per-step batches derived from (seed, step, row), so a
     restart at step k reproduces the exact stream with no state files,
@@ -7,11 +8,10 @@
   * background prefetch with a bounded queue (host data work overlaps
     device compute);
   * a packed-document token stream (synthetic Zipf text) with next-token
-    labels.
-
-The JAX pipeline also draws encoder frames and vision patches for the
-families that take them; the port has no such family yet, and their
-draws come after a row's tokens, so the token stream is the same.
+    labels, and for the families that take them the encoder's frames
+    (whisper) and the vision patches (pixtral), drawn from the row's
+    generator after its tokens, so a batch equals the JAX package's bit
+    for bit.
 """
 from __future__ import annotations
 
@@ -27,9 +27,15 @@ from repro_torch.configs.base import ModelConfig, WorkloadShape
 def _tokens_for_step(cfg: ModelConfig, shape: WorkloadShape, seed: int,
                      step: int, lo: int, hi: int) -> Dict[str, np.ndarray]:
     """Rows [lo, hi) of the global batch for one step, seeded per global
-    row."""
+    row: tokens and labels, and ``frames`` (B, seq_len // divisor,
+    d_model) for an encoder-decoder, ``patches`` (B, min(VISION_PATCHES,
+    seq_len // 2), d_model) for a vision frontend, both float32."""
+    from repro_torch.models.model import VISION_PATCHES
+
     s = shape.seq_len
-    rows = []
+    enc_len = s // max(cfg.encoder_seq_divisor, 1)
+    n_patch = min(VISION_PATCHES, s // 2)
+    rows, frames, patches = [], [], []
     for row in range(lo, hi):
         rng = np.random.default_rng(
             np.random.SeedSequence([seed, step, row]))
@@ -38,8 +44,35 @@ def _tokens_for_step(cfg: ModelConfig, shape: WorkloadShape, seed: int,
         t = np.clip(ranks, 1, cfg.vocab_size - 1).astype(np.int32)
         t[rng.random(s + 1) < (1.0 / 512)] = 0       # BOS/doc separator
         rows.append(t)
+        if cfg.encoder_layers:
+            frames.append(rng.standard_normal(
+                (enc_len, cfg.d_model)).astype(np.float32) * 0.02)
+        if cfg.frontend == "vision":
+            patches.append(rng.standard_normal(
+                (n_patch, cfg.d_model)).astype(np.float32) * 0.02)
     toks = np.stack(rows)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if frames:
+        out["frames"] = np.stack(frames)
+    if patches:
+        out["patches"] = np.stack(patches)
+    return out
+
+
+def to_tensors(batch: Dict[str, np.ndarray], device) -> Dict:
+    """A batch's arrays as tensors on ``device``: token ids and labels as
+    int64, frames and patches as float32; keys starting with ``_`` (the
+    pipeline's step) are left out."""
+    import torch
+
+    out = {}
+    for k, v in batch.items():
+        if k.startswith("_"):
+            continue
+        v = np.asarray(v)
+        v = v.astype(np.int64 if v.dtype.kind in "iu" else np.float32)
+        out[k] = torch.from_numpy(v).to(device)
+    return out
 
 
 def synthetic_batch(cfg: ModelConfig, shape: WorkloadShape, seed: int = 0,

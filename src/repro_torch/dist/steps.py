@@ -97,8 +97,10 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                      mesh: Optional[dmesh.Mesh] = None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``.
 
-    ``batch`` holds the GLOBAL batch's ``tokens`` and ``labels`` (B, S)
-    on the state's device, the same on every rank; metrics are float32
+    ``batch`` holds the GLOBAL batch's ``tokens`` and ``labels`` (B, S),
+    and an encoder-decoder's ``frames`` or a vision frontend's
+    ``patches`` (B, ..., d_model), on the state's device, the same on
+    every rank; every entry is cut by rows alike; metrics are float32
     scalars (loss, xent, moe_aux, grad_norm, lr), the same on every rank.
     With ``tcfg.grad_accum > 1`` the batch is cut into that many
     microbatches of consecutive rows whose float32 gradients and metrics

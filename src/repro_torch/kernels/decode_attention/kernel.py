@@ -14,7 +14,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 160)
 MAX_GROUP = 16                 # query heads per KV head in one decode block
 # paged decode's split of each slot's pages: enough blocks to give every
 # SM BLOCKS_PER_SM, and no split shorter than MIN_SPLIT_KEYS keys (one

@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 160)
 
 
 def _check_qkv(name, q, k, v):

@@ -1,8 +1,8 @@
-"""Transformer layers of the attention-only decoders: RMSNorm or
-LayerNorm, RoPE (whole or partial head dim), sinusoidal positions, GQA
-attention with optional QKV bias (prefill, contiguous decode, paged
-decode, paged chunk prefill), the SwiGLU or GeLU MLP, embed and
-(optionally tied) logits.
+"""Transformer layers: RMSNorm or LayerNorm, RoPE (whole or partial
+head dim), sinusoidal positions, GQA attention with optional QKV bias
+(prefill, contiguous decode, paged decode, paged chunk prefill) and
+cross-attention over an encoder's keys and values, the SwiGLU or GeLU
+MLP, embed and (optionally tied) logits.
 
 Each layer has ``*_defs(cfg)`` (the PDef schema, with the JAX package's
 key names and logical axes) and ``*_apply(cfg, params, ...)`` (the math
@@ -90,7 +90,8 @@ def sinusoidal_positions(seq_len: int, d_model: int, offset=0, device=None):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def attention_defs(cfg: ModelConfig):
+def attention_defs(cfg: ModelConfig, cross: bool = False):
+    """A cross-attention's projections take no QKV bias."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     defs = {
         "wq": PDef((d, h * hd), ("embed", "heads")),
@@ -98,31 +99,39 @@ def attention_defs(cfg: ModelConfig):
         "wv": PDef((d, kv * hd), ("embed", "kv_heads")),
         "wo": PDef((h * hd, d), ("heads", "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs["bq"] = PDef((h * hd,), ("heads",), init="zeros")
         defs["bk"] = PDef((kv * hd,), ("kv_heads",), init="zeros")
         defs["bv"] = PDef((kv * hd,), ("kv_heads",), init="zeros")
     return defs
 
 
-def _project_qkv(cfg, p, x):
+def _project_qkv(cfg, p, x, kv_input=None):
+    """q from ``x``; k and v from ``kv_input`` (an encoder's output, for
+    cross-attention) or from ``x``."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_in = x if kv_input is None else kv_input
+    skv = kv_in.shape[1]
     q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    k = kv_in @ p["wk"].to(x.dtype)
+    v = kv_in @ p["wv"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
-            v.reshape(b, s, kv, hd))
+    return (q.reshape(b, s, h, hd), k.reshape(b, skv, kv, hd),
+            v.reshape(b, skv, kv, hd))
 
 
 def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
-                    cache=None, cache_index=None,
+                    cache=None, cache_index=None, cross_kv=None,
                     paging: Optional[PagedView] = None, impl=None):
-    """Self-attention.  Without ``cache``: the prompt prefill, returning
+    """Self- or cross-attention.  With ``cross_kv``, the (k, v) of an
+    encoder's output (B, Skv, kv, hd): q from ``x`` (RoPE'd where
+    ``positions`` are given and the config rotates), attending every key
+    (non-causal), returning (out, None).  Otherwise self-attention.
+    Without ``cache``: the prompt prefill, returning
     (out, (k, v)).  With ``cache`` (one layer's ``{"k", "v"}``) and
     ``paging`` (the cache is then the page pools): paged decode (s == 1)
     or paged chunk prefill (s > 1).  With a contiguous cache (B, S, kv,
@@ -132,6 +141,12 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
     old one, so the effect is the same) and returns (out, (k, v) of the
     cache)."""
     b, s, _ = x.shape
+    if cross_kv is not None:
+        q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        if positions is not None and cfg.pos_type == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        out = ops.flash_attention(q, *cross_kv, causal=False, impl=impl)
+        return out.reshape(b, s, -1) @ p["wo"].to(x.dtype), None
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)

@@ -1,5 +1,6 @@
 """Model facade: schema, init, train loss, prefill, chunk prefill, paged
-and contiguous decode.
+and contiguous decode; an encoder-decoder's ``frames`` and a vision
+frontend's ``patches`` come in the batch, as in the JAX package.
 
 As in the JAX package, parameters and caches are explicit trees (nested
 dicts of tensors) passed to every call; the ``Model`` holds the config
@@ -17,6 +18,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers, transformer
 from repro_torch.models import params as P
 
+VISION_PATCHES = 64          # pixtral stub: patches replacing leading tokens
+
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, impl: Optional[str] = None):
@@ -25,8 +28,13 @@ class Model(nn.Module):
         self.impl = impl
 
     def param_defs(self):
-        return {"embed": layers.embed_defs(self.cfg),
-                "blocks": transformer.stack_defs(self.cfg)}
+        cfg = self.cfg
+        defs = {"embed": layers.embed_defs(cfg),
+                "blocks": transformer.stack_defs(
+                    cfg, cross=bool(cfg.encoder_layers))}
+        if cfg.encoder_layers:
+            defs["encoder"] = transformer.encoder_defs(cfg)
+        return defs
 
     def init(self, generator: Optional[torch.Generator] = None,
              dtype=torch.float32, device=None):
@@ -66,15 +74,13 @@ class Model(nn.Module):
         JAX package does (there the contraction stays local under a
         vocab-sharded head): at 8192 tokens by 64000 words a float32
         one-hot alone is 2.1 GB."""
-        cfg = self.cfg
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype)
-        x, _, aux = transformer.stack_apply(cfg, params["blocks"], x,
-                                            positions=positions, mode="train",
-                                            remat=remat, impl=self.impl)
-        logits = layers.logits_apply(cfg, params["embed"], x,
-                                     impl=self.impl).float()
+        logits, _, aux = self._trunk(
+            params, tokens, positions, mode="train",
+            compute_dtype=compute_dtype, frames=batch.get("frames"),
+            patches=batch.get("patches"), remat=remat)
+        logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             batch["labels"].long()[..., None])[..., 0]
@@ -84,28 +90,47 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ forward
     def _trunk(self, params, tokens, positions, *, mode, compute_dtype,
-               caches=None, cache_index=None, paging=None, offset=0):
-        """``offset``: the sinusoidal positions' first position, the
-        scalar ``cache_index`` on the contiguous decode path and 0
+               caches=None, cache_index=None, paging=None, offset=0,
+               frames=None, patches=None, remat=False):
+        """(logits, caches, aux): ``stack_apply``'s caches and aux under
+        the logits.  ``offset``: the sinusoidal positions' first position,
+        the scalar ``cache_index`` on the contiguous decode path and 0
         elsewhere (per-slot paths serve rope or position-free archs
-        only, as in the JAX package)."""
+        only, as in the JAX package).  ``patches`` (B, n, d_model), for a
+        vision frontend, take the place of the first n token embeddings;
+        ``frames`` (B, T, d_model) run through the encoder except in
+        decode, which reads the encoder's projections from the cache."""
         cfg = self.cfg
         x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype,
                                offset=offset)
-        x, new_caches, _ = transformer.stack_apply(
+        if cfg.frontend == "vision" and patches is not None:
+            x = torch.cat([patches.to(compute_dtype),
+                           x[:, patches.shape[1]:]], dim=1)
+        enc_out = None
+        if cfg.encoder_layers and mode != "decode":
+            if frames is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder needs the "
+                                 f"batch's 'frames'")
+            enc_out = transformer.encoder_apply(
+                cfg, params["encoder"], frames.to(compute_dtype),
+                remat=remat, mode=mode, impl=self.impl)
+        x, new_caches, aux = transformer.stack_apply(
             cfg, params["blocks"], x, positions=positions, caches=caches,
-            cache_index=cache_index, mode=mode, paging=paging,
-            impl=self.impl)
-        return layers.logits_apply(cfg, params["embed"], x,
-                                   impl=self.impl), new_caches
+            cache_index=cache_index, enc_out=enc_out, mode=mode,
+            remat=remat, paging=paging, impl=self.impl)
+        return (layers.logits_apply(cfg, params["embed"], x, impl=self.impl),
+                new_caches, aux)
 
     @torch.no_grad()
     def prefill(self, params, batch: Dict, *, compute_dtype=torch.bfloat16,
                 last_index=None):
         """A whole prompt: (last_logits (B, V), caches) where caches are
-        the prompt's KV, ``{"p{i}": {"k", "v"}}`` of (reps, B, S, kv, hd),
-        and each sequence mixer's state after the prompt (from a zeroed
-        state, as the JAX package's prefill starts), ``(reps, B, ...)``.
+        the prompt's KV, ``{"p{i}": {"k", "v"}}`` of (reps, B, S, kv, hd)
+        (an encoder-decoder's also the encoder's ``xk``/``xv``, (reps, B,
+        T, kv, hd) bf16, from the batch's ``frames``), and each sequence
+        mixer's state after the prompt (from a zeroed state, as the JAX
+        package's prefill starts), ``(reps, B, ...)``.  The batch's
+        ``patches`` take the place of the leading token embeddings.
 
         ``last_index``: per-row position of the last real prompt token
         (prompts padded to a fixed capacity); default the final column.
@@ -114,9 +139,10 @@ class Model(nn.Module):
         """
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        logits, caches = self._trunk(params, tokens, positions,
-                                     mode="prefill",
-                                     compute_dtype=compute_dtype)
+        logits, caches, _ = self._trunk(
+            params, tokens, positions, mode="prefill",
+            compute_dtype=compute_dtype, frames=batch.get("frames"),
+            patches=batch.get("patches"))
         if last_index is None:
             return logits[:, -1], caches
         rows = torch.arange(logits.shape[0], device=logits.device)
@@ -137,9 +163,11 @@ class Model(nn.Module):
                              f"masking; sequence mixers prefill exactly")
         positions = (paging.lengths.long()[:, None]
                      + torch.arange(tokens.shape[1], device=tokens.device))
-        return self._trunk(params, tokens, positions, mode="prefill",
-                           caches=pool, paging=paging,
-                           compute_dtype=compute_dtype)
+        logits, pool, _ = self._trunk(params, tokens, positions,
+                                      mode="prefill", caches=pool,
+                                      paging=paging,
+                                      compute_dtype=compute_dtype)
+        return logits, pool
 
     @torch.no_grad()
     def decode_step(self, params, caches, tokens, cache_index, *,
@@ -162,8 +190,8 @@ class Model(nn.Module):
             offset = 0
             positions = (cache_index.long()[:, None]
                          + torch.arange(s, device=tokens.device))
-        logits, caches = self._trunk(params, tokens, positions,
-                                     mode="decode", caches=caches,
+        logits, caches, _ = self._trunk(params, tokens, positions,
+                                        mode="decode", caches=caches,
                                      cache_index=cache_index, paging=paging,
                                      compute_dtype=compute_dtype,
                                      offset=offset)

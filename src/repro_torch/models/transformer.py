@@ -1,13 +1,15 @@
-"""Layer stack of the decoders: attention, Mamba, mLSTM and sLSTM
-positions, each with a dense or MoE FFN where the JAX package gives it
-one.
+"""Layer stack: attention, Mamba, mLSTM and sLSTM positions, each with
+a dense or MoE FFN where the JAX package gives it one, a cross-attention
+block after each attention position of an encoder-decoder (whisper), and
+the encoder stack itself.
 
 Parameters for each block-pattern position are stacked over
 ``cfg.n_repeats`` under the keys ``p{i}`` (the JAX package's layout, so
 a JAX parameter tree carries across unchanged); the stack runs as a
 Python loop over the repeats, each stacked leaf unbound once into its
 layers' slices.  Attention keeps KV (contiguous, or paged in the
-engine's pool); a sequence mixer keeps a recurrent state, slot-major in
+engine's pool) and, under cross-attention, the encoder's projected
+``xk``/``xv``; a sequence mixer keeps a recurrent state, slot-major in
 the pool.
 """
 from __future__ import annotations
@@ -27,13 +29,6 @@ _STATE_SHAPES = {"mamba": mamba.mamba_cache_shape,
                  "slstm": xlstm.slstm_cache_shape}
 
 
-def _check_ported(cfg: ModelConfig):
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder stack (whisper) is not ported "
-            f"(ROADMAP Queue 1 item 6)")
-
-
 def _pos_has_ffn(cfg: ModelConfig, i: int) -> bool:
     # xLSTM cells are complete blocks; attn/mamba positions carry an FFN.
     return cfg.block_pattern[i] in ("attn", "mamba") and (
@@ -45,8 +40,7 @@ def _pos_is_moe(cfg: ModelConfig, i: int) -> bool:
             and (i % cfg.moe.every) == (cfg.moe.every - 1))
 
 
-def position_defs(cfg: ModelConfig, i: int):
-    _check_ported(cfg)
+def position_defs(cfg: ModelConfig, i: int, cross: bool = False):
     kind = cfg.block_pattern[i]
     d = {"norm1": layers.norm_defs(cfg)}
     if kind == "attn":
@@ -59,6 +53,9 @@ def position_defs(cfg: ModelConfig, i: int):
         d["slstm"] = xlstm.slstm_defs(cfg)
     else:
         raise ValueError(kind)
+    if cross:
+        d["norm_x"] = layers.norm_defs(cfg)
+        d["xattn"] = layers.attention_defs(cfg, cross=True)
     if _pos_has_ffn(cfg, i):
         d["norm2"] = layers.norm_defs(cfg)
         if _pos_is_moe(cfg, i):
@@ -68,9 +65,19 @@ def position_defs(cfg: ModelConfig, i: int):
     return d
 
 
-def stack_defs(cfg: ModelConfig):
-    return {f"p{i}": stack(position_defs(cfg, i), cfg.n_repeats)
+def stack_defs(cfg: ModelConfig, cross: bool = False):
+    return {f"p{i}": stack(position_defs(cfg, i, cross), cfg.n_repeats)
             for i in range(cfg.pattern_len)}
+
+
+def encoder_defs(cfg: ModelConfig):
+    """Non-causal attention + MLP encoder stack (whisper)."""
+    d = {"norm1": layers.norm_defs(cfg),
+         "attn": layers.attention_defs(cfg),
+         "norm2": layers.norm_defs(cfg),
+         "mlp": layers.mlp_defs(cfg)}
+    return {"enc": stack(d, cfg.encoder_layers),
+            "enc_norm": layers.norm_defs(cfg)}
 
 
 def state_defs(cfg: ModelConfig, kind: str, batch: int):
@@ -86,16 +93,24 @@ def _kv_defs(batch: int, seq_len: int, kv: int, hd: int, axes):
                     dtype="bfloat16") for n in ("k", "v")}
 
 
-def cache_defs(cfg: ModelConfig, batch: int, seq_len: int):
+def cache_defs(cfg: ModelConfig, batch: int, seq_len: int,
+               enc_len: int = 0):
     """Contiguous decode-state schema per position, stacked over the
-    repeats: bf16 KV ``(batch, seq_len, kv, hd)`` for attention, the
-    recurrent state (``state_defs``) for a sequence mixer."""
-    _check_ported(cfg)
+    repeats: bf16 KV ``(batch, seq_len, kv, hd)`` for attention (and of
+    an encoder-decoder the encoder's ``xk``/``xv``, ``(batch, enc_len,
+    kv, hd)``), the recurrent state (``state_defs``) for a sequence
+    mixer."""
+    axes = ("batch", "kv_seq", "kv_heads", None)
     out = {}
     for i, kind in enumerate(cfg.block_pattern):
-        c = (_kv_defs(batch, seq_len, cfg.n_kv_heads, cfg.head_dim,
-                      ("batch", "kv_seq", "kv_heads", None))
-             if kind == "attn" else state_defs(cfg, kind, batch))
+        if kind == "attn":
+            c = _kv_defs(batch, seq_len, cfg.n_kv_heads, cfg.head_dim, axes)
+            if cfg.encoder_layers:
+                cross = _kv_defs(batch, enc_len, cfg.n_kv_heads,
+                                 cfg.head_dim, axes)
+                c.update(xk=cross["k"], xv=cross["v"])
+        else:
+            c = state_defs(cfg, kind, batch)
         out[f"p{i}"] = stack(c, cfg.n_repeats)
     return out
 
@@ -105,8 +120,11 @@ def paged_cache_defs(cfg: ModelConfig, n_slots: int, n_pages: int,
     """Paged decode-state schema: attention KV in one bf16 pool
     ``(n_pages, page_size, kv, hd)`` per position and layer, indexed by
     the engine's block table (page 0 is the null page, never allocated);
-    sequence-mixer state slot-major, ``(n_slots, ...)``."""
-    _check_ported(cfg)
+    sequence-mixer state slot-major, ``(n_slots, ...)``.  Decoder-only
+    architectures: an encoder-decoder raises, as in the JAX package."""
+    if cfg.encoder_layers:
+        raise ValueError(f"{cfg.name}: paged serving supports decoder-only "
+                         f"architectures")
     out = {}
     for i, kind in enumerate(cfg.block_pattern):
         c = (_kv_defs(n_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
@@ -123,9 +141,13 @@ def _zero_state(cfg, kind, batch, device):
 
 
 def _apply_position(cfg, i, p, x, *, positions, mode, cache=None,
-                    cache_index=None, paging=None, impl=None):
+                    cache_index=None, enc_out=None, paging=None, impl=None):
     """One pattern position: (x, its cache leaves or None, its MoE aux
-    loss or None).  Attention returns its (k, v) as ``{"k", "v"}``.  A
+    loss or None).  Attention returns its (k, v) as ``{"k", "v"}``; an
+    encoder-decoder's cross-attention then projects ``enc_out`` (train
+    and prefill, where the prefill also returns the projections as
+    ``xk``/``xv`` in bf16) or reads ``xk``/``xv`` from the cache
+    (decode, which leaves them as they are).  A
     sequence mixer starts from m = NEG in training (no cache, as the
     JAX package's loss), from a zeroed state in a prompt prefill (as its
     ``Model.prefill`` threads a zeroed cache), and from ``cache``
@@ -137,6 +159,22 @@ def _apply_position(cfg, i, p, x, *, positions, mode, cache=None,
             cfg, p["attn"], h, positions=positions, causal=cfg.causal,
             cache=cache, cache_index=cache_index, paging=paging, impl=impl)
         new = {"k": kvs[0], "v": kvs[1]}
+        if cfg.encoder_layers:
+            # cross-attention after the self-attention's residual; the
+            # residual below adds the cross-attention's
+            x = x + out
+            hx = layers.norm_apply(cfg, p["norm_x"], x, impl=impl)
+            if mode == "decode":
+                xk, xv = cache["xk"], cache["xv"]
+            else:
+                _, xk, xv = layers._project_qkv(cfg, p["xattn"], hx,
+                                                kv_input=enc_out.to(hx.dtype))
+                if mode == "prefill":
+                    new.update(xk=xk.to(torch.bfloat16),
+                               xv=xv.to(torch.bfloat16))
+            out, _ = layers.attention_apply(
+                cfg, p["xattn"], hx, positions=None,
+                cross_kv=(xk.to(hx.dtype), xv.to(hx.dtype)), impl=impl)
     else:
         state = cache
         if mode == "prefill" and cache is None:
@@ -160,7 +198,7 @@ def _apply_position(cfg, i, p, x, *, positions, mode, cache=None,
 
 
 def _superblock(cfg, pslice, x, positions, mode, cslice, cache_index,
-                paging, impl):
+                enc_out, paging, impl):
     """All pattern positions of one repeat: (x, {"p{i}": cache leaves},
     the sum of their MoE aux losses, 0.0 without MoE)."""
     caches, aux_sum = {}, 0.0
@@ -169,23 +207,24 @@ def _superblock(cfg, pslice, x, positions, mode, cslice, cache_index,
         x, caches[key], aux = _apply_position(
             cfg, i, pslice[key], x, positions=positions, mode=mode,
             cache=None if cslice is None else cslice[key],
-            cache_index=cache_index, paging=paging, impl=impl)
+            cache_index=cache_index, enc_out=enc_out, paging=paging,
+            impl=impl)
         if aux is not None:
             aux_sum = aux_sum + aux
     return x, caches, aux_sum
 
 
-def _train_superblock(cfg, pslice, x, positions, impl):
+def _train_superblock(cfg, pslice, x, positions, enc_out, impl):
     # the aux loss is an output of the checkpointed block, so its
     # gradient flows through the recomputation like x's
     x, _, aux = _superblock(cfg, pslice, x, positions, "train", None, None,
-                            None, impl)
+                            enc_out, None, impl)
     return x, aux
 
 
 def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
-                cache_index=None, mode="train", remat=True, paging=None,
-                impl=None):
+                cache_index=None, enc_out=None, mode="train", remat=True,
+                paging=None, impl=None):
     """Run the layer stack: (x, caches, aux) where ``aux`` is the float32
     sum of every MoE position's aux loss (0 without MoE), as the JAX
     package's stack returns it.
@@ -198,7 +237,8 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
     of its weights included) is recomputed there.  Otherwise, without
     ``caches`` (prompt prefill) it returns each position's prompt KV,
     ``{"k", "v"}``, or a sequence mixer's state after the prompt, stacked
-    over the repeats under ``p{i}``; with caches (page pools with
+    over the repeats under ``p{i}`` (with an encoder's ``enc_out``, the
+    cross-attention's ``xk``/``xv`` beside them); with caches (page pools with
     ``paging``, contiguous caches with the int ``cache_index``) it writes
     the new KV and state into them in place and returns them.
 
@@ -215,15 +255,18 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
         if mode == "train":
             if remat:
                 x, aux = checkpoint(_train_superblock, cfg, pslice, x,
-                                    positions, impl, use_reentrant=False)
+                                    positions, enc_out, impl,
+                                    use_reentrant=False)
             else:
-                x, aux = _train_superblock(cfg, pslice, x, positions, impl)
+                x, aux = _train_superblock(cfg, pslice, x, positions,
+                                           enc_out, impl)
             aux_total = aux_total + aux
             continue
         cslice = None if caches is None else tree_map(lambda ts: ts[r],
                                                       per_cache)
         x, layer_caches, aux = _superblock(cfg, pslice, x, positions, mode,
-                                          cslice, cache_index, paging, impl)
+                                          cslice, cache_index, enc_out,
+                                          paging, impl)
         aux_total = aux_total + aux
         if caches is None:
             for key, leaves in layer_caches.items():
@@ -237,3 +280,34 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
         return x, caches, aux_total
     return x, {key: {n: torch.stack(ts) for n, ts in leaves.items()}
                for key, leaves in new.items()}, aux_total
+
+
+def _encoder_layer(cfg, p, x, impl):
+    h = layers.norm_apply(cfg, p["norm1"], x, impl=impl)
+    out, _ = layers.attention_apply(cfg, p["attn"], h, positions=None,
+                                    causal=False, impl=impl)
+    x = x + out
+    h = layers.norm_apply(cfg, p["norm2"], x, impl=impl)
+    return x + layers.mlp_apply(cfg, p["mlp"], h)
+
+
+def encoder_apply(cfg: ModelConfig, enc_params, frames, *, remat=True,
+                  mode="train", impl=None):
+    """The whisper-style encoder over precomputed frame embeddings
+    (B, T, d_model): sinusoidal positions added, then per layer
+    non-causal self-attention and the MLP, then ``enc_norm``.  Under
+    ``mode="train"`` with ``remat`` each layer runs under
+    ``torch.utils.checkpoint``, as the JAX package checkpoints each
+    scanned layer."""
+    x = frames + layers.sinusoidal_positions(
+        frames.shape[1], cfg.d_model, device=frames.device).to(
+            frames.dtype)[None]
+    per_layer = tree_map(lambda t: t.unbind(0), enc_params["enc"])
+    for r in range(cfg.encoder_layers):
+        p = tree_map(lambda ts: ts[r], per_layer)
+        if mode == "train" and remat:
+            x = checkpoint(_encoder_layer, cfg, p, x, impl,
+                           use_reentrant=False)
+        else:
+            x = _encoder_layer(cfg, p, x, impl)
+    return layers.norm_apply(cfg, enc_params["enc_norm"], x, impl=impl)

@@ -117,6 +117,8 @@ class Engine:
                  compute_dtype=torch.bfloat16, clock: Optional[Clock] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None):
+        assert not cfg.encoder_layers, \
+            "serving engine: decoder-only architectures"
         assert cfg.pos_type in ("rope", "none"), \
             "per-slot positions need rope (or no) position encoding"
         self.device = resolve_device(device)

@@ -157,10 +157,13 @@ class WorkloadReconciler:
                 "resources.n_nodes", "over-capacity",
                 f"{detail} exceeds the cluster's maximum of "
                 f"{capacity} hosts — the job could never be scheduled"))
-        # (the port's configs have no encoder yet, so none is refused for
-        # encoder_layers > 0 as in the JAX package)
         if spec.kind == "serve":
-            if cfg.pos_type not in ("rope", "none"):
+            if cfg.encoder_layers:
+                errs.append(_err(
+                    "arch", "not-servable",
+                    f"{cfg.name}: the serving engine hosts decoder-only "
+                    "architectures (encoder_layers > 0)"))
+            elif cfg.pos_type not in ("rope", "none"):
                 errs.append(_err(
                     "arch", "not-servable",
                     f"{cfg.name}: per-slot positions need rope (or no) "

@@ -8,14 +8,13 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.base import (BASELINE, ModelConfig,
                                       ShardingStrategy, TrainConfig,
                                       WorkloadShape)
-from repro_torch.data import DataPipeline
+from repro_torch.data import DataPipeline, to_tensors
 from repro_torch.device import resolve_device
 from repro_torch.dist import steps as dsteps
 from repro_torch.models import params as P
@@ -107,10 +106,6 @@ class Trainer:
                 self.state = P.tree_map(lambda t: t.to(self.device), host)
         return time.perf_counter() - t0
 
-    def _put_batch(self, batch):
-        return {k: torch.from_numpy(np.asarray(v, np.int64)).to(self.device)
-                for k, v in batch.items() if not k.startswith("_")}
-
     # ------------------------------------------------------------------
     def run(self, n_steps: int, *, ckpt_every: int = 0,
             log_every: int = 10) -> List[Dict]:
@@ -120,7 +115,7 @@ class Trainer:
                             start_step=self.start_step)
         try:
             for i in range(self.start_step, self.start_step + n_steps):
-                batch = self._put_batch(next(pipe))
+                batch = to_tensors(next(pipe), self.device)
                 t0 = time.perf_counter()
                 self.state, metrics = self._step(self.state, batch)
                 loss = float(metrics["loss"])          # waits for the step

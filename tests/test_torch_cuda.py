@@ -83,7 +83,12 @@ def test_rmsnorm_kernel(dev, rows, d):
     # head dims 16 (the SMOKE configs') and 8 (qwen2-72b's SMOKE)
     (2, 130, 130, 4, 2, 16, True), (1, 65, 257, 8, 2, 16, True),
     (2, 64, 192, 4, 4, 16, False), (2, 130, 130, 8, 2, 8, True),
-    (1, 65, 257, 8, 1, 8, True), (2, 64, 192, 4, 4, 8, False)])
+    (1, 65, 257, 8, 1, 8, True), (2, 64, 192, 4, 4, 8, False),
+    # head dim 160 (pixtral-12b: 32 heads over 8), and whisper's
+    # cross-attention: one query row over every key, non-causal
+    (2, 130, 130, 8, 2, 160, True), (1, 65, 257, 32, 8, 160, True),
+    (2, 64, 192, 4, 4, 160, False), (1, 17, 17, 8, 1, 160, True),
+    (3, 1, 1500, 8, 8, 64, False), (2, 1, 150, 32, 8, 160, False)])
 def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
     q, k, v = (_rnd(dev, b, s, n, d, seed=i) for i, (s, n) in
                enumerate([(sq, h), (skv, hkv), (skv, hkv)]))
@@ -100,7 +105,8 @@ def test_flash_fwd_kernel(dev, b, sq, skv, h, hkv, d, causal):
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,qo", [
     (2, 300, 300, 8, 1, 128, True, 0), (1, 130, 257, 16, 2, 64, False, 0),
     (1, 200, 130, 8, 2, 64, True, -70), (2, 300, 300, 8, 8, 32, True, 0),
-    (2, 300, 300, 4, 2, 16, True, 0), (1, 200, 130, 8, 2, 8, True, -70)])
+    (2, 300, 300, 4, 2, 16, True, 0), (1, 200, 130, 8, 2, 8, True, -70),
+    (2, 300, 300, 32, 8, 160, True, 0), (2, 1, 1500, 8, 8, 64, False, 0)])
 def test_flash_fwd_kernel_is_deterministic(dev, b, sq, skv, h, hkv, d, causal,
                                            qo):
     """Each block owns its output rows and sums in a fixed order (no
@@ -184,7 +190,8 @@ def _split_pool(dev, b, maxp, hkv, d, page=16, seed=11):
     (32, 2, 128), (64, 8, 128),          # chatglm3-6b's and qwen2-72b's heads
     (32, 8, 128),                        # jamba-v0.1-52b's heads (g = 4)
     (8, 8, 32), (16, 2, 32),             # head dim 32 (lammps-proxy's: g = 1)
-    (4, 2, 16), (16, 1, 16), (8, 2, 8), (16, 2, 8)])   # head dims 16 and 8
+    (4, 2, 16), (16, 1, 16), (8, 2, 8), (16, 2, 8),    # head dims 16 and 8
+    (32, 8, 160), (8, 8, 160), (32, 2, 160)])           # head dim 160
 def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
     """Slots of 80 pages (many splits): lengths 1, page - 1, page, page +
     1, a split boundary - 1, + 0 and + 1 (the wrapper's plan), and the
@@ -217,7 +224,7 @@ def test_paged_decode_kernel_splits_keys_across_blocks(dev, h, hkv, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 160])
 def test_paged_decode_kernel_with_more_splits_than_filled_pages(dev, d):
     """Short slots in wide block tables: most splits start past their
     slot's length and write empty partials, which the merge skips."""
@@ -232,7 +239,8 @@ def test_paged_decode_kernel_with_more_splits_than_filled_pages(dev, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (16, 1, 64),
-                                     (8, 8, 32), (4, 2, 16), (8, 2, 8)])
+                                     (8, 8, 32), (4, 2, 16), (8, 2, 8),
+                                     (32, 8, 160)])
 def test_decode_attention_gives_paged_decodes_bits(dev, h, hkv, d):
     """One split kernel behind two KV addressers: a contiguous cache and
     a page pool holding the same keys give the same bits, at every
@@ -279,7 +287,7 @@ PREFILL_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,start,n_valid,chunk,page", PREFILL_CASES)
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 160])
 def test_paged_prefill_kernel(dev, h, hkv, start, n_valid, chunk, page, d):
     """Two slots (the second at an earlier start with fewer real rows):
     the real rows within TOL per element and 4e-3 in relative L2 (both
@@ -580,6 +588,84 @@ def test_sequence_mixer_smoke_trains_on_the_card(dev, arch, monkeypatch):
         [h["loss"] for h in hist], rel=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "pixtral-12b"])
+def test_encdec_and_vision_smoke_train_on_the_card(dev, arch, monkeypatch):
+    """whisper SMOKE (frames through the encoder, cross-attention) and
+    pixtral SMOKE (patches) through the Trainer on the card with every
+    plain version refused: finite losses that a second Trainer repeats,
+    and the attention kernels launched (whisper's LayerNorm is no
+    kernel; pixtral's RMSNorm is)."""
+    import math
+
+    from repro_torch.configs import TrainConfig, WorkloadShape, registry
+    from repro_torch.train import Trainer
+    cfg = registry.smoke(arch)
+    _refuse_plain(monkeypatch)
+    shape = WorkloadShape("t", "train", 300, 2)
+    build.reset_launches()
+    hist = Trainer(cfg, TrainConfig(), shape, device=dev).run(3, log_every=0)
+    assert all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") + (
+        ("rmsnorm",) if arch == "pixtral-12b" else ())
+    for k in kernels:
+        assert build.LAUNCHES[k] > 0, k
+    again = Trainer(cfg, TrainConfig(), shape, device=dev).run(3,
+                                                               log_every=0)
+    assert [h["loss"] for h in again] == pytest.approx(
+        [h["loss"] for h in hist], rel=1e-4)
+
+
+@pytest.mark.cuda
+def test_whisper_smoke_decodes_on_the_card(dev, monkeypatch):
+    """whisper SMOKE on the card: a prefill with frames, then contiguous
+    decode steps whose cross-attention is one query row over every frame,
+    through the kernels (plain versions refused), the plain versions in
+    bf16 and in float32: the kernel path's logits stay as close to
+    float32 as the plain bf16 path's, within 1.5x (chip_smoke.py's
+    LOGIT_NOISE_FACTOR), and every kernel launch is counted."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+    cfg = registry.smoke("whisper-base")
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (3, 24), generator=g, device=dev)
+    frames = torch.randn((3, 150, cfg.d_model), generator=g, device=dev) * 0.02
+    pad = torch.zeros_like(toks)
+    pad[:, :16] = toks[:, :16]
+    got = {}
+    for name, impl, dtype in (("f32", "ref", torch.float32),
+                              ("plain", "ref", torch.bfloat16),
+                              ("kernels", None, torch.bfloat16)):
+        model = Model(cfg, impl=impl)
+        if impl is None:
+            _refuse_plain(monkeypatch)
+        build.reset_launches()
+        lg, cache = model.prefill(params, {"tokens": pad, "frames": frames},
+                                  compute_dtype=dtype,
+                                  last_index=torch.full((3,), 15, device=dev))
+        out = [lg]
+        for i in range(4):
+            lg, cache = model.decode_step(params, cache,
+                                          toks[:, 16 + i:17 + i], 16 + i,
+                                          compute_dtype=dtype)
+            out.append(lg)
+        got[name] = torch.cat(out).float()
+
+    def rel(a):
+        return float(((got[a] - got["f32"]).norm(dim=-1)
+                      / got["f32"].norm(dim=-1)).max())
+
+    assert rel("kernels") <= 1.5 * rel("plain"), (rel("kernels"), rel("plain"))
+    # the prefill: the encoder's, the decoder's and the cross
+    # attentions; a step: the cross-attention over the frames
+    L = cfg.n_layers
+    assert build.LAUNCHES["flash_fwd"] == cfg.encoder_layers + 2 * L + 4 * L
+    assert build.LAUNCHES["decode_attention"] == 4 * L
+
+
 def _plain_scan(dt, bmat, cmat, u, a, h0):
     """The selective scan one step at a time, out of place, for
     autograd: h_t = exp(dt_t A) h_{t-1} + dt_t u_t B_t, y_t = h_t C_t."""
@@ -663,6 +749,12 @@ BWD_SHAPES = [
     (2, 100, 300, 4, 4, 8, False),
     # g = 4 at head dim 128: jamba-v0.1-52b's 32 heads over 8 KV heads
     (2, 300, 300, 32, 8, 128, True), (1, 129, 300, 32, 8, 128, False),
+    # head dim 160 (pixtral-12b's 32 heads over 8: dk and dv in two
+    # passes), and whisper's cross-attention backward (8 heads of 64,
+    # non-causal, query rows far fewer than keys)
+    (2, 300, 300, 32, 8, 160, True), (1, 129, 300, 8, 1, 160, True),
+    (2, 100, 300, 4, 4, 160, False), (1, 33, 65, 2, 2, 160, True),
+    (2, 64, 750, 8, 8, 64, False),
 ]
 
 
@@ -697,7 +789,8 @@ def test_flash_bwd_kernels(dev, b, sq, skv, h, hkv, d, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal", [
-    (2, 300, 300, 8, 2, 128, True), (1, 129, 300, 16, 8, 64, False)])
+    (2, 300, 300, 8, 2, 128, True), (1, 129, 300, 16, 8, 64, False),
+    (2, 300, 300, 32, 8, 160, True)])
 def test_flash_bwd_kernels_are_deterministic(dev, b, sq, skv, h, hkv, d,
                                              causal):
     """Each block owns its output rows and sums in a fixed order (no
@@ -839,7 +932,7 @@ def test_rows_that_see_no_key(dev, b, sq, skv, h, hkv, d, qo):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv,d", [(32, 4, 128), (16, 8, 64), (8, 8, 64),
                                      (16, 1, 128), (8, 8, 32), (4, 2, 16),
-                                     (8, 2, 8)])
+                                     (8, 2, 8), (32, 8, 160), (16, 1, 160)])
 @pytest.mark.parametrize("cache_len", [1, 37, 700])
 def test_decode_attention_kernel(dev, h, hkv, d, cache_len):
     q = _rnd(dev, 3, 1, h, d, seed=1)

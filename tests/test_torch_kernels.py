@@ -39,6 +39,8 @@ SHAPES = [
     (1, 48, 48, 8, 1, 16, True),        # MQA
     (1, 33, 65, 2, 2, 128, True),       # odd sizes, offset
     (2, 130, 130, 8, 8, 32, True),      # lammps-proxy's heads (head dim 32)
+    (1, 70, 70, 4, 2, 160, True),       # head dim 160 (pixtral-12b's)
+    (2, 1, 150, 4, 4, 64, False),       # a decode step's cross-attention
 ]
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 2e-5),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -57,13 +57,14 @@ def test_smoke_config_is_a_field_for_field_copy():
         assert getattr(CFG, f.name) == getattr(JCFG, f.name), f.name
     assert treg.get("yi-6b").n_params() == jreg.get("yi-6b").n_params()
     with pytest.raises(KeyError):
-        treg.get("whisper-base")        # a family not ported yet
+        treg.get("not-an-arch")         # a name in neither registry
     # MoEConfig is copied whole, fields and defaults in order
     assert [(f.name, f.default) for f in dataclasses.fields(MoEConfig)] == \
         [(f.name, f.default) for f in dataclasses.fields(JMoEConfig)]
     assert treg.EXTRA_IDS == jreg.EXTRA_IDS
     for arch in ("yi-6b", "granite-moe-1b-a400m", "arctic-480b",
-                 "chatglm3-6b", "qwen2-72b", "deepseek-67b", "lammps-proxy"):
+                 "chatglm3-6b", "qwen2-72b", "deepseek-67b", "lammps-proxy",
+                 "whisper-base", "pixtral-12b"):
         for get in ("get", "smoke"):
             t, j = getattr(treg, get)(arch), getattr(jreg, get)(arch)
             for f in dataclasses.fields(ModelConfig):

@@ -533,20 +533,41 @@ def test_elastic_specs_bind_the_elastic_executors(kw, name):
 
 @pytest.mark.parametrize("arch", ["whisper-base", "pixtral-12b"])
 def test_arches_the_port_lacks_fail_validation(arch):
-    """The JAX registry knows these families, the port's does not yet
-    (ROADMAP Queue 1 item 6): the JAX spec validates, the port's raises
-    a SpecError naming the arch field."""
-    jspec.WorkloadSpec(kind="train", arch=arch).validate()
-    with pytest.raises(tspec.SpecError) as exc:
-        tspec.WorkloadSpec(kind="train", arch=arch).validate()
-    assert exc.value.errors[0]["field"] == "arch"
+    """The two families the port's registry once lacked (their specs
+    failed its validation on ``arch``): a train spec of each now
+    validates in both packages, as does a serve spec of pixtral."""
+    for spec in (jspec, tspec):
+        spec.WorkloadSpec(kind="train", arch=arch).validate()
+        if arch == "pixtral-12b":
+            spec.WorkloadSpec(kind="serve", arch=arch).validate()
+
+
+def test_whisper_serve_spec_is_not_servable_in_both_packages():
+    """The serving engine hosts decoder-only architectures: applying a
+    whisper serve spec raises a SpecError with ``("arch",
+    "not-servable")`` in both packages, and nothing is submitted."""
+    out = {}
+    for pkg in ("torch", "jax"):
+        core, spec, _, _, opts = PKGS[pkg]
+        _, mc = _mini(core)
+        with pytest.raises(spec.SpecError) as exc:
+            mc.apply(spec.WorkloadSpec(kind="serve", arch="whisper-base",
+                                       serve=spec.ServeSpec(**SERVE)),
+                     executor_opts=dict(opts))
+        out[pkg] = [(e["field"], e["code"]) for e in exc.value.errors]
+    assert out["torch"] == out["jax"] == [("arch", "not-servable")]
 
 
 # ---------------------------------------------------------------------------
-# (vi) the sequence-mixer arches through apply, without cfg=
+# (vi) the sequence-mixer arches, pixtral and whisper through apply,
+# without cfg=
 # ---------------------------------------------------------------------------
 
 SEQMIX = ["jamba-v0.1-52b", "xlstm-1.3b"]
+# the families the port took last: pixtral serves (its patches stay out of
+# the engine, as in the reference); whisper, an encoder-decoder, trains only
+SERVE_ARCHS = SEQMIX + ["pixtral-12b"]
+TRAIN_ARCHS = SEQMIX + ["whisper-base", "pixtral-12b"]
 
 
 def _apply_arch(pkg, arch, name):
@@ -567,13 +588,14 @@ def _apply_arch(pkg, arch, name):
 
 
 @pytest.mark.parametrize("name", ["serve", "serve-chunked", "elastic-serve"])
-@pytest.mark.parametrize("arch", SEQMIX)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_sequence_mixer_serve_specs_match_jax(arch, name):
-    """A serve spec of each sequence-mixer arch validates and applies in
-    the port (which refused it before), through the reference executor's
-    phases at the same simulated times, with the same tokens served;
-    the streams equal a direct Engine's over the executor's params (a
-    chunked spec takes no chunked tick on these arches)."""
+    """A serve spec of each sequence-mixer arch and of pixtral validates
+    and applies in the port (which refused them before), through the
+    reference executor's phases at the same simulated times, with the
+    same tokens served; the streams equal a direct Engine's over the
+    executor's params (a chunked spec takes chunked ticks on pixtral
+    only: the sequence mixers prefill exactly)."""
     _need_8()
     got, want = _apply_arch("torch", arch, name), _apply_arch("jax", arch,
                                                               name)
@@ -590,7 +612,8 @@ def test_sequence_mixer_serve_specs_match_jax(arch, name):
         return
     eng, = got.executor._engines.values()
     assert eng.cfg.name == treg.smoke(arch).name
-    assert eng.n_mixed_steps == 0
+    assert (eng.n_mixed_steps > 0) == (name == "serve-chunked"
+                                       and not eng.cfg.sub_quadratic)
     direct = Engine(eng.cfg, got.spec.engine_config(), params=eng.params,
                     device="cpu")
     reqs = [direct.submit([(7 * i + j) % eng.cfg.vocab_size
@@ -610,17 +633,18 @@ TRAIN_SPECS = {
 
 
 @pytest.mark.parametrize("name", list(TRAIN_SPECS))
-@pytest.mark.parametrize("arch", SEQMIX)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_sequence_mixer_train_specs_match_jax(arch, name):
-    """A train and an elastic train spec of each sequence-mixer arch,
-    without ``cfg=`` (its SMOKE config): the port, which refused both
+    """A train and an elastic train spec of each sequence-mixer arch, of
+    whisper (frames in every batch) and of pixtral (patches), without
+    ``cfg=`` (its SMOKE config): the port, which refused them all
     before, takes the handle through the reference executor's phases at
     the same simulated times, and its loss is the port's own training
     run: an uninterrupted Trainer's losses step for step (elastic), or
     the train step run as the submesh executor runs it (a warm step,
     then ``total_steps`` more on one batch)."""
     from repro_torch.configs.base import TrainConfig, WorkloadShape
-    from repro_torch.data import synthetic_batch
+    from repro_torch.data import synthetic_batch, to_tensors
     from repro_torch.dist import steps as tsteps
     from repro_torch.train import Trainer
 
@@ -658,8 +682,7 @@ def test_sequence_mixer_train_specs_match_jax(arch, name):
     step = tsteps.build_train_step(cfg, tcfg, shape)
     state = tsteps.init_train_state(cfg, tcfg, torch.Generator().manual_seed(0),
                                     "cpu")
-    batch = {k: torch.from_numpy(v).long()
-             for k, v in synthetic_batch(cfg, shape).items()}
+    batch = to_tensors(synthetic_batch(cfg, shape), "cpu")
     for _ in range(1 + n):
         state, metrics = step(state, batch)
     assert loss == float(metrics["loss"])

@@ -540,8 +540,9 @@ def test_train_logits_and_loss_match_jax(arch):
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.no_grad():
         tt = torch.from_numpy(toks)
-        tl, _ = Model(tcfg)._trunk(tp, tt, torch.arange(13), mode="train",
-                                   compute_dtype=torch.float32)
+        tl, _, _ = Model(tcfg)._trunk(tp, tt, torch.arange(13),
+                                      mode="train",
+                                      compute_dtype=torch.float32)
         tloss, tm = Model(tcfg).loss(
             tp, {k: torch.from_numpy(v) for k, v in batch.items()},
             compute_dtype=torch.float32)

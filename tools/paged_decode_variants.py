@@ -11,6 +11,12 @@ counts, timed in one run:
 * ``planner``: ``kernel.plan_splits`` (what the wrapper launches);
 * ``1 split``, ``half``, ``double`` and ``a page a split``: other counts,
   through the same library;
+* ``spill: ...``: the split kernel rebuilt with one edit each (launch
+  bounds asking for 2 or 4 blocks an SM, the p V loop unrolled by 4 key
+  pairs instead of all 8), timed at the planner's count at every shape:
+  ptxas spills 4 B in ``split_kernel<64,8>`` (head dim 64, g = 8) as the
+  kernel is, and each edit drops that spill, so its time is taken with
+  and without it at 64 query heads over 8 KV heads of 64;
 * ``parent`` (with ``--parent DIR``): ``DIR/paged_attention.cu`` with
   the headers in DIR before those of ``csrc/``, an older tree's kernel
   with its own C signature (no workspace, no split count): the one block
@@ -33,6 +39,19 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tools")]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# edits of attention.cuh that move ptxas's register allocation in the
+# split kernel
+SPILL_VARIANTS = {
+    "spill: bounds (128, 2)": [(
+        "__launch_bounds__(THREADS)\nsplit_kernel(",
+        "__launch_bounds__(THREADS, 2)\nsplit_kernel(")],
+    "spill: bounds (128, 4)": [(
+        "__launch_bounds__(THREADS)\nsplit_kernel(",
+        "__launch_bounds__(THREADS, 4)\nsplit_kernel(")],
+    "spill: p V by 4 pairs": [(
+        "#pragma unroll (D >= 32 ? CK / 2 : 1)",
+        "#pragma unroll (D >= 32 ? CK / 4 : 1)")],
+}
 # the signature before the split: q, k_pages, v_pages, block_table,
 # lengths, out, B, H, Hkv, D, page, pages_per_slot, scale, stream
 PARENT_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
@@ -56,8 +75,9 @@ def main() -> int:
         print("paged_decode_variants: no CUDA device", file=sys.stderr)
         return 1
     print(f"[variants] {card(torch)}", flush=True)
-    libs = build_variants(build, "paged_attention.cu", {"kernel": []}, (),
-                          args.parent)
+    libs = build_variants(build, "paged_attention.cu",
+                          {"kernel": [], **SPILL_VARIANTS}, (), args.parent,
+                          only="split_kernel<")
     for name, so in libs.items():
         so.paged_decode_bf16.argtypes = (PARENT_SIGNATURE if name == "parent"
                                          else build.SIGNATURES["paged_decode_bf16"])
@@ -77,7 +97,8 @@ def main() -> int:
                         dtype=torch.int32, device=dev)
     filled = int(lens.sum())
     failed = []
-    for label, H, HKV, D in (("yi-6b", 32, 4, 128), ("granite", 16, 8, 64)):
+    for label, H, HKV, D in (("yi-6b", 32, 4, 128), ("granite", 16, 8, 64),
+                             ("g = 8 at head dim 64", 64, 8, 64)):
         n_pages = B * MAXP + 1
         kp, vp = rnd(n_pages, PAGE, HKV, D), rnd(n_pages, PAGE, HKV, D)
         bt = (1 + torch.randperm(n_pages - 1, generator=gen, device=dev)
@@ -109,6 +130,13 @@ def main() -> int:
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
                 lens.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, HKV, D,
                 PAGE, MAXP, n, D ** -0.5, stream), ws)
+        for name in SPILL_VARIANTS:
+            ws = torch.empty(B * H * plan * (D + 2), dtype=torch.float32,
+                             device=dev)
+            runs[f"{name} ({plan})"] = (libs[name], (
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
+                lens.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, HKV, D,
+                PAGE, MAXP, plan, D ** -0.5, stream), ws)
         if "parent" in libs:
             runs["parent"] = (libs["parent"], (
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
