@@ -56,7 +56,11 @@ Phases, each printing its own lines:
 4. serve   - yi-6b at full width and depth (random weights from a seeded
              generator) through the port's Engine, legacy prefill and
              chunked prefill, with the kernels' launch counts read around
-             each run; one prompt and 4 decode steps teacher-forced
+             each run; every engine captures its ticks and prefills as
+             CUDA graphs (its prefill cache and capture ms printed), and
+             yi-6b's and granite's runs go again eagerly
+             (cuda_graphs=False): the same streams token for token and
+             the same launch counts; one prompt and 4 decode steps teacher-forced
              through the kernel path and the plain path; then 4 of the
              prompts alone through the contiguous path (Model.prefill
              right-padded to 1024, then decode steps at a scalar index)
@@ -79,8 +83,12 @@ Phases, each printing its own lines:
              the serve cell's engine (exact-length prefill; every plain
              version refused): legacy, prefill_chunk=256 (no chunked tick
              on these arches: the same streams) and the legacy run parked
-             and adopted (token for token); prefill ms by prompt length,
-             pool bytes and peak memory; teacher-forced logits through the
+             and adopted (token for token); the legacy run again
+             eagerly (the same streams and launches; peak memory with
+             and without graphs); one prompt length prefilled three
+             times (a miss runs eagerly, the first hit captures and
+             replays, the second replays); prefill
+             ms by prompt length, pool bytes and peak memory; teacher-forced logits through the
              kernels, plain bf16 and (xlstm, and a 2-layer jamba) plain
              float32;
 5. train   - the gradients of yi-6b, granite-moe-1b-a400m and chatglm3-6b
@@ -1604,27 +1612,30 @@ def quantize_rows(torch, dev, cpm):
 # ---------------------------------------------------------------------------
 
 
-def serve_engine(cfg, params, dev, chunk, dp_shards=1):
+def serve_engine(cfg, params, dev, chunk, dp_shards=1, cuda_graphs=None):
     """The serve phase's engine: 8 slots of page-16 pools, prompts up to
     512 tokens, 1024 in all; chunked prefill when ``chunk``; the pool
-    split into ``dp_shards`` shards."""
+    split into ``dp_shards`` shards.  ``cuda_graphs`` goes to the Engine
+    only when given (None: the Engine's default, graphs on the card), so
+    an older tree's Engine, which has no such argument, takes the call."""
     from repro_torch.serve import Engine, EngineConfig
     ecfg = EngineConfig(n_slots=8, page_size=16, max_prompt_len=512,
                         max_seq_len=1024, prefill_chunk=chunk,
                         dp_shards=dp_shards)
-    return Engine(cfg, ecfg, params=params, device=dev)
+    kw = {} if cuda_graphs is None else {"cuda_graphs": cuda_graphs}
+    return Engine(cfg, ecfg, params=params, device=dev, **kw)
 
 
 def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1,
-              report=None):
+              report=None, cuda_graphs=None):
     """The prompts through ``serve_engine``, 32 new tokens each, with the
     host time of each tick by kind (decode, and mixed: every running
     slot's decode and a prompt chunk).  Returns the launch counts and
     the token streams.  With a ``report`` dict it also keeps each
     prefill's milliseconds by prompt length (a prefill ends when its
-    sampled token reaches the host), the pool's bytes and the run's peak
-    device memory."""
-    eng = serve_engine(cfg, params, dev, chunk, dp_shards)
+    sampled token reaches the host), the pool's bytes, the run's peak
+    device memory and the engine's capture milliseconds."""
+    eng = serve_engine(cfg, params, dev, chunk, dp_shards, cuda_graphs)
     if report is not None:
         run_prefill = eng._run_prefill
 
@@ -1638,6 +1649,10 @@ def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1,
         report.update(prefill_ms=[], pool_bytes=sum(
             x.numel() * x.element_size() for leaves in eng.pool.values()
             for x in leaves.values()))
+        # the peaks from this engine alone: no block another run left
+        # cached (a capture empties the cache, an eager run does not)
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     build.reset_launches()
@@ -1657,10 +1672,15 @@ def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1,
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    # an older tree's Engine captures nothing
+    captures = (getattr(eng, "n_captures", 0), getattr(eng, "capture_ms", 0.0))
     if report is not None:
         report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # a graph's pool stays reserved between replays
+        report["peak_reserved"] = torch.cuda.max_memory_reserved()
         del eng._run_prefill        # the wrapper's cycle would keep eng
         report["mixed_ticks"] = eng.n_mixed_steps
+        report["capture_ms"] = captures[1]
     for r in reqs:
         check(r.finished and len(r.tokens) == 32,
               f"request {r.rid} did not finish with 32 tokens")
@@ -1671,7 +1691,8 @@ def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1,
     mixed_ms.sort()
     n_tok = sum(len(r.tokens) for r in reqs)
     mode = (f"chunked({chunk})" if chunk else "legacy") + (
-        f", {dp_shards} pool shards" if dp_shards > 1 else "")
+        f", {dp_shards} pool shards" if dp_shards > 1 else "") + (
+        ", eager" if cuda_graphs is False else "")
     mixed = (f"; mixed tick median {mixed_ms[len(mixed_ms) // 2]:.2f} ms over "
              f"{len(mixed_ms)} ticks" if mixed_ms else "")
     print(f"[serve] {mode}: {len(reqs)} requests, {n_tok} tokens in "
@@ -1679,8 +1700,50 @@ def serve_run(torch, dev, cfg, params, chunk, prompts, build, dp_shards=1,
           f"{ttft[len(ttft) // 2]:.1f} ms (min {ttft[0]:.1f}, max "
           f"{ttft[-1]:.1f}); decode tick median "
           f"{decode_ms[len(decode_ms) // 2]:.2f} ms over {len(decode_ms)} "
-          f"ticks{mixed}; stats {eng.stats()}; launches {launches}")
+          f"ticks{mixed}; {captures[0]} graphs captured in "
+          f"{captures[1]:.1f} ms; stats {eng.stats()}; launches {launches}")
     return launches, [r.tokens for r in reqs]
+
+
+def eager_run(torch, dev, cfg, params, chunk, prompts, build, captured,
+              report=None):
+    """The prompts again through an engine with ``cuda_graphs=False``:
+    its streams and launch counts must equal the ``captured`` run's
+    (launches, streams), token for token and kernel for kernel."""
+    launches, streams = serve_run(torch, dev, cfg, params, chunk, prompts,
+                                  build, report=report, cuda_graphs=False)
+    differ = [i for i, (a, b) in enumerate(zip(streams, captured[1]))
+              if a != b]
+    check(not differ, f"{cfg.name} chunk={chunk}: the eager streams differ "
+          f"from the captured run's at requests {differ}")
+    check(launches == captured[0], f"{cfg.name} chunk={chunk}: eager "
+          f"launches {launches}, captured {captured[0]}")
+    print(f"[serve] {cfg.name} {'chunked' if chunk else 'legacy'}: the "
+          f"eager run's {len(streams)} streams and launch counts equal the "
+          f"captured run's")
+
+
+def prefill_hit_miss(torch, dev, cfg, params, prompt):
+    """One prompt three times on one captured engine, each request alone
+    with one new token: its length's miss (an eager prefill), its first
+    hit (the capture, then a replay) and its second (a replay).  Returns
+    the line that reports their milliseconds."""
+    eng = serve_engine(cfg, params, dev, 0)
+    out = []
+    for what in ("miss, eager", "hit, capture and replay", "hit, replay"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        req = eng.submit(prompt, max_new_tokens=1)
+        eng.run()
+        out.append((what, round((time.perf_counter() - t) * 1e3, 2)))
+        check(req.finished, "a prefill-only request did not finish")
+    pc = eng.stats()["prefill_cache"]
+    check((pc["misses"], pc["hits"]) == (1, 2) and eng.n_captures == 1,
+          f"{cfg.name}: prefill cache {pc}, {eng.n_captures} captures "
+          f"after one length three times")
+    return (f"{len(prompt)} tokens, (prefill, ms) {out}; prefill cache "
+            f"{pc}; {eng.n_captures} graph captured in "
+            f"{eng.capture_ms:.1f} ms")
 
 
 def contiguous_phase(torch, dev, cfg, params, prompts, streams, build):
@@ -1998,21 +2061,32 @@ def seqmix_phase(torch, dev, build):
             prompts[0] = prompts[0][:77]
         check(any(len(p) % 16 for p in prompts),
               "no prompt off a page multiple")
-        report, c_report = {}, {}
+        report, c_report, e_report = {}, {}, {}
         with _NoPlain():
             legacy, streams = serve_run(torch, dev, cfg, params, 0, prompts,
                                         build, report=report)
             chunked, c_streams = serve_run(torch, dev, cfg, params, 256,
                                            prompts, build, report=c_report)
+            eager_run(torch, dev, cfg, params, 0, prompts, build,
+                      (legacy, streams), report=e_report)
+            print(f"[seqmix] {cfg.name} one prompt length prefilled "
+                  f"three times: " + prefill_hit_miss(
+                      torch, dev, cfg, params, min(prompts, key=len)))
         check(c_report["mixed_ticks"] == 0 and c_streams == streams,
               f"{arch}: the prefill_chunk=256 engine ran "
               f"{c_report['mixed_ticks']} mixed ticks or its streams differ "
               f"from the legacy engine's")
         by_len = sorted(report["prefill_ms"])
         print(f"[seqmix] {cfg.name} exact-length prefill, (prompt length, "
-              f"ms) {[(n, round(ms, 2)) for n, ms in by_len]}; pool "
-              f"{report['pool_bytes'] / 1e9:.3f} GB; peak device memory "
-              f"{report['peak_bytes'] / 1e9:.2f} GB; prefill_chunk=256: 0 "
+              f"ms) {[(n, round(ms, 2)) for n, ms in by_len]}; eager "
+              f"{[(n, round(ms, 2)) for n, ms in sorted(e_report['prefill_ms'])]}; "
+              f"pool {report['pool_bytes'] / 1e9:.3f} GB; peak device "
+              f"memory {report['peak_bytes'] / 1e9:.2f} GB allocated, "
+              f"{report['peak_reserved'] / 1e9:.2f} GB reserved with graphs "
+              f"({report['capture_ms']:.1f} ms of captures), "
+              f"{e_report['peak_bytes'] / 1e9:.2f} and "
+              f"{e_report['peak_reserved'] / 1e9:.2f} GB eager; "
+              f"prefill_chunk=256: 0 "
               f"mixed ticks, all {len(streams)} streams equal the legacy "
               f"run's token for token")
         with _NoPlain():
@@ -3888,12 +3962,14 @@ def granite_pipeline(torch, dev, build):
     return launches
 
 
-def serve_phase(torch, dev, build, runs, arch, n_layers=None, cut=""):
+def serve_phase(torch, dev, build, runs, arch, n_layers=None, cut="",
+                eager=False):
     """Both engine modes on ``arch`` at full width and depth, or at
     ``n_layers`` (the reason in ``cut``), then teacher-forced logits;
     returns (cfg, params, prompts, legacy streams, chunked streams) and
     appends the two runs' launch counts to ``runs``.  QKV biases are
-    drawn after the init (``draw_biases``)."""
+    drawn after the init (``draw_biases``).  With ``eager``, both modes
+    again with ``cuda_graphs=False`` (``eager_run``)."""
     import numpy as np
     from repro_torch.configs import registry
     from repro_torch.models.model import Model
@@ -3917,6 +3993,11 @@ def serve_phase(torch, dev, build, runs, arch, n_layers=None, cut=""):
     legacy, streams = serve_run(torch, dev, cfg, params, 0, prompts, build)
     chunked, c_streams = serve_run(torch, dev, cfg, params, 256, prompts,
                                    build)
+    if eager:
+        eager_run(torch, dev, cfg, params, 0, prompts, build,
+                  (legacy, streams))
+        eager_run(torch, dev, cfg, params, 256, prompts, build,
+                  (chunked, c_streams))
     moe = ("moe_gemm",) if cfg.moe is not None else ()
     for name in ("rmsnorm", "flash_fwd", "paged_decode") + moe:
         check(legacy[name] > 0, f"legacy serve never launched {name}")
@@ -3960,7 +4041,7 @@ def main() -> int:
     runs = []                       # launch counts of every main-path run
 
     cfg, params, prompts, streams, c_streams = serve_phase(
-        torch, dev, build, runs, "yi-6b")
+        torch, dev, build, runs, "yi-6b", eager=True)
     tie = torch.zeros((2, 64000), dtype=torch.bfloat16, device=dev)
     tie[:, 5] = tie[:, 70] = 1.0
     check(torch.argmax(tie, dim=-1).tolist() == [5, 5],
@@ -3975,7 +4056,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     params = serve_phase(torch, dev, build, runs,
-                         "granite-moe-1b-a400m")[1]
+                         "granite-moe-1b-a400m", eager=True)[1]
     del params
     torch.cuda.empty_cache()
 

@@ -676,12 +676,17 @@ class ServeExecutor:
     def _warm(self, eng):
         """Build and warm outside timing (the executor contract shared
         with the train executors): one request drives the prefill and
-        the decode step once."""
-        warm = eng.submit([1] * min(self.prompt_len, eng.ecfg.max_prompt_len),
-                          max_new_tokens=2)
+        the decode step once, as the JAX executor's warm does.  An
+        engine that captures CUDA graphs takes a second request, and
+        three new tokens each, so that each step kind (the prefill, the
+        decode tick and, chunked, the mixed tick) runs twice: eagerly,
+        then captured, before timing."""
+        prompt = [1] * min(self.prompt_len, eng.ecfg.max_prompt_len)
+        n, new = (2, 3) if eng.cuda_graphs else (1, 2)
+        warm = [eng.submit(prompt, max_new_tokens=new) for _ in range(n)]
         eng.run()
         _sync(eng.device)
-        assert warm.finished
+        assert all(r.finished for r in warm)
 
     def _engine(self, command: str, mesh):
         key = (command,) + _mesh_key(mesh)

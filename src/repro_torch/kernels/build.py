@@ -12,6 +12,7 @@ Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -78,6 +79,27 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def counting():
+    """Collect the launches made inside the block into the yielded dict
+    and leave :data:`LAUNCHES` as it was.  A CUDA graph's capture runs
+    the wrappers but launches nothing; each replay then adds the dict
+    with :func:`add_launches`, since a replay skips the wrappers."""
+    before = dict(LAUNCHES)
+    delta = {}
+    try:
+        yield delta
+    finally:
+        for name in LAUNCHES:
+            delta[name] = LAUNCHES[name] - before[name]
+            LAUNCHES[name] = before[name]
+
+
+def add_launches(delta) -> None:
+    for name, n in delta.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

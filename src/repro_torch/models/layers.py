@@ -12,7 +12,7 @@ the JAX layers do; ``impl`` selects the kernels (see ``kernels/ops``).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,13 +27,15 @@ class PagedView(NamedTuple):
 
     ``lengths`` is each slot's write position for the incoming row(s).
     Chunked prefill (s > 1) also sets ``n_valid``, the real rows of the
-    chunk, and ``null_page``, the page that takes the padding rows' KV.
+    chunk, and ``null_page``, the page that takes the padding rows' KV:
+    a (1,) int32 tensor on the device, as the engine passes it (an input
+    of a captured tick, like the JAX engine's ``c_null``), or an int.
     """
 
     block_table: torch.Tensor               # (n_slots, pages_per_slot) int32
     lengths: torch.Tensor                   # (n_slots,) int32
     n_valid: Optional[torch.Tensor] = None  # (B,) int32
-    null_page: Optional[int] = None
+    null_page: Union[torch.Tensor, int, None] = None    # (1,) int32
 
 
 def norm_defs(cfg: ModelConfig):
@@ -183,8 +185,7 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
             # padding rows sink into the null page: their offsets may lie
             # past the slot's reserved pages, and clamping alone would
             # land them on the slot's last real page
-            page = torch.where(valid, page,
-                               torch.full_like(page, paging.null_page)).long()
+            page = torch.where(valid, page, paging.null_page).long()
             ck[page, offs % page_size] = k.to(ck.dtype)
             cv[page, offs % page_size] = v.to(cv.dtype)
             out = ops.paged_prefill_attention(q, ck, cv, paging.block_table,

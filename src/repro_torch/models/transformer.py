@@ -272,8 +272,10 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
             for key, leaves in layer_caches.items():
                 for n, t in leaves.items():
                     new[key].setdefault(n, []).append(t)
-    aux_total = torch.as_tensor(aux_total, dtype=torch.float32,
-                                device=x.device)
+    # a float (no MoE position) becomes a tensor by a fill, not a copy
+    # from the host, which a CUDA graph's capture would refuse
+    aux_total = (aux_total.float() if torch.is_tensor(aux_total) else
+                 x.new_full((), aux_total, dtype=torch.float32))
     if mode == "train":
         return x, None, aux_total
     if caches is not None:

@@ -254,7 +254,7 @@ def slstm_apply(cfg: ModelConfig, p, x, cache=None):
         c, n, hp, m = (cache[k].float() for k in ("c", "n", "h", "m"))
 
     r = p["r"].float()
-    eps = torch.tensor(1e-6, device=x.device)
+    eps = wx.new_full((), 1e-6)         # a fill: no copy from the host
     bias = torch.cat([p[k].float() for k in ("b_i", "b_f", "b_z", "b_o")])
     hs = []
     for t in range(s):

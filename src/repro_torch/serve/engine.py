@@ -10,6 +10,18 @@ their pages are immediately reusable.  Token selection is temperature
 sampling (Gumbel-max with noise from the engine's ``torch.Generator``),
 exact argmax at ``temperature == 0``.
 
+On CUDA each tick's model step runs as a CUDA graph, the port's
+counterpart of the JAX engine's ``jit``: the decode tick and the mixed
+tick are captured once, and each prefill length once behind the JAX
+engine's LRU cache (``prefill_cache_cap``; a ``sub_quadratic`` config
+prefills at its exact length, so one entry a prompt length).  A step
+runs eagerly the first time (lazy initialisation stays out of capture),
+is captured on its next call and replayed from then on (an evicted
+prefill length starts again eagerly on its next miss); the host's
+inputs are copied into static device buffers before each replay.
+Sampling runs eagerly after the step.  ``cuda_graphs=False`` runs every
+step eagerly (the comparison on the card); the CPU has no graphs.
+
     eng = Engine(registry.smoke("yi-6b"), EngineConfig(n_slots=4),
                  device="cpu")
     req = eng.submit([1, 2, 3], max_new_tokens=8)
@@ -18,7 +30,10 @@ exact argmax at ``temperature == 0``.
 """
 from __future__ import annotations
 
-from collections import deque
+import functools
+import gc
+import time
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence
 
@@ -27,6 +42,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.models import params as P
 from repro_torch.models.layers import PagedView
 from repro_torch.models.model import Model
@@ -78,6 +94,7 @@ class EngineConfig:
     pad_id: int = 0               # prompt padding token
     prefill_chunk: int = 0        # >0: chunked prefill inside decode ticks
     dp_shards: int = 1            # page-pool shards over the data tier
+    prefill_cache_cap: int = 8    # LRU bound on per-length prefill steps
 
     def layout(self) -> paging.PagedLayout:
         assert self.max_seq_len % self.page_size == 0
@@ -95,6 +112,36 @@ class EngineConfig:
                                   n_shards=ns)
 
 
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream() -> torch.cuda.Stream:
+    """The current device's capture stream, one a device for every
+    engine on it: torch's default capture stream is one for all devices
+    (on the device of its first use), and each new stream would cost
+    cuBLAS a workspace that it keeps for the life of the process."""
+    index = torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream()
+    return _CAPTURE_STREAMS[index]
+
+
+class _Step:
+    """One model step of the engine (a decode tick, a mixed tick, a
+    prefill length): ``fn(engine)`` reads the engine's static inputs
+    and returns the logits (a function of the engine, not a bound
+    method, so that no engine sits in a reference cycle with its steps
+    and its memory goes when the engine does).  ``warm`` once it has run
+    eagerly; with graphs on, ``graph`` replays it, writing ``out``, and
+    ``launches`` are the kernel launches one run makes."""
+
+    __slots__ = ("fn", "warm", "graph", "out", "launches")
+
+    def __init__(self, fn):
+        self.fn, self.warm = fn, False
+        self.graph = self.out = self.launches = None
+
+
 class Engine:
     """Driver loop: admission -> prefill -> continuous decode.
 
@@ -103,7 +150,10 @@ class Engine:
     default they are drawn from ``seed`` in ``compute_dtype``.  Timing
     stamps come from ``clock``, counters live in ``metrics`` (the JAX
     engine's metric names), and an optional ``tracer`` records each
-    finished request's lifecycle spans.
+    finished request's lifecycle spans.  ``cuda_graphs``: None captures
+    the steps as CUDA graphs on CUDA and runs them eagerly on the CPU;
+    False runs them eagerly; True on the CPU raises.  A capture or
+    replay that fails raises: nothing falls back to an eager run.
     """
 
     n_prefills = _counter("serve_prefills_total")
@@ -111,17 +161,27 @@ class Engine:
     n_decode_steps = _counter("serve_ticks_total", kind="decode")
     n_mixed_steps = _counter("serve_ticks_total", kind="mixed")
     n_generated = _counter("serve_generated_tokens_total")
+    _pc_hits = _counter("serve_prefill_compile_cache_total", event="hit")
+    _pc_misses = _counter("serve_prefill_compile_cache_total", event="miss")
+    _pc_evictions = _counter("serve_prefill_compile_cache_total",
+                             event="eviction")
 
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig = EngineConfig(),
                  *, params=None, seed: int = 0, device=None,
                  compute_dtype=torch.bfloat16, clock: Optional[Clock] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 tracer: Optional[Tracer] = None):
+                 tracer: Optional[Tracer] = None,
+                 cuda_graphs: Optional[bool] = None):
         assert not cfg.encoder_layers, \
             "serving engine: decoder-only architectures"
         assert cfg.pos_type in ("rope", "none"), \
             "per-slot positions need rope (or no) position encoding"
         self.device = resolve_device(device)
+        on_cuda = self.device.type == "cuda"
+        if cuda_graphs and not on_cuda:
+            raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
+                             f"{self.device}")
+        self.cuda_graphs = on_cuda if cuda_graphs is None else cuda_graphs
         self.cfg = cfg
         self.ecfg = ecfg
         self.compute_dtype = compute_dtype
@@ -154,6 +214,55 @@ class Engine:
         self.n_decode_steps = 0
         self.n_mixed_steps = 0
         self.n_generated = 0
+        self._pc_hits = 0
+        self._pc_misses = 0
+        self._pc_evictions = 0
+        self._static_inputs()
+        self._decode = _Step(Engine._decode_fn)
+        self._mixed = _Step(Engine._mixed_fn)
+        self._prefill_cache: OrderedDict = OrderedDict()
+        # every graph shares one memory pool: they never replay at once,
+        # and each replay's logits are read before the next one
+        self._graph_pool = None
+        if self.cuda_graphs:
+            with torch.cuda.device(self.device):
+                self._graph_pool = torch.cuda.graph_pool_handle()
+        self._bound = None            # (params, pool) the graphs read
+        self.n_captures = 0
+        self.capture_ms = 0.0
+
+    def _static_inputs(self) -> None:
+        """Every input of a step, in buffers allocated once (outside any
+        graph's pool), and their host staging (pinned on CUDA; on the
+        CPU the buffers themselves)."""
+        ecfg, pps = self.ecfg, self.layout.pages_per_slot
+        ns, i32, i64 = ecfg.n_slots, torch.int32, torch.int64
+        shapes = {
+            "tokens": ((ns, 1), i64), "block_table": ((ns, pps), i32),
+            "lengths": ((ns,), i32), "temps": ((ns,), torch.float32),
+            "c_tokens": ((1, max(ecfg.prefill_chunk, 1)), i64),
+            "c_pages": ((1, pps), i32), "c_start": ((1,), i32),
+            "c_n": ((1,), i32), "c_null": ((1,), i32),
+            "p_tokens": ((1, ecfg.max_prompt_len), i64),
+            "p_last": ((1,), i64), "p_rows": ((1, pps), i32),
+            "p_slot": ((1,), i64)}
+        self._in = {k: torch.zeros(shape, dtype=dt, device=self.device)
+                    for k, (shape, dt) in shapes.items()}
+        pin = self.device.type == "cuda"
+        self._host = {k: (torch.zeros(shape, dtype=dt, pin_memory=True)
+                          if pin else self._in[k])
+                      for k, (shape, dt) in shapes.items()}
+
+    def _put(self, name: str, a) -> torch.Tensor:
+        """Copy host array ``a`` into the leading block of static input
+        ``name`` (through its staging buffer); returns that block."""
+        a = torch.from_numpy(np.ascontiguousarray(a))
+        block = tuple(slice(0, n) for n in a.shape)
+        host, dev = self._host[name][block], self._in[name][block]
+        host.copy_(a)
+        if dev.data_ptr() != host.data_ptr():
+            dev.copy_(host, non_blocking=True)
+        return dev
 
     # -- park / adopt ---------------------------------------------------------
     def snapshot_state(self) -> dict:
@@ -205,9 +314,6 @@ class Engine:
         self._gen.set_state(snap["key"])
         self.n_prefills, self.n_decode_steps, self.n_generated = \
             snap["counters"]
-
-    def _dev(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # -- request API --------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
@@ -313,29 +419,127 @@ class Engine:
             self._next_token[req.slot] = tok
 
     def _sample(self, logits, temps: np.ndarray) -> np.ndarray:
-        return sample_tokens(logits, self._dev(temps), self._gen).cpu().numpy()
+        return sample_tokens(logits, self._put("temps", temps),
+                             self._gen).cpu().numpy()
 
-    def _run_prefill(self, req: Request) -> None:
-        """The prompt right-padded to ``max_prompt_len`` (a page multiple,
-        so its KV reshapes into pages), or for a ``sub_quadratic`` config
-        at its exact length (padding would run through the recurrent
-        state), its KV then padded to a page boundary; the KV scattered
-        into the slot's pages and the state into the slot's rows."""
-        ecfg, cfg, slot, plen = self.ecfg, self.cfg, req.slot, len(req.prompt)
-        step_len = plen if cfg.sub_quadratic else ecfg.max_prompt_len
-        tokens = np.full((1, step_len), ecfg.pad_id, np.int64)
-        tokens[0, :plen] = req.prompt
-        logits, pcache = self.model.prefill(
-            self.params, {"tokens": self._dev(tokens)},
+    # -- the steps: run eagerly, or captured once and replayed ---------------
+    def _run(self, step: _Step):
+        """``step``'s logits: eagerly without graphs and on its first
+        call, else from its graph (captured on this call if it has none
+        yet), whose launches are counted as an eager run's."""
+        if not (self.cuda_graphs and step.warm):
+            step.warm = True
+            return step.fn(self)
+        if self._bound is not None and (self._bound[0] is not self.params
+                                        or self._bound[1] is not self.pool):
+            self._drop_graphs()       # a graph reads the tensors it saw
+        # capture and replay on the engine's device: the kernels launch
+        # on its current stream, which capture must be recording
+        with torch.cuda.device(self.device):
+            if step.graph is None:
+                self._capture(step)
+            step.graph.replay()
+        build.add_launches(step.launches)
+        return step.out
+
+    def _capture(self, step: _Step) -> None:
+        """Record ``step`` into a graph.  Capture executes nothing, so a
+        step that updates sequence-mixer state in place still runs once:
+        at the replay that follows.  The garbage collector waits
+        meanwhile: a collection that freed another engine's graph would
+        make a call that capture refuses, and fail this one."""
+        t = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with build.counting() as launches, \
+                    torch.cuda.graph(graph, pool=self._graph_pool,
+                                     stream=_capture_stream()):
+                out = step.fn(self)
+        finally:
+            if collecting:
+                gc.enable()
+        step.graph, step.out, step.launches = graph, out, launches
+        self._bound = (self.params, self.pool)
+        self.n_captures += 1
+        self.capture_ms += (time.perf_counter() - t) * 1e3
+
+    def _drop_graphs(self) -> None:
+        for step in (self._decode, self._mixed,
+                     *self._prefill_cache.values()):
+            step.graph = step.out = step.launches = None
+        self._bound = None
+
+    def _decode_fn(self):
+        s = self._in
+        logits, _ = self.model.decode_step(
+            self.params, self.pool, s["tokens"], s["lengths"],
             compute_dtype=self.compute_dtype,
-            last_index=self._dev(np.array([plen - 1])))
-        cap = paging.round_up(step_len, ecfg.page_size)
+            paging=PagedView(s["block_table"], s["lengths"]))
+        return logits
+
+    def _mixed_fn(self):
+        s = self._in
+        logits = self._decode_fn()
+        c_logits, _ = self.model.prefill_chunk(
+            self.params, self.pool, s["c_tokens"],
+            PagedView(s["c_pages"], s["c_start"], n_valid=s["c_n"],
+                      null_page=s["c_null"]),
+            compute_dtype=self.compute_dtype)
+        return logits, c_logits
+
+    def _prefill_fn(self, step_len: int):
+        """The prefill of ``step_len`` tokens: the prompt's KV padded to a
+        page boundary and scattered into the slot's pages, its state
+        into the slot's rows."""
+        cfg, s, ps = self.cfg, self._in, self.ecfg.page_size
+        cap = paging.round_up(step_len, ps)
+        logits, pcache = self.model.prefill(
+            self.params, {"tokens": s["p_tokens"][:, :step_len]},
+            compute_dtype=self.compute_dtype, last_index=s["p_last"])
         if cap != step_len:
             pcache = paging.pad_prefill_cache(cfg, pcache, cap)
-        page_rows = self.alloc.block_table[slot:slot + 1,
-                                           :cap // ecfg.page_size]
-        paging.scatter_prefill(cfg, self.pool, pcache, self._dev(page_rows),
-                               self._dev(np.array([slot])))
+        paging.scatter_prefill(cfg, self.pool, pcache,
+                               s["p_rows"][:, :cap // ps], s["p_slot"])
+        return logits
+
+    def _prefill_for(self, prompt_len: int):
+        """(step length, the prefill step) for this prompt: one entry at
+        ``max_prompt_len`` for attention-only archs, one a prompt length
+        for ``sub_quadratic`` ones (padding would run through the
+        recurrent state), in an LRU cache of ``prefill_cache_cap``
+        entries, as the JAX engine caches its compiles."""
+        plen = (prompt_len if self.cfg.sub_quadratic
+                else self.ecfg.max_prompt_len)
+        step = self._prefill_cache.get(plen)
+        if step is not None:
+            self._pc_hits += 1
+            self._prefill_cache.move_to_end(plen)
+            return plen, step
+        self._pc_misses += 1
+        step = _Step(functools.partial(Engine._prefill_fn, step_len=plen))
+        self._prefill_cache[plen] = step
+        # an evicted entry drops its graph and the memory it holds
+        while len(self._prefill_cache) > max(self.ecfg.prefill_cache_cap, 1):
+            self._prefill_cache.popitem(last=False)
+            self._pc_evictions += 1
+        return plen, step
+
+    def _run_prefill(self, req: Request) -> None:
+        """The prompt right-padded to the step's length (``max_prompt_len``,
+        a page multiple, or a ``sub_quadratic`` config's exact length),
+        through :meth:`_prefill_for`'s step."""
+        ecfg, slot, plen = self.ecfg, req.slot, len(req.prompt)
+        step_len, step = self._prefill_for(plen)
+        tokens = np.full((1, step_len), ecfg.pad_id, np.int64)
+        tokens[0, :plen] = req.prompt
+        n_pages = paging.round_up(step_len, ecfg.page_size) // ecfg.page_size
+        self._put("p_tokens", tokens)
+        self._put("p_last", np.array([plen - 1]))
+        self._put("p_rows", self.alloc.block_table[slot:slot + 1, :n_pages])
+        self._put("p_slot", np.array([slot]))
+        logits = self._run(step)
         tok = self._sample(logits, np.array([req.temperature], np.float32))
         self.n_prefills += 1
         self.n_prefill_tokens += plen
@@ -343,13 +547,10 @@ class Engine:
         self._emit(req, int(tok[0]))
         self._tick_obs("prefill", 1)
 
-    def _decode_logits(self, block_table, lengths):
-        bt, lens = self._dev(block_table), self._dev(lengths)
-        logits, _ = self.model.decode_step(
-            self.params, self.pool, self._dev(self._next_token[:, None]).long(),
-            lens, compute_dtype=self.compute_dtype,
-            paging=PagedView(bt, lens))
-        return logits
+    def _decode_inputs(self, block_table, lengths) -> None:
+        self._put("tokens", self._next_token[:, None])
+        self._put("block_table", block_table)
+        self._put("lengths", lengths)
 
     def _run_mixed(self, req: Request, start: int, n: int) -> None:
         """One fused tick: decode every fully prefilled slot + consume
@@ -372,13 +573,13 @@ class Engine:
         temps = np.zeros((ecfg.n_slots,), np.float32)
         for s, r_ in active.items():
             temps[s] = r_.temperature
-        logits = self._decode_logits(bt, lens)
-        c_logits, _ = self.model.prefill_chunk(
-            self.params, self.pool, self._dev(c_tokens),
-            PagedView(self._dev(c_pages), self._dev(np.array([start], np.int32)),
-                      n_valid=self._dev(np.array([n], np.int32)),
-                      null_page=self.alloc.null_page_of(slot)),
-            compute_dtype=self.compute_dtype)
+        self._decode_inputs(bt, lens)
+        self._put("c_tokens", c_tokens)
+        self._put("c_pages", c_pages)
+        self._put("c_start", np.array([start]))
+        self._put("c_n", np.array([n]))
+        self._put("c_null", np.array([self.alloc.null_page_of(slot)]))
+        logits, c_logits = self._run(self._mixed)
         if final:
             # a final chunk samples from its last real prompt row
             logits[slot] = c_logits[0, max(n - 1, 0)]
@@ -404,9 +605,8 @@ class Engine:
         temps = np.zeros((self.ecfg.n_slots,), np.float32)
         for slot, req in active.items():
             temps[slot] = req.temperature
-        logits = self._decode_logits(self.alloc.block_table,
-                                     self.alloc.lengths)
-        tok = self._sample(logits, temps)
+        self._decode_inputs(self.alloc.block_table, self.alloc.lengths)
+        tok = self._sample(self._run(self._decode), temps)
         self.n_decode_steps += 1
         for slot, req in active.items():
             self.alloc.advance(slot)
@@ -425,4 +625,11 @@ class Engine:
             "free_pages": len(self.alloc.free_pages),
             "dp_shards": self.layout.n_shards,
             "device": str(self.device),
+            "prefill_cache": {
+                "size": len(self._prefill_cache),
+                "cap": self.ecfg.prefill_cache_cap,
+                "hits": self._pc_hits,
+                "misses": self._pc_misses,
+                "evictions": self._pc_evictions,
+            },
         }

@@ -1093,3 +1093,248 @@ def test_sync_on_the_card_equals_the_sync_on_the_cpu(dev, tmp_path):
         assert r["hier_launches"] == (0, 0)
         assert r["hier-int8_launches"] == (1, 1)
 
+
+
+# ---------------------------------------------------------------------------
+# the engine's CUDA graphs: captured ticks against eager ones
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ["yi-6b", "granite-moe-1b-a400m", "jamba-v0.1-52b",
+               "xlstm-1.3b"]
+GRAPH_ECFG = dict(n_slots=4, page_size=8, max_prompt_len=80, max_seq_len=96)
+GRAPH_LENS = (3, 13, 77, 65, 9, 13)
+GRAPH_TEMPS = (0.0, 0.7, 0.0, 0.7, 0.0, 0.7)
+
+
+def _graph_prompts(cfg):
+    return [[(5 * i + 3 * j + 1) % cfg.vocab_size for j in range(n)]
+            for i, n in enumerate(GRAPH_LENS)]
+
+
+def _graph_engine(cfg, dev, graphs, **kw):
+    from repro_torch.serve import Engine, EngineConfig
+    return Engine(cfg, EngineConfig(**dict(GRAPH_ECFG, **kw)), seed=0,
+                  device=dev, cuda_graphs=graphs)
+
+
+def _served(eng, prompts, temps, new=8):
+    reqs = [eng.submit(p, max_new_tokens=new, temperature=t)
+            for p, t in zip(prompts, temps)]
+    eng.run()
+    assert all(r.finished for r in reqs)
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, 16], ids=["legacy", "chunk16"])
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_captured_engine_equals_the_eager_one(dev, arch, chunk):
+    """The same prompts (greedy and t = 0.7 rows) through a captured and
+    an eager engine of one seed: the same streams token for token, the
+    same launch counts (a replay adds its graph's), the same prefill
+    cache; the captured engine replayed every step kind it ran."""
+    from repro_torch.configs import registry
+    cfg = registry.smoke(arch)
+    prompts = _graph_prompts(cfg)
+    got = {}
+    for graphs in (False, True):
+        eng = _graph_engine(cfg, dev, graphs, prefill_chunk=chunk)
+        build.reset_launches()
+        streams = _served(eng, prompts, GRAPH_TEMPS)
+        torch.cuda.synchronize()
+        got[graphs] = (streams, dict(build.LAUNCHES),
+                       eng.stats()["prefill_cache"], eng.n_mixed_steps)
+        if graphs:
+            assert eng._decode.graph is not None
+            mixed = chunk and not cfg.sub_quadratic
+            assert (eng._mixed.graph is not None) == bool(mixed)
+            if not mixed:
+                assert any(s.graph is not None
+                           for s in eng._prefill_cache.values())
+        else:
+            assert eng.n_captures == 0
+    assert got[True] == got[False]
+    assert got[True][1]["rmsnorm"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_park_and_adopt_across_captured_and_eager_engines(dev, arch):
+    """Parked after 3 decode ticks by an eager engine and adopted by a
+    captured one, and the reverse: the streams (greedy and t = 0.7) are
+    the uninterrupted eager run's."""
+    from repro_torch.configs import registry
+    cfg = registry.smoke(arch)
+    prompts = _graph_prompts(cfg)
+    want = _served(_graph_engine(cfg, dev, False), prompts, GRAPH_TEMPS)
+    for first, second in ((False, True), (True, False)):
+        eng = _graph_engine(cfg, dev, first)
+        reqs = [eng.submit(p, max_new_tokens=8, temperature=t)
+                for p, t in zip(prompts, GRAPH_TEMPS)]
+        while eng.n_decode_steps < 3:
+            assert eng.step()
+        snap = eng.snapshot_state()
+        new = _graph_engine(cfg, dev, second)
+        new.adopt_state(snap)
+        new.run()
+        assert [r.tokens for r in reqs] == want, (first, second)
+
+
+@pytest.mark.cuda
+def test_captured_two_shard_chunks_pad_into_their_own_null_page(dev):
+    """dp_shards = 2, chunked and captured: the chunk padding of a slot
+    in shard 1 lands on shard 1's null page, not on the null page of the
+    slot whose chunk was captured (page 0), and the streams equal the
+    one-shard captured run's."""
+    from repro_torch.configs import registry
+    cfg = registry.smoke("yi-6b")
+    prompts = [[(7 * i + j) % cfg.vocab_size for j in range(n)]
+               for i, n in enumerate((40, 45, 37, 37))]
+    temps = (0.0,) * 4
+    want = _served(_graph_engine(cfg, dev, True, prefill_chunk=16),
+                   prompts, temps, new=16)
+    eng = _graph_engine(cfg, dev, True, prefill_chunk=16, dp_shards=2)
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    assert eng.step()
+    assert [eng.alloc.shard_of(r.slot) for r in reqs] == [0, 0, 1, 1]
+    while not reqs[1].tokens:          # shard 0's prompts are in
+        assert eng.step()
+    assert eng._mixed.graph is not None
+    null1 = eng.alloc.null_page_of(2)
+    assert null1 != 0
+    pools = [kv for kv in eng.pool.values() if "k" in kv]
+
+    def page(p):
+        return [t[:, p].clone() for kv in pools for t in kv.values()]
+
+    before0, before1 = page(0), page(null1)
+    while not reqs[3].tokens:          # shard 1's prompts, chunk by chunk
+        assert eng.step()
+    assert not any(r.finished for r in reqs[:2])   # slots 0, 1 decoding
+    assert all(torch.equal(a, b) for a, b in zip(page(0), before0))
+    assert not all(torch.equal(a, b) for a, b in zip(page(null1), before1))
+    eng.run()
+    assert [r.tokens for r in reqs] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b"])
+def test_evicted_prefill_entry_recaptures_after_its_next_miss(dev, arch):
+    """Exact-length prefill at ``prefill_cache_cap=1``: lengths 13, 13,
+    9, 13, 13 one after another.  A length runs eagerly on its miss and
+    is captured on its hit; 9 evicts 13, whose next miss runs eagerly
+    again and whose hit after that captures anew; every stream equals an
+    eager engine's."""
+    from repro_torch.configs import registry
+    cfg = registry.smoke(arch)
+    prompts = [_graph_prompts(cfg)[i] for i in (1, 5, 4, 1, 5)]
+    got = {}
+    for graphs in (False, True):
+        eng = _graph_engine(cfg, dev, graphs, prefill_cache_cap=1)
+        streams, captured = [], []
+        for p in prompts:
+            streams += _served(eng, [p], (0.7,))
+            entry, = eng._prefill_cache.items()
+            captured.append((entry[0], entry[1].graph is not None))
+        got[graphs] = streams
+        assert eng.stats()["prefill_cache"] == {
+            "size": 1, "cap": 1, "hits": 2, "misses": 3, "evictions": 2}
+    assert got[True] == got[False]
+    assert captured == [(13, False), (13, True), (9, False), (13, False),
+                        (13, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs a second CUDA device")
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_captured_engine_on_a_second_device_equals_the_eager_one(arch):
+    """An engine on cuda:1 while cuda:0 is the current device (a fleet
+    replica on another chip): its graphs capture and replay its own
+    device's stream, so the streams equal an eager engine's there and
+    the captured engine replayed its decode tick."""
+    from repro_torch.configs import registry
+    cfg = registry.smoke(arch)
+    prompts = _graph_prompts(cfg)
+    assert torch.cuda.current_device() == 0
+    got = {}
+    for graphs in (False, True):
+        eng = _graph_engine(cfg, torch.device("cuda:1"), graphs)
+        build.reset_launches()
+        got[graphs] = (_served(eng, prompts, GRAPH_TEMPS),
+                       dict(build.LAUNCHES))
+    assert eng._decode.graph is not None and eng.n_captures >= 2
+    assert got[True] == got[False]
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_rebound_params_drop_the_graphs(dev):
+    """A graph reads the tensors it was captured on: rebinding
+    ``eng.params`` (to a copy) mid-run drops every graph, the next ticks
+    capture anew, and the streams stay the eager run's."""
+    from repro_torch.configs import registry
+    from repro_torch.models import params as P
+    cfg = registry.smoke("yi-6b")
+    prompts = _graph_prompts(cfg)
+    want = _served(_graph_engine(cfg, dev, False), prompts, GRAPH_TEMPS)
+    eng = _graph_engine(cfg, dev, True)
+    reqs = [eng.submit(p, max_new_tokens=8, temperature=t)
+            for p, t in zip(prompts, GRAPH_TEMPS)]
+    while eng.n_decode_steps < 3:
+        assert eng.step()
+    captured = eng.n_captures
+    assert eng._decode.graph is not None
+    eng.params = P.tree_map(lambda t: t.clone(), eng.params)
+    eng.run()
+    assert [r.tokens for r in reqs] == want
+    assert eng.n_captures > captured
+    assert eng._bound[0] is eng.params
+
+
+@pytest.mark.cuda
+def test_the_collector_waits_while_an_engine_captures(dev):
+    """A collection inside a capture could free a dead engine's graphs (a
+    call the capture refuses, which fails it): the engine pauses the
+    garbage collector while it captures and resumes it after."""
+    import gc
+    from repro_torch.configs import registry
+    cfg = registry.smoke("yi-6b")
+    eng = _graph_engine(cfg, dev, True)
+    decode, seen = eng.model.decode_step, []
+
+    def probe(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return decode(*a, **k)
+
+    eng.model.decode_step = probe
+    assert gc.isenabled()
+    _served(eng, _graph_prompts(cfg)[:2], (0.0, 0.7))
+    assert seen == [False] and gc.isenabled()
+
+
+@pytest.mark.cuda
+def test_a_step_that_reads_the_device_during_capture_raises(dev):
+    """A step that reads a device tensor on the host runs eagerly on its
+    first tick and raises at its capture: no eager retry, and the failed
+    capture counts no launch.  (Last in this file: after a failed
+    capture, torch's CUDA generator stays in its capture state.)"""
+    from repro_torch.configs import registry
+    cfg = registry.smoke("yi-6b")
+    eng = _graph_engine(cfg, dev, True)
+    decode = eng.model.decode_step
+
+    def reads_the_device(params, caches, tokens, lengths, **kw):
+        int(lengths[0])
+        return decode(params, caches, tokens, lengths, **kw)
+
+    eng.model.decode_step = reads_the_device
+    eng.submit([1, 2, 3], max_new_tokens=4)
+    assert eng.step() and eng.step()        # the prefill, an eager decode
+    assert eng.n_decode_steps == 1
+    before = dict(build.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        eng.step()
+    assert dict(build.LAUNCHES) == before
+    assert eng._decode.graph is None and eng.n_decode_steps == 1

@@ -442,7 +442,7 @@ def test_canary_records_and_events_equal_jax(canary):
     assert steps(got["promo"]) == steps(want["promo"])
     assert _events(got["handle"]) == _events(want["handle"])
     for k in ("n_requests", "n_tokens", "ticks", "version", "assignments",
-              "replicas", "hosts"):
+              "replicas", "hosts", "n_prefills"):
         assert got["fleet"][k] == want["fleet"][k], k
 
 

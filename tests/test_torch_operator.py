@@ -352,7 +352,7 @@ def test_executor_lifecycle_and_records_match_jax(name):
     jrec = want.executor.ran[want.job.jobid]
     assert set(jrec) <= set(rec)
     for key in ("n_requests", "n_tokens", "replicas", "n_devices", "hosts",
-                "ticks", "n_resumes"):
+                "ticks", "n_resumes", "n_prefills"):
         if key in jrec and key != "n_devices":
             assert rec[key] == jrec[key], key
     assert all(s == (1, 1) for s in

@@ -725,3 +725,45 @@ def test_tiny_hybrid_paged_equals_contiguous():
                 compute_dtype=torch.float32)
             out.append(int(torch.argmax(logits[0])))
         assert req.tokens == out
+
+
+def test_tiny_hybrid_prefill_cache_equals_the_jax_engines():
+    """tests/test_serve.py's LRU sequence: TINY_HYBRID prefills at the
+    exact prompt length, prompts of 2, 3, 4, 2 tokens one after another
+    at ``prefill_cache_cap=2`` (4 evicts 2, then 2 misses again): the
+    stats and ``serve_prefill_compile_cache_total{event}`` equal the JAX
+    engine's, and so do the greedy streams (float32 compute)."""
+    cfg = ModelConfig(**TINY_HYBRID, mamba=MambaConfig())
+    jcfg = JModelConfig(**TINY_HYBRID, mamba=JMambaConfig())
+    jp = JModel(jcfg).init(jax.random.PRNGKey(0))
+    ecfg = dict(n_slots=2, page_size=4, max_seq_len=32, max_prompt_len=8,
+                prefill_cache_cap=2)
+    mp = pytest.MonkeyPatch()
+    try:
+        _f32_jax_engine(mp)
+        jeng = JEngine(jcfg, JEngineConfig(**ecfg), params=jp)
+        eng = Engine(cfg, EngineConfig(**ecfg),
+                     params=P.from_numpy(jax.device_get(jp)), device="cpu",
+                     compute_dtype=torch.float32)
+        streams = []
+        for e in (jeng, eng):
+            reqs = []
+            for plen in (2, 3, 4, 2):
+                reqs.append(e.submit(list(range(1, plen + 1)),
+                                     max_new_tokens=2))
+                e.run()
+            streams.append([r.tokens for r in reqs])
+    finally:
+        mp.undo()
+
+    def counts(e):
+        return ({k: e.metrics.value("serve_prefill_compile_cache_total",
+                                    event=k)
+                 for k in ("hit", "miss", "eviction")},
+                e.stats()["prefill_cache"])
+
+    assert counts(eng) == counts(jeng)
+    assert counts(eng)[1] == {"size": 2, "cap": 2, "hits": 0, "misses": 4,
+                              "evictions": 2}
+    assert streams[0] == streams[1]
+    assert list(eng._prefill_cache) == [4, 2]

@@ -383,6 +383,13 @@ def test_stream_and_foreign_request(params):
     assert exc.value.errors[0]["code"] == "foreign_request"
 
 
+def _prefill_cache_counts(eng):
+    return ({e: eng.metrics.value("serve_prefill_compile_cache_total",
+                                  event=e)
+             for e in ("hit", "miss", "eviction")},
+            eng.stats()["prefill_cache"])
+
+
 def test_engine_metrics_use_the_jax_names(params):
     eng = Engine(TINY, EngineConfig(**ECFG, prefill_chunk=4),
                  params=params[1], device="cpu")
@@ -394,6 +401,59 @@ def test_engine_metrics_use_the_jax_names(params):
     assert m.value("serve_prefill_tokens_total") == 6
     assert m.histogram("serve_ttft_s")["count"] == 1
     assert eng.stats()["dp_shards"] == 1
+    # a chunked engine prefills in its mixed ticks: no prefill step
+    assert _prefill_cache_counts(eng) == (
+        {"hit": 0, "miss": 0, "eviction": 0},
+        {"size": 0, "cap": 8, "hits": 0, "misses": 0, "evictions": 0})
+    legacy = Engine(TINY, EngineConfig(**ECFG), params=params[1],
+                    device="cpu")
+    for prompt in ([1, 2, 3], [4, 5]):
+        legacy.submit(prompt, max_new_tokens=2)
+    legacy.run()
+    counts, pc = _prefill_cache_counts(legacy)
+    assert counts == {"hit": 1, "miss": 1, "eviction": 0}
+    assert (legacy._pc_hits, legacy._pc_misses, legacy._pc_evictions) == (
+        1, 1, 0)
+    assert pc == {"size": 1, "cap": 8, "hits": 1, "misses": 1,
+                  "evictions": 0}
+
+
+def test_engine_config_fields_equal_the_jax_engines():
+    """Name for name and default for default, ``prefill_cache_cap``
+    among them."""
+    import dataclasses
+    ours = [(f.name, f.default) for f in dataclasses.fields(EngineConfig)]
+    theirs = [(f.name, f.default) for f in dataclasses.fields(JEngineConfig)]
+    assert ours == theirs
+    assert ("prefill_cache_cap", 8) in ours
+
+
+def test_prefill_cache_counts_equal_the_jax_engines(params):
+    """tests/test_serve.py's attention-only sequence (prompts of 2, 3
+    and 4 tokens at ``prefill_cache_cap=2``): one entry at
+    ``max_prompt_len``, a miss then hits, in both engines."""
+    ecfg = dict(n_slots=2, page_size=4, max_seq_len=32, max_prompt_len=8,
+                prefill_cache_cap=2)
+    jeng = JEngine(JTINY, JEngineConfig(**ecfg), params=params[0])
+    eng = Engine(TINY, EngineConfig(**ecfg), params=params[1], device="cpu")
+    for e in (jeng, eng):
+        for plen in (2, 3, 4):
+            e.submit(list(range(1, plen + 1)), max_new_tokens=2)
+        e.run()
+    got = _prefill_cache_counts(eng)
+    assert got == _prefill_cache_counts(jeng)
+    assert got[1] == {"size": 1, "cap": 2, "hits": 2, "misses": 1,
+                      "evictions": 0}
+
+
+def test_cuda_graphs_need_a_cuda_device(params):
+    with pytest.raises(ValueError, match="cuda_graphs=True"):
+        Engine(TINY, EngineConfig(**ECFG), params=params[1], device="cpu",
+               cuda_graphs=True)
+    for graphs in (None, False):
+        eng = Engine(TINY, EngineConfig(**ECFG), params=params[1],
+                     device="cpu", cuda_graphs=graphs)
+        assert eng.cuda_graphs is False
 
 
 def test_engine_without_device_raises_on_a_host_without_cuda():

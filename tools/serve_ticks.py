@@ -9,7 +9,11 @@ An arch (default yi-6b) at full width and depth, or at ``--layers`` of
 its layers, random weights from seed 0, serves ``chip_smoke.py``'s
 twelve prompts through the engine's legacy ticks (which also warm the
 process), then with ``prefill_chunk=256``; each run prints its tick
-medians by kind, TTFT and launches (``chip_smoke.serve_run``).  Then a
+medians by kind, TTFT, launches and graphs captured
+(``chip_smoke.serve_run``), then its peak device memory, the pool's
+bytes, the capture milliseconds and each prefill's milliseconds by
+prompt length.  The engines take their default (CUDA graphs since they
+were added; an older tree has none).  Then a
 third, chunked run of the prompts traces its fifth mixed tick (every
 running slot's decode and a prompt chunk) and stops: the card's busy
 time and idle share in that tick and its device time by kernel.  A
@@ -70,7 +74,15 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(64, 513, 12)]
     for chunk in (0, 256):
-        cs.serve_run(torch, dev, cfg, params, chunk, prompts, build)
+        report = {}
+        cs.serve_run(torch, dev, cfg, params, chunk, prompts, build,
+                     report=report)
+        print(f"[serve] chunk={chunk}: peak device memory "
+              f"{report['peak_bytes'] / 1e9:.3f} GB allocated, "
+              f"{report['peak_reserved'] / 1e9:.3f} GB reserved (pool "
+              f"{report['pool_bytes'] / 1e9:.3f} GB); captures "
+              f"{report['capture_ms']:.1f} ms; prefill ms by prompt "
+              f"length {[(n, round(ms, 2)) for n, ms in report['prefill_ms']]}")
 
     def traced_step(eng):
         with profile(activities=[ProfilerActivity.CPU,
