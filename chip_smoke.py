@@ -32,7 +32,8 @@ Phases, each printing its own lines:
              generator of their own, paged decode and prefill at
              chatglm3-6b's heads (32 over 2 KV heads, g = 16) and
              qwen2-72b's (64 over 8), flash_fwd at chatglm3-6b's prompt,
-             rmsnorm at d 8192, and rmsnorm timed again late in the call
+             rmsnorm at d 8192 (and an empty kernel, the launch floor,
+             timed beside its row), and rmsnorm timed again late in the call
              beside F.rms_norm; the seqmix phase's shapes: rmsnorm at d
              2048, flash_fwd at a 77-token prompt and moe_gemm at
              jamba-v0.1-52b's widths (16 experts, 4096 <-> 14336), each
@@ -78,6 +79,17 @@ Phases, each printing its own lines:
              printed; then
              qwen2-72b (QKV bias, d_model 8192) at full width and 16 of
              its 80 layers, both modes, teacher-forced;
+   launch  - the launchers at the JAX launchers' flags:
+             ``repro_torch.launch.serve --spec
+             examples/specs/serve_fleet.json`` (yi-6b at full width and
+             depth, two captured replicas behind the Router, its prefix
+             cache on; each stream held by logit against one eager
+             Engine of the same seed), ``--arch yi-6b --prompt-len 256
+             --gen 32 --batch 8 --prefill-chunk 256`` with ``--replicas
+             1`` then ``2`` (tok/s, TTFT median, peak memory), and
+             ``launch.train --spec`` of granite-moe-1b-a400m at full size
+             (strategy optimized, 3 steps of 4 x 4096; first loss against
+             a direct Trainer's, the CommFallbackWarning printed);
    seqmix  - the sequence mixers: xlstm-1.3b at full size and
              jamba-v0.1-52b at full width and 16 of its 32 layers through
              the serve cell's engine (exact-length prefill; every plain
@@ -380,6 +392,13 @@ def kernel_phase(torch, dev):
         library_ms=median_ms(cpm, lambda: F.rms_norm(x, (4096,), wb, 1e-5)),
         bound=bound(2 * x.numel() * 2 + w.numel() * 4, 4 * x.numel()),
         shape="x (512, 4096) bf16, w (4096,) f32")
+    # the launch floor the smallest rows are read against: an empty
+    # kernel (torch.cuda._sleep of 0 cycles) timed the same way
+    floor = median_ms(cpm, lambda: torch.cuda._sleep(0))
+    print(f"[kernels] an empty kernel (torch.cuda._sleep(0)), CUDA events "
+          f"around 10 calls behind a GPU sleep, median of 7: {floor:.5f} ms "
+          f"a call; rmsnorm (512, 4096) {rows_out['rmsnorm']['ms']:.5f} ms, "
+          f"{rows_out['rmsnorm']['ms'] / floor:.2f}x it")
 
     # flash forward: the legacy prefill of a 512-token prompt
     S = 512
@@ -1065,8 +1084,8 @@ def encdec_shapes(torch, dev, rows_out, cpm):
     version (TOL, LSE_TOL, FWD_REL_L2_TOL), the same bits twice, and
     timed beside SDPA and its bound; then flash_fwd and flash_bwd at
     the training cross-attention (2 x 4096 queries over 2048 frames)
-    through ``flash_holds``.  Errors fold into flash_fwd's and
-    flash_bwd's rows."""
+    through ``flash_holds``, with the plain versions' times.  Errors
+    fold into flash_fwd's and flash_bwd's rows."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -1104,9 +1123,13 @@ def encdec_shapes(torch, dev, rows_out, cpm):
               f"{e:.3g} (tol {TOL}), lse {e_lse:.3g}; kernel {t:.4f} ms, "
               f"plain {plain:.4f} ms, SDPA {lib:.4f} ms ({t / lib:.2f}x), "
               f"bound {least:.5f} ms ({by}, {least / t:.3f} of it)")
-    flash_holds(torch, cpm, rnd, rows_out, 2, 4096, H, H, D,
-                "whisper-base's training cross-attention", skv=2048,
-                causal=False)
+    rows = flash_holds(torch, cpm, rnd, rows_out, 2, 4096, H, H, D,
+                       "whisper-base's training cross-attention", skv=2048,
+                       causal=False, plain=True)
+    print(f"[kernels] whisper-base's training cross-attention, the plain "
+          f"versions: forward {rows['flash_fwd']['plain_ms']:.4f} ms, the "
+          f"whole backward (dq, dk, dv) {rows['flash_bwd_dq']['plain_ms']:.4f}"
+          f" ms")
 
 
 def fwd_rel_l2(out, ref_out, shape):
@@ -3962,6 +3985,238 @@ def granite_pipeline(torch, dev, build):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the launchers at the JAX launchers' flags
+# ---------------------------------------------------------------------------
+
+LAUNCH_TPUT = ["--arch", "yi-6b", "--prompt-len", "256", "--gen", "32",
+               "--batch", "8", "--prefill-chunk", "256"]
+
+
+def _quiet(fn, *a):
+    """``fn(*a)`` with its standard output kept; returns (result, the
+    lines it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a)
+    return out, buf.getvalue().splitlines()
+
+
+def _record_logits(eng):
+    """Keep, per request id, the float32 logits row each of ``eng``'s
+    sampled tokens came from (a prefill's one row, a tick's row of the
+    request's slot)."""
+    logits_of, last = {}, {}
+    sample, emit = eng._sample, eng._emit
+
+    def kept_sample(logits, temps):
+        last["rows"] = logits.float().cpu()
+        return sample(logits, temps)
+
+    def kept_emit(req, tok):
+        rows = last["rows"]
+        logits_of.setdefault(req.rid, []).append(
+            rows[0] if rows.shape[0] == 1 else rows[req.slot])
+        emit(req, tok)
+
+    eng._sample, eng._emit = kept_sample, kept_emit
+    return logits_of
+
+
+def _served(reqs, n_new, vocab):
+    """tok/s over the run (first request created to last finished), the
+    TTFT median (ms), and every request finished with ``n_new`` tokens
+    inside the vocabulary."""
+    for r in reqs:
+        check(r.finished and len(r.tokens) == n_new,
+              f"request {r.rid} did not finish with {n_new} tokens")
+        check(all(0 <= t < vocab for t in r.tokens),
+              f"request {r.rid} has tokens outside the vocabulary")
+    span = max(r.t_done for r in reqs) - min(r.t_created for r in reqs)
+    ttft = sorted(r.ttft * 1e3 for r in reqs)
+    return sum(len(r.tokens) for r in reqs) / span, ttft[len(ttft) // 2]
+
+
+def launch_phase(torch, dev, build):
+    """``repro_torch.launch.serve`` and ``launch.train`` at the JAX
+    launchers' flags, on the card:
+
+    * ``--spec examples/specs/serve_fleet.json``: yi-6b at full width and
+      depth, two replicas behind the Router (each engine its own weights
+      from seed 0, its ticks captured as CUDA graphs, the fleet's prefix
+      cache on); each stream held by logit against one eager Engine of
+      the same seed over the same prompts (where the two first part, the
+      fleet's token within STREAM_LOGIT_TOL of the eager engine's max
+      logit there);
+    * ``LAUNCH_TPUT`` with ``--replicas 1``, then ``--replicas 2``:
+      tok/s, TTFT median and peak device memory of each;
+    * ``--spec`` of a granite-moe-1b-a400m train spec at full size
+      (strategy ``optimized``, 3 steps of 4 x 4096, train_granite's
+      shape): its first loss against a direct Trainer's (RESUME_RTOL),
+      and the CommFallbackWarning the one-device mesh gives.
+
+    Returns the launch counts of the launchers' runs (no check's)."""
+    import tempfile
+    import warnings
+
+    from repro_torch.comm import CommFallbackWarning
+    from repro_torch.configs import TrainConfig, WorkloadShape, registry
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.serve import Engine, Router
+    from repro_torch.spec import load_spec
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    runs = []
+    spec = ROOT / "examples" / "specs" / "serve_fleet.json"
+    wspec = load_spec(str(spec))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    (fleet, reqs), out = _quiet(lserve.main, ["--spec", str(spec)])
+    torch.cuda.synchronize()
+    runs.append(dict(build.LAUNCHES))
+    for line in out:
+        print(f"[launch] {line}")
+    check(isinstance(fleet, Router) and len(fleet.engines) == 2,
+          "--spec serve_fleet.json must build a Router over 2 engines")
+    bad = [(str(e.device), e.n_captures) for e in fleet.engines
+           if not (e.cuda_graphs and e.n_captures > 0
+                   and e.device.type == "cuda")]
+    check(not bad, f"replicas (device, graphs captured) {bad}")
+    cfg = fleet.engines[0].cfg
+    check(cfg == registry.get("yi-6b"), "the fleet must serve yi-6b's full "
+          "config")
+    _served(reqs, wspec.serve.max_new, cfg.vocab_size)
+    for name in ("rmsnorm", "paged_prefill", "paged_decode"):
+        check(runs[-1][name] > 0, f"the fleet never launched {name}")
+    st = fleet.stats()
+    print(f"[launch] serve_fleet.json: {len(reqs)} requests over "
+          f"{st['replicas']} captured replicas, prefix cache "
+          f"{st['prefix_cache']}, launches {runs[-1]}")
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one eager engine of the same seed: where a stream first parts from
+    # its, the fleet's token lies within STREAM_LOGIT_TOL of its max
+    eager = Engine(cfg, wspec.engine_config(), seed=0, device=dev,
+                   cuda_graphs=False)
+    logits_of = _record_logits(eager)
+    ereqs = [eager.submit(r.prompt, max_new_tokens=wspec.serve.max_new,
+                          temperature=wspec.serve.temperature) for r in reqs]
+    eager.run()
+    torch.cuda.synchronize()
+    gaps = []
+    for r, e in zip(reqs, ereqs):
+        i = next((j for j, (a, b) in enumerate(zip(r.tokens, e.tokens))
+                  if a != b), None)
+        if i is None:
+            gaps.append(None)
+            continue
+        lg = logits_of[e.rid][i]
+        gaps.append(round(float(lg.max() - lg[r.tokens[i]]), 5))
+        check(gaps[-1] <= STREAM_LOGIT_TOL, f"request {r.rid}: the fleet's "
+              f"token at step {i} lies {gaps[-1]} below the eager engine's "
+              f"max logit (tol {STREAM_LOGIT_TOL})")
+    same = sum(g is None for g in gaps)
+    print(f"[launch] against one eager Engine of seed 0: {same} of "
+          f"{len(reqs)} streams equal token for token; where they part, the "
+          f"fleet token's gap below the eager max logit {gaps} (tol "
+          f"{STREAM_LOGIT_TOL})")
+    del eager, logits_of
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fleet's throughput: one engine, then two captured replicas
+    for n in (1, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        (eng, reqs), out = _quiet(lserve.main,
+                                  LAUNCH_TPUT + ["--replicas", str(n)])
+        torch.cuda.synchronize()
+        runs.append(dict(build.LAUNCHES))
+        tok_s, ttft = _served(reqs, 32, cfg.vocab_size)
+        # the peaks take in each engine's weight draw (float32 draws
+        # cast to bf16, one stacked leaf at a time); what stays
+        # allocated after the run is the replicas' serving footprint
+        print(f"[launch] {' '.join(LAUNCH_TPUT)} --replicas {n}: "
+              f"{len(reqs)} requests, {tok_s:.1f} tok/s, TTFT median "
+              f"{ttft:.1f} ms; peak {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+              f" GB allocated / {torch.cuda.max_memory_reserved() / 1e9:.3f}"
+              f" GB reserved (weight draws included), "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated / "
+              f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved after "
+              f"the run; {out[2]}; {out[3]}")
+        del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the train launcher on a spec: granite at full size, strategy
+    # optimized on the (1, 1) mesh
+    train = {"kind": "train", "arch": "granite-moe-1b-a400m",
+             "name": "launch-granite", "strategy": "optimized",
+             "resources": {"n_nodes": 1, "pod_local": True,
+                           "elastic": False},
+             "train": {"total_steps": 3, "global_batch": 4,
+                       "seq_len": 4096, "chunk_steps": 1, "ckpt_dir": None}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_granite.json")
+        with open(path, "w") as f:
+            json.dump(train, f)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            (tr, hist), out = _quiet(ltrain.main, ["--spec", path])
+        torch.cuda.synchronize()
+    runs.append(dict(build.LAUNCHES))
+    for w in caught:
+        if issubclass(w.category, CommFallbackWarning):
+            print(f"[launch] CommFallbackWarning: {w.message}")
+    for line in out:
+        print(f"[launch] {line}")
+    _check_history(hist)
+    check(tr.cfg == registry.get("granite-moe-1b-a400m") and len(hist) == 3,
+          "the train spec must run granite's full config 3 steps")
+    for name in ("moe_gemm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "rmsnorm"):
+        check(runs[-1][name] > 0, f"the train launcher never launched {name}")
+    print(f"[launch] train spec: peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{runs[-1]}")
+    first = hist[0]["loss"]
+    strategy, shape = tr.strategy, tr.shape
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", CommFallbackWarning)
+        direct = Trainer(registry.get("granite-moe-1b-a400m"),
+                         TrainConfig(learning_rate=3e-4, total_steps=3,
+                                     warmup_steps=1),
+                         WorkloadShape("chip", "train", 4096, 4),
+                         strategy=strategy, seed=0, device=dev)
+        want = direct.run(1, log_every=0)[0]["loss"]
+    check(abs(first - want) <= RESUME_RTOL * abs(want),
+          f"the launcher's first loss {first} is not a direct Trainer's "
+          f"{want} (rtol {RESUME_RTOL})")
+    check((shape.seq_len, shape.global_batch) == (4096, 4),
+          f"the train spec ran {shape}")
+    print(f"[launch] first loss {first:.6f}, a direct Trainer's {want:.6f} "
+          f"(rtol {RESUME_RTOL}); phase {time.perf_counter() - t_phase:.1f} s")
+    del direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 def serve_phase(torch, dev, build, runs, arch, n_layers=None, cut="",
                 eager=False):
     """Both engine modes on ``arch`` at full width and depth, or at
@@ -4081,6 +4336,7 @@ def main() -> int:
                          "all 80 need ~145 GB of bf16 weights")[1]
     del params
     torch.cuda.empty_cache()
+    runs.extend(launch_phase(torch, dev, build))
     runs.extend(seqmix_phase(torch, dev, build))
     runs.append(operator_phase(torch, dev, build))
     runs.append(smoke_phase(torch, dev, build))

@@ -1,6 +1,5 @@
 """Topology-aware collective communication: the port of the JAX
-package's ``comm/`` (all of it except ``overlap``, the event model that
-prices how much bucketed sync hides behind backward).
+package's ``comm/``.
 
 * ``topology``    — ``CommTopology.from_mesh`` derives axis tiers +
                     the reference's per-tier bandwidth model from mesh
@@ -15,10 +14,12 @@ prices how much bucketed sync hides behind backward).
                     the residual living in the train state so
                     checkpoints carry it;
 * ``bucketing``   — partition the param tree into ~byte-balanced
-                    buckets in reverse-layer order.
+                    buckets in reverse-layer order;
+* ``overlap``     — the event model that prices how much of the
+                    bucketed cross-pod sync hides behind backward.
 """
 from repro_torch.comm import (  # noqa: F401
-    bucketing, collectives, compress, topology,
+    bucketing, collectives, compress, overlap, topology,
 )
 from repro_torch.comm.bucketing import (  # noqa: F401
     GradBucket, partition_buckets,
@@ -29,6 +30,9 @@ from repro_torch.comm.collectives import (  # noqa: F401
 )
 from repro_torch.comm.compress import (  # noqa: F401
     EF_POD_AXIS, compress_payload, ef_defs, ef_rows,
+)
+from repro_torch.comm.overlap import (  # noqa: F401
+    OverlapSchedule, schedule_overlap,
 )
 from repro_torch.comm.topology import (  # noqa: F401
     CommTopology, estimate_a2a_bytes, estimate_sync_bytes, payload_bytes,

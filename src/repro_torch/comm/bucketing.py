@@ -12,8 +12,8 @@ tree is partitioned into ``n_buckets`` ~byte-balanced buckets ordered
 the way backward FINALIZES gradients — deepest layers first (their
 grads are complete while shallow layers are still differentiating) —
 so each bucket's cross-pod phase can launch while the remaining
-backward still computes.  The JAX package's ``overlap.schedule_overlap``
-prices how much of the DCN time that hides.
+backward still computes.  ``overlap.schedule_overlap`` prices how much
+of the DCN time that hides.
 
 Invariants:
 

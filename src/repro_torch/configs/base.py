@@ -207,9 +207,10 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ShardingStrategy:
-    """Named sharding strategy.  The port reads its comm fields
-    (``comm/collectives.py``); tensor parallelism, FSDP and expert
-    parallelism have no rule tables in the port yet."""
+    """Named sharding strategy; see dist/sharding.py for the rule tables.
+    The port runs its comm fields (``comm/collectives.py``); tensor
+    parallelism, FSDP and expert parallelism resolve to specs but place
+    no tensor yet (ROADMAP Queue 1 item 5(d))."""
 
     name: str = "baseline"
     # baseline : DP over data(+pod), TP over model, ZeRO-1 opt states.
@@ -241,7 +242,7 @@ class ShardingStrategy:
     # ~byte-balanced buckets in REVERSE-layer order and launches each
     # bucket's cross-pod phase as soon as its gradients are final, so
     # DCN time hides behind the remaining backward compute (see
-    # comm/bucketing.py; the JAX package's comm/overlap.py prices it)
+    # comm/bucketing.py and comm/overlap.py)
     comm_buckets: int = 1
     # hierarchical MoE dispatch: shard experts over the pod tier too
     # (``expert`` -> (pod, model)) and route dispatch/combine as

@@ -1,24 +1,46 @@
-"""The operator's bridge to the port's devices: ``submesh_for``, the
-part of the JAX package's ``dist/sharding.py`` that turns a Fluxion
-``ResourceSet`` into a mesh.  Its rule tables (parameters, optimizer
-state, caches), ``resolve_spec`` and ``batch_sharding`` wait for tensor
-parallelism and FSDP (ROADMAP Queue 1 item 5).
+"""Parameter, optimizer-state and cache sharding: logical axis names ->
+mesh axes, and the operator's bridge from a Fluxion ``ResourceSet`` to a
+mesh.  The port of the JAX package's ``dist/sharding.py``.
 
-The mesh is a ``dist.mesh.Mesh`` whose ``devices`` hold ``torch.device``s
-of this process.  The degrade rule is the JAX package's: an allocation
-that names more chips than the list holds becomes the largest (hosts,
-chips) grid that fits, down to one device.  On one card every allocation
-is therefore ``(1, 1)`` on ``cuda:0``.
+Model code never names mesh axes.  Weights declare *logical* axes in
+their ``PDef``s (``embed``, ``heads``, ``ff``, ``vocab``, ``expert``,
+...) and a :class:`~repro_torch.configs.base.ShardingStrategy` picks the
+rule table that maps each logical axis onto zero or more mesh axes.  The
+resolver then enforces the physical constraints the rule tables cannot
+know about:
+
+* a mesh axis that does not exist on this mesh is dropped;
+* a mesh axis whose size does not divide the dimension is dropped;
+* a mesh axis is used at most once per spec.
+
+A resolved spec is a plain tuple with one entry per tensor dimension:
+``None``, a mesh axis name, or a tuple of names (``tuple(spec)`` of the
+reference's ``PartitionSpec``).  The resolvers read only ``mesh.shape``.
+Turning a spec into DTensor placements waits for tensor parallelism and
+FSDP (ROADMAP Queue 1 item 5(d)).
+
+``submesh_for``'s mesh is a ``dist.mesh.Mesh`` whose ``devices`` hold
+``torch.device``s of this process.  The degrade rule is the JAX
+package's: an allocation that names more chips than the list holds
+becomes the largest (hosts, chips) grid that fits, down to one device.
+On one card every allocation is therefore ``(1, 1)`` on ``cuda:0``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ShardingStrategy
 from repro_torch.device import resolve_device
-from repro_torch.dist.mesh import Mesh
+from repro_torch.dist.mesh import DATA_AXES, Mesh, axis_size, data_axes
+
+# A rule maps a logical axis name to a mesh axis, a tuple of mesh axes,
+# or None (replicated).
+Rule = Union[str, Tuple[str, ...], None]
+# A resolved spec: one Rule-like entry per tensor dimension.
+Spec = Tuple[Union[str, Tuple[str, ...], None], ...]
 
 
 def device_list(device=None) -> List[torch.device]:
@@ -29,6 +51,135 @@ def device_list(device=None) -> List[torch.device]:
     if dev.type == "cpu":
         return [dev]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def replicated(mesh: Mesh) -> Spec:
+    """The spec that shards nothing (``PartitionSpec()``)."""
+    return ()
+
+
+# --------------------------------------------------------------------------
+# Rule tables
+# --------------------------------------------------------------------------
+
+
+def param_rules(strategy: ShardingStrategy) -> Dict[str, Rule]:
+    """Weight sharding rules (see models/layers.py for the axis names)."""
+    tp = "model" if strategy.tensor_parallel else None
+    if strategy.fsdp_params:
+        # ZeRO-3; without TP the model axis joins the FSDP domain
+        embed: Rule = "data" if strategy.tensor_parallel \
+            else ("data", "model")
+    else:
+        embed = None
+    if not strategy.expert_parallel:
+        expert: Rule = None
+    elif strategy.hierarchical_moe:
+        # experts span the pod tier too (pod-major), so each pod holds
+        # only n_experts/P expert weights; on a pod-less mesh this
+        # resolves back to plain model-axis expert parallelism
+        expert = ("pod", "model")
+    else:
+        expert = "model"
+    return {
+        "embed": embed,
+        "heads": tp,
+        "kv_heads": tp,
+        "ff": tp,
+        "vocab": tp,
+        "expert": expert,
+        "mamba_in": tp,
+        "xl_in": tp,
+        "xl_heads": tp,
+    }
+
+
+def opt_rules(strategy: ShardingStrategy) -> Dict[str, Rule]:
+    """Optimizer-state rules: ZeRO-1 — states shard over the data axis
+    even when the parameters themselves are replicated."""
+    rules = dict(param_rules(strategy))
+    if rules.get("embed") is None:
+        rules["embed"] = "data"
+    return rules
+
+
+def cache_rules(strategy: ShardingStrategy) -> Dict[str, Rule]:
+    """Decode-state rules (see transformer.cache_defs for the names).
+
+    ``pages`` is the paged KV pool's page dim: a pool shards over the
+    data tier exactly when the engine's host-side free lists are
+    partitioned to match (``EngineConfig.dp_shards``; serve/paging)."""
+    tp = "model" if strategy.tensor_parallel else None
+    return {
+        "batch": DATA_AXES,
+        "pages": DATA_AXES,
+        "kv_seq": tp if strategy.kv_seq_axis == "model" else None,
+        "kv_heads": tp,
+        "mamba_in": tp,
+        "xl_in": tp,
+        "xl_heads": tp,
+    }
+
+
+# --------------------------------------------------------------------------
+# Resolution
+# --------------------------------------------------------------------------
+
+
+def resolve_spec(shape: Sequence[int], axes: Sequence[Optional[str]],
+                 rules: Dict[str, Rule], mesh: Mesh) -> Spec:
+    """Logical axes -> a resolved spec under this mesh's constraints;
+    never raises."""
+    used: set = set()
+    spec = []
+    for dim, name in zip(shape, axes):
+        rule = rules.get(name) if name is not None else None
+        cand: Tuple[str, ...] = () if rule is None else (
+            rule if isinstance(rule, tuple) else (rule,))
+        cand = tuple(a for a in cand if a in mesh.shape and a not in used)
+        while cand and dim % axis_size(mesh, cand) != 0:
+            cand = cand[:-1]
+        if not cand:
+            spec.append(None)
+            continue
+        used.update(cand)
+        spec.append(cand[0] if len(cand) == 1 else cand)
+    return tuple(spec)
+
+
+def tree_shardings(defs, mesh: Mesh, rules: Dict[str, Rule]):
+    """PDef tree -> tree of resolved specs."""
+    from repro_torch.models import params as P   # deferred: models import us
+    return P.tree_map(
+        lambda d: resolve_spec(d.shape, d.axes, rules, mesh), defs)
+
+
+def cache_shardings(cdefs, mesh: Mesh, strategy: ShardingStrategy):
+    return tree_shardings(cdefs, mesh, cache_rules(strategy))
+
+
+def batch_sharding(mesh: Mesh, ndim: int, global_batch: int,
+                   strategy: ShardingStrategy,
+                   seq_dim: Optional[int] = None) -> Spec:
+    """Model-input spec: batch over the data axes, optionally the
+    sequence dim over the model axis (sequence-parallel residuals)."""
+    spec: list = [None] * ndim
+    d = data_axes(mesh)
+    if not strategy.tensor_parallel and "model" in mesh.shape:
+        d = d + ("model",)
+    while d and global_batch % axis_size(mesh, d) != 0:
+        d = d[:-1]
+    if d:
+        spec[0] = d[0] if len(d) == 1 else d
+    if (seq_dim is not None and strategy.tensor_parallel
+            and "model" in mesh.shape and "model" not in d):
+        spec[seq_dim] = "model"
+    return tuple(spec)
+
+
+# --------------------------------------------------------------------------
+# ResourceSet -> sub-mesh (the operator's bridge)
+# --------------------------------------------------------------------------
 
 
 def _pod_tier(rset) -> Optional[Tuple[int, int]]:

@@ -1,8 +1,20 @@
-"""Training launcher of the port, on one device.  Runs on CUDA unless
-``--device cpu``.
+"""Training launcher of the port, on one device, at the JAX launcher's
+flags.  Runs on CUDA unless ``--device cpu``; the full config unless
+``--smoke``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
-      --steps 20 --batch 8 --seq 64 [--device cpu]
+      --steps 20 --batch 8 --seq 64 [--strategy optimized] [--device cpu]
+
+or declaratively, from the same WorkloadSpec the operator applies (arch,
+steps, batch, sequence, strategy, checkpoint directory and elasticity
+come from the spec):
+
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --spec examples/specs/quickstart_train.json [--smoke --device cpu]
+
+The mesh is ``launch.mesh``'s local (1, 1) mesh; a strategy whose sync
+needs a pod tier degrades to the flat sync with a
+``CommFallbackWarning``, as the JAX launcher's does.
 
 Elastic: ``--elastic`` splits the run into grow/shrink phases with a
 ``Trainer.remesh`` between them (a checkpoint round trip, or one through
@@ -13,9 +25,6 @@ mesh is (1, 1):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
       --elastic --steps 12 --batch 8 --seq 64 [--device cpu]
-
-Mesh, strategy and spec flags of the JAX launcher wait for the port's
-sharding.
 """
 from __future__ import annotations
 
@@ -32,14 +41,21 @@ def phase_steps(total: int, n_phases: int):
 
 
 def main(argv=None):
+    """Train; returns the Trainer and the last run's history."""
     import torch
 
-    from repro_torch.configs import TrainConfig, WorkloadShape, registry
+    from repro_torch.configs import (STRATEGIES, TrainConfig, WorkloadShape,
+                                     registry)
+    from repro_torch.launch.mesh import resolve_workload
     from repro_torch.train import Trainer
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS
+    ap.add_argument("--arch", default=None, choices=registry.ARCH_IDS
                     + registry.EXTRA_IDS)
+    ap.add_argument("--spec", default=None,
+                    help="declarative WorkloadSpec JSON (kind: train); "
+                         "arch/steps/batch/seq/strategy/ckpt-dir come "
+                         "from the spec, CLI flags override nothing")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced SMOKE config")
     ap.add_argument("--device", default=None,
@@ -49,6 +65,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--strategy", default="baseline",
+                    choices=list(STRATEGIES))
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--elastic", action="store_true",
                     help="grow/shrink phases with a Trainer.remesh "
@@ -59,12 +77,30 @@ def main(argv=None):
                          "costliest operators on stdout")
     args = ap.parse_args(argv)
 
-    cfg = (registry.smoke if args.smoke else registry.get)(args.arch)
+    if args.spec:
+        from repro_torch.spec import load_spec
+        wspec = load_spec(args.spec)
+        if wspec.kind != "train":
+            raise ValueError(f"launch.train needs a train spec, got "
+                             f"kind={wspec.kind!r}")
+        args.arch = wspec.arch
+        args.steps = wspec.train.total_steps
+        args.batch = wspec.train.global_batch
+        args.seq = wspec.train.seq_len
+        args.ckpt_dir = wspec.train.ckpt_dir or args.ckpt_dir
+        args.elastic = args.elastic or wspec.resources.elastic
+        strategy = wspec.resolved_strategy
+    else:
+        if not args.arch:
+            ap.error("--arch or --spec is required")
+        strategy = STRATEGIES[args.strategy]
+    cfg, mesh = resolve_workload(args.arch, smoke=args.smoke,
+                                 device=args.device)
     shape = WorkloadShape("smoke", "train", args.seq, args.batch)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 10, 1))
-    tr = Trainer(cfg, tcfg, shape, ckpt_dir=args.ckpt_dir,
-                 device=args.device)
+    tr = Trainer(cfg, tcfg, shape, mesh=mesh, strategy=strategy,
+                 ckpt_dir=args.ckpt_dir, device=mesh.devices.flat[0])
     on_cuda = tr.device.type == "cuda"
     prof = contextlib.nullcontext()
     if args.profile_dir:
@@ -90,6 +126,7 @@ def main(argv=None):
               f" GB")
     print(f"final loss: {hist[-1]['loss']:.4f} "
           f"(first {hist[0]['loss']:.4f})")
+    return tr, hist
 
 
 def _elastic(tr, args):

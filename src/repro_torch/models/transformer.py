@@ -27,6 +27,14 @@ MIXERS = {"mamba": mamba.mamba_apply, "mlstm": xlstm.mlstm_apply,
 _STATE_SHAPES = {"mamba": mamba.mamba_cache_shape,
                  "mlstm": xlstm.mlstm_cache_shape,
                  "slstm": xlstm.slstm_cache_shape}
+# each state leaf's logical axes, the JAX package's (dist/sharding.py's
+# cache_rules read them); an sLSTM leaf is ("batch", None)
+_STATE_AXES = {"mamba": {"conv": ("batch", None, "mamba_in"),
+                         "ssm": ("batch", "mamba_in", None)},
+               "mlstm": {"conv": ("batch", None, "xl_in"),
+                         "C": ("batch", "xl_heads", None, None),
+                         "n": ("batch", "xl_heads", None),
+                         "m": ("batch", "xl_heads")}}
 
 
 def _pos_has_ffn(cfg: ModelConfig, i: int) -> bool:
@@ -83,7 +91,8 @@ def encoder_defs(cfg: ModelConfig):
 def state_defs(cfg: ModelConfig, kind: str, batch: int):
     """A sequence mixer's recurrent state for ``batch`` rows (one layer):
     the conv ring in bfloat16, the rest (``F32_STATES``) in float32."""
-    return {n: PDef(sh, ("batch",) + (None,) * (len(sh) - 1), init="zeros",
+    axes = _STATE_AXES.get(kind, {})
+    return {n: PDef(sh, axes.get(n, ("batch", None)), init="zeros",
                     dtype="float32" if n in F32_STATES else "bfloat16")
             for n, sh in _STATE_SHAPES[kind](cfg, batch).items()}
 

@@ -40,8 +40,9 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BASELINE, ModelConfig, ShardingStrategy
 from repro_torch.device import resolve_device
+from repro_torch.dist.mesh import Mesh
 from repro_torch.kernels import build
 from repro_torch.models import params as P
 from repro_torch.models.layers import PagedView
@@ -50,6 +51,27 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Clock, Tracer, WallClock
 from repro_torch.serve import paging
 from repro_torch.serve.scheduler import Request, Scheduler, StreamError
+
+
+def refuse_sharded_mesh(shape) -> None:
+    """Raise ``NotImplementedError`` for a mesh ``shape`` (axis -> size)
+    of more than one device: the engine runs on one device.  A model
+    axis over several devices waits for tensor parallelism (ROADMAP
+    Queue 1 item 5(d)), a data axis for paged pools on a mesh (item
+    5(e))."""
+    if shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a {dict(shape)} mesh: the engine's model axis over several "
+            "devices (tensor parallelism) waits for ROADMAP Queue 1 item "
+            "5(d)")
+    if int(np.prod(list(shape.values()), dtype=np.int64)) > 1:
+        raise NotImplementedError(
+            f"a {dict(shape)} mesh: the engine's paged pools over a data "
+            "axis of several devices wait for ROADMAP Queue 1 item 5(e)")
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
 def _counter(metric: str, **labels):
@@ -145,7 +167,11 @@ class _Step:
 class Engine:
     """Driver loop: admission -> prefill -> continuous decode.
 
-    Runs on CUDA unless ``device`` says otherwise.  ``params`` (a tree
+    Runs on CUDA unless ``device`` or ``mesh`` says otherwise: a mesh of
+    one device (``launch.mesh.make_local_mesh``) sets the engine's
+    device, and a mesh of more raises (``refuse_sharded_mesh``).
+    ``strategy`` is the JAX engine's: on one device it shards nothing,
+    and ``stats()`` names it.  ``params`` (a tree
     from ``Model.init`` or ``params.from_numpy``) move to the device; by
     default they are drawn from ``seed`` in ``compute_dtype``.  Timing
     stamps come from ``clock``, counters live in ``metrics`` (the JAX
@@ -167,7 +193,8 @@ class Engine:
                              event="eviction")
 
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig = EngineConfig(),
-                 *, params=None, seed: int = 0, device=None,
+                 *, strategy: ShardingStrategy = BASELINE, mesh=None,
+                 params=None, seed: int = 0, device=None,
                  compute_dtype=torch.bfloat16, clock: Optional[Clock] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
@@ -176,7 +203,20 @@ class Engine:
             "serving engine: decoder-only architectures"
         assert cfg.pos_type in ("rope", "none"), \
             "per-slot positions need rope (or no) position encoding"
+        if mesh is not None:
+            refuse_sharded_mesh(mesh.shape)
+            if mesh.devices is not None:
+                mdev = mesh.devices.flat[0]
+                if device is not None and not _same_device(
+                        resolve_device(device), mdev):
+                    raise ValueError(f"device {device} is not the mesh's "
+                                     f"device {mdev}")
+                device = mdev
         self.device = resolve_device(device)
+        if mesh is None:
+            mesh = Mesh((1, 1), ("data", "model"),
+                        devices=np.array([[self.device]], dtype=object))
+        self.mesh, self.strategy = mesh, strategy
         on_cuda = self.device.type == "cuda"
         if cuda_graphs and not on_cuda:
             raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
@@ -623,8 +663,10 @@ class Engine:
             "n_generated": self.n_generated,
             "pages_in_use": self.alloc.pages_in_use(),
             "free_pages": len(self.alloc.free_pages),
+            "mesh_shape": dict(self.mesh.shape),
             "dp_shards": self.layout.n_shards,
             "device": str(self.device),
+            "strategy": self.strategy.name,
             "prefill_cache": {
                 "size": len(self._prefill_cache),
                 "cap": self.ecfg.prefill_cache_cap,

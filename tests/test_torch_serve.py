@@ -488,6 +488,11 @@ def _imports(path):
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.name for p in examples] == [
+        "torch_elastic_training.py", "torch_quickstart.py",
+        "torch_serve_batch.py"]
+    files += examples
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     assert {port / "models" / "moe.py", port / "kernels" / "moe_gemm" / "ops.py",
@@ -501,8 +506,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             port / "configs" / "lammps_proxy.py",
             port / "dist" / "sharding.py", port / "serve" / "fleet.py",
             port / "core" / "executor.py", port / "core" / "instance.py",
-            port / "spec" / "reconcile.py", port / "spec" / "workload.py"
-            } <= set(files)
+            port / "spec" / "reconcile.py", port / "spec" / "workload.py",
+            port / "launch" / "mesh.py", port / "dist" / "actsharding.py",
+            port / "comm" / "overlap.py"} <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
