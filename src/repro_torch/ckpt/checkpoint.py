@@ -15,11 +15,12 @@ rename, and a terminal
 disk: ``latest_step()`` ignores unmarked (torn) step directories.
 
 On a mesh of several ranks (``dist.mesh``) every rank calls ``save`` and
-``restore_latest``.  The comm layer's error-feedback residual
-(``comm/...``) is the one part of the state the ranks hold in pieces,
-each its own pod's row (``comm.ef_rows``): ``save`` gathers the rows
-over the ``pod`` group to the whole ``(pods, ...)`` array and rank 0
-writes; ``restore_latest`` gives each rank its rows back.
+``restore_latest``.  Given the state's resolved specs
+(``dist.steps.train_state_shardings``), ``save`` gathers each leaf's
+shards to rank 0's host memory, one leaf at a time, and rank 0 writes
+the whole tensors in the format above; ``restore_latest`` gives each
+rank its shard of each leaf.  A checkpoint so carries across one rank,
+any mesh of ranks and the JAX package alike.
 """
 from __future__ import annotations
 
@@ -33,7 +34,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm.compress import ef_rows
 from repro_torch.models import params as P
 
 
@@ -81,14 +81,16 @@ def load_meta(path: str) -> Optional[Dict]:
         return json.load(f).get("__meta__")
 
 
-def restore_state(template, path: str, device=None, comm_rows=None):
+def restore_state(template, path: str, device=None, comm_rows=None,
+                  local=None):
     """Restore into the template's structure: every template leaf (a
     tensor, possibly on the ``meta`` device) must be in the checkpoint
     with its shape, except that the comm layer's residual (``comm/...``)
     may be missing from an older checkpoint and then starts at zero, as
     in the JAX package.  Leaves come back as tensors of the template's
     dtype on ``device`` (default: the CPU); ``comm_rows``, a slice, keeps
-    only those rows of each ``comm/`` leaf."""
+    only those rows of each ``comm/`` leaf, and ``local(key, tensor)``
+    what a rank keeps of each leaf (its shard)."""
     with open(path + ".manifest.json") as f:
         manifest = json.load(f)
 
@@ -113,6 +115,8 @@ def restore_state(template, path: str, device=None, comm_rows=None):
     def place(t, key):
         if comm_rows is not None and key.startswith("comm/"):
             t = t[comm_rows]
+        if local is not None:
+            t = local(key, t)
         return t.to(device=device or "cpu")
 
     flat = _flatten(template)
@@ -126,18 +130,19 @@ COMMIT_MARKER = "COMMIT"
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3, mesh=None,
-                 strategy=None, async_save: bool = True):
-        """``mesh`` and ``strategy``: the ranks that save and restore
-        together, and the residual's schema (``compress_pods``); without
-        a strategy every rank holds the whole residual."""
+                 specs=None, async_save: bool = True):
+        """``mesh``: the ranks that save and restore together, and
+        ``specs`` the state's resolved specs on it
+        (``dist.steps.train_state_shardings``), each rank holding its
+        shard of every leaf."""
         self.dir = directory
         self.keep = keep
         self.async_save = async_save
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        self._ef_pods = (max(strategy.compress_pods, 1)
-                         if strategy is not None else None)
-        self._ef_rows = (ef_rows(self.mesh, self._ef_pods)
-                         if strategy is not None else None)
+        if self.mesh is not None and specs is None:
+            raise ValueError("a checkpoint on a mesh of ranks needs the "
+                             "state's specs")
+        self.specs = _flatten(specs) if self.mesh is not None else None
         self._worker: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
@@ -149,10 +154,12 @@ class CheckpointManager:
         rank 0 of a mesh; every rank must call this).  The ``COMMIT``
         marker is written strictly after every artifact of the step
         directory is on disk."""
-        # a copy: the trainer updates the device (or CPU) state in place
-        host = P.tree_map(lambda t: t.detach().to("cpu", copy=True), state)
-        if "comm" in host and self.mesh is not None:
-            host["comm"] = P.tree_map(self._whole_rows, host["comm"])
+        if self.mesh is not None:
+            host = self._gather_whole(state)
+        else:
+            # a copy: the trainer updates the device (or CPU) state in place
+            host = P.tree_map(lambda t: t.detach().to("cpu", copy=True),
+                              state)
         self.wait()
         if self.mesh is not None and self.mesh.rank != 0:
             return
@@ -171,13 +178,19 @@ class CheckpointManager:
         else:
             work()
 
-    def _whole_rows(self, rows: torch.Tensor) -> torch.Tensor:
-        """A rank's residual rows -> all ``(pods, ...)`` rows: gathered
-        over the ``pod`` group where each rank holds its pod's row."""
-        if self._ef_pods is None or rows.shape[0] == self._ef_pods:
-            return rows
-        out = rows.new_empty((self._ef_pods,) + rows.shape[1:])
-        dist.all_gather_into_tensor(out, rows, group=self.mesh.group("pod"))
+    def _gather_whole(self, state):
+        """Every leaf whole, gathered to rank 0's host memory one leaf at
+        a time (None on the other ranks)."""
+        from repro_torch.dist.sharding import gather_to_host
+        flat = _flatten(state)
+        out: Dict = {}
+        for key in sorted(flat):
+            node = out
+            *up, last = key.split("/")
+            for k in up:
+                node = node.setdefault(k, {})
+            node[last] = gather_to_host(flat[key], self.specs[key],
+                                        self.mesh)
         return out
 
     def wait(self):
@@ -200,12 +213,16 @@ class CheckpointManager:
 
     def restore_latest(self, template, device=None):
         """The newest committed state, or (None, None).  A rank of a
-        mesh gets the residual rows it holds (``comm.ef_rows``)."""
+        mesh gets its shard of each leaf."""
         step = self.latest_step()
         if step is None:
             return None, None
+        local = None
+        if self.mesh is not None:
+            from repro_torch.dist.sharding import shard
+            local = lambda key, t: shard(t, self.specs[key], self.mesh)
         return restore_state(template, self._step_path(step), device,
-                             comm_rows=self._ef_rows), step
+                             local=local), step
 
     def _gc(self):
         """Retention counts committed steps only; torn directories (a

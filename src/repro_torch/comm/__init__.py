@@ -26,7 +26,7 @@ from repro_torch.comm.bucketing import (  # noqa: F401
 )
 from repro_torch.comm.collectives import (  # noqa: F401
     CommFallbackWarning, CommPolicy, CommTopologyError, degrade,
-    resolve_policy, sync_grads, sync_grads_bucketed,
+    grad_rules, resolve_policy, sync_grads, sync_grads_bucketed,
 )
 from repro_torch.comm.compress import (  # noqa: F401
     EF_POD_AXIS, compress_payload, ef_defs, ef_rows,

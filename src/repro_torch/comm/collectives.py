@@ -33,6 +33,13 @@ The groups are gloo, which moves CUDA tensors through host memory
 itself (torch 2.11's gloo takes CUDA payloads of float32 and int8 for
 all three operations), so ranks may share one card.  ``PAYLOAD_BYTES``
 counts the bytes each rank hands to the collectives of each axis.
+
+The layers' collectives for tensor, expert and FSDP parallelism live
+here too, each an ``autograd.Function`` over one axis's group:
+``copy_to`` (identity forward, all-reduce backward), ``reduce_from``
+(all-reduce forward, identity backward), ``gather_dim`` (all-gather
+forward, reduce-scatter backward), ``exchange`` (the all-to-all of
+hierarchical MoE dispatch over ``pod``) and ``vocab_parallel_xent``.
 """
 from __future__ import annotations
 
@@ -43,8 +50,10 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from repro_torch.comm.compress import EF_POD_AXIS
 from repro_torch.comm.topology import CommTopology
 from repro_torch.configs.base import ShardingStrategy
+from repro_torch.dist.sharding import DATA_AXES, param_rules
 from repro_torch.kernels import ops
 from repro_torch.models import params as P
 
@@ -66,6 +75,30 @@ class CommPolicy:
     block: int = 256
     pods: int = 0                  # compression schema rows (strategy)
     buckets: int = 1               # sync buckets (1 = monolithic)
+
+
+# logical axis of a stacked per-chunk gradient's leading dim
+DP_CHUNK_AXIS = "dp_chunks"
+
+
+def _no_pod(rule):
+    if rule is None:
+        return None
+    t = rule if isinstance(rule, tuple) else (rule,)
+    t = tuple(a for a in t if a != "pod")
+    return t[0] if len(t) == 1 else (t or None)
+
+
+def grad_rules(strategy: ShardingStrategy):
+    """Rule table for the comm layer's trees (the reference's): the
+    residual's leading dim owns ``pod``, its trailing dims keep only the
+    tensor and expert axes (``embed`` and ``pod`` stripped), so a rank
+    holds its pod's row of its model-axis shard of each leaf."""
+    rules = {k: _no_pod(v) for k, v in param_rules(strategy).items()}
+    rules["embed"] = None
+    rules[DP_CHUNK_AXIS] = DATA_AXES
+    rules[EF_POD_AXIS] = "pod"
+    return rules
 
 
 def degrade(strategy: ShardingStrategy, why: str, mesh=None) -> None:
@@ -162,6 +195,233 @@ def all_reduce_sum(x, mesh):
         _count(x, "world")
         dist.all_reduce(x)
     return x
+
+
+def sum_over(x, mesh, axes):
+    """Sum ``x`` in place over the ranks that differ only along ``axes``
+    (one all-reduce an axis; every rank of the mesh when ``axes`` are all
+    of its axes of size > 1)."""
+    live = tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+    if not live:
+        return x
+    if len(live) > 1 and set(live) == {a for a, n in mesh.shape.items()
+                                       if n > 1}:
+        return all_reduce_sum(x, mesh)
+    for a in live:
+        _sum(x, mesh, a)
+    return x
+
+
+# --------------------------------------------------------------------------
+# Tensor, expert and FSDP parallelism: collectives autograd runs through
+# --------------------------------------------------------------------------
+#
+# Each is an ``autograd.Function`` over one axis's gloo group.  A CUDA
+# payload goes through host memory in the collective itself: gloo's CUDA
+# path is proven for float32 and int8 reduce-scatter, all-gather and
+# all-reduce only, and these carry bfloat16 activations and an
+# all-to-all.  On a mesh of one rank (or an axis of size 1) each is the
+# identity.
+
+
+def _live_group(mesh, axis):
+    if mesh is None or mesh.size == 1 or mesh.shape.get(axis, 1) == 1:
+        return None
+    return mesh.group(axis)
+
+
+def _staged(op, x, out_shape=None):
+    """``op(inp, out)`` on a contiguous copy of ``x`` (on the host where
+    ``x`` is a CUDA tensor); returns ``out`` (``inp`` itself, reduced in
+    place, when ``out_shape`` is None) on ``x``'s device."""
+    inp = (x.detach().to("cpu", copy=True) if x.is_cuda
+           else x.detach().clone()).contiguous()
+    out = inp if out_shape is None else inp.new_empty(out_shape)
+    op(inp, out)
+    return out.to(x.device) if x.is_cuda else out
+
+
+def _reduce(x, mesh, axis, op=dist.ReduceOp.SUM):
+    """All-reduce of ``x`` over ``axis`` into a new tensor."""
+    g = _live_group(mesh, axis)
+    if g is None:
+        return x
+    _count(x, axis)
+    return _staged(lambda i, o: dist.all_reduce(i, op=op, group=g), x)
+
+
+def gather_along(x, dim, mesh, axis):
+    """All-gather of ``x`` over ``axis`` along ``dim``, in the axis's
+    coordinate order."""
+    g = _live_group(mesh, axis)
+    if g is None:
+        return x
+    n = mesh.shape[axis]
+    _count(x, axis)
+    front = x.movedim(dim, 0)
+    out = _staged(lambda i, o: dist.all_gather_into_tensor(o, i, group=g),
+                  front, (n * front.shape[0],) + tuple(front.shape[1:]))
+    return out.movedim(0, dim)
+
+
+def scatter_along(x, dim, mesh, axis):
+    """Reduce-scatter (sum) of ``x`` over ``axis`` along ``dim``: this
+    rank's 1/n of the sum."""
+    g = _live_group(mesh, axis)
+    if g is None:
+        return x
+    n = mesh.shape[axis]
+    _count(x, axis)
+    front = x.movedim(dim, 0)
+    out = _staged(lambda i, o: dist.reduce_scatter_tensor(o, i, group=g),
+                  front, (front.shape[0] // n,) + tuple(front.shape[1:]))
+    return out.movedim(0, dim)
+
+
+def _slice_along(x, dim, mesh, axis):
+    """This rank's 1/n of ``x`` along ``dim`` over ``axis``."""
+    n = mesh.shape.get(axis, 1) if mesh is not None and mesh.size > 1 else 1
+    if n == 1:
+        return x
+    k = x.shape[dim] // n
+    return x.narrow(dim, mesh.coords[axis] * k, k)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, all-reduce backward: a replicated tensor entering
+    a computation each rank of ``axis`` does a part of (the input of a
+    column-parallel product, of local experts, of local vocab logits)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce forward, identity backward: the partial sums of a
+    row-parallel product (or of local experts) made whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather forward over ``axes`` (rank-major, as a
+    ``NamedSharding`` lays a dim over a tuple of axes); backward a
+    reduce-scatter where the ranks of ``axes`` took different batch rows
+    (``sum_grads``: FSDP), else this rank's slice of a gradient every
+    rank of ``axes`` holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh, sum_grads):
+        ctx.dim, ctx.axes, ctx.mesh, ctx.sum = dim, axes, mesh, sum_grads
+        for a in reversed(axes):
+            x = gather_along(x, dim, mesh, a)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        for a in ctx.axes:
+            grad = (scatter_along(grad, ctx.dim, ctx.mesh, a) if ctx.sum
+                    else _slice_along(grad, ctx.dim, ctx.mesh, a))
+        return grad, None, None, None, None
+
+
+def _exchange(x, mesh, axis):
+    """All-to-all over ``axis``: block j of ``x``'s first dim goes to the
+    rank at coordinate j, whose block arrives at position j.  Only the
+    blocks bound for other ranks are counted: this rank's own block does
+    not move."""
+    g = _live_group(mesh, axis)
+    if g is None:
+        return x
+    n = mesh.shape[axis]
+    PAYLOAD_BYTES[axis] = (PAYLOAD_BYTES.get(axis, 0)
+                           + x.numel() * x.element_size() * (n - 1) // n)
+    return _staged(lambda i, o: dist.all_to_all_single(o, i, group=g), x,
+                   tuple(x.shape))
+
+
+class _Exchange(torch.autograd.Function):
+    """The all-to-all of :func:`_exchange`; its backward sends each
+    block's gradient back the way it came (the same exchange)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.mesh, ctx.axis), None, None
+
+
+def copy_to(x, mesh, axis):
+    return x if _live_group(mesh, axis) is None else \
+        _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x, mesh, axis):
+    return x if _live_group(mesh, axis) is None else \
+        _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_dim(x, dim, axes, mesh, *, sum_grads=True):
+    """``x`` gathered along ``dim`` over the tuple ``axes`` (outermost
+    first); see :class:`_GatherDim`."""
+    axes = tuple(a for a in axes if _live_group(mesh, a) is not None)
+    return _GatherDim.apply(x, dim, axes, mesh, sum_grads) if axes else x
+
+
+def exchange(x, mesh, axis):
+    return x if _live_group(mesh, axis) is None else \
+        _Exchange.apply(x, mesh, axis)
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-token cross-entropy of logits whose vocabulary is split over
+    ``axis`` (this rank's columns ``[start, start + V_local)``): the max,
+    the sum of exponentials and the target logit are all-reduced, so no
+    rank gathers a (B, S, V) tensor.  Backward: softmax minus the
+    one-hot, on this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, mesh, axis):
+        mx = _reduce(logits.detach().amax(-1), mesh, axis,
+                     op=dist.ReduceOp.MAX)
+        p = torch.exp(logits.detach() - mx[..., None])
+        total = _reduce(p.sum(-1), mesh, axis)
+        local = labels.long() - start
+        hit = (local >= 0) & (local < logits.shape[-1])
+        idx = local.clamp(0, logits.shape[-1] - 1)
+        gold = torch.gather(logits.detach(), -1, idx[..., None])[..., 0]
+        gold = _reduce(torch.where(hit, gold, torch.zeros_like(gold)),
+                       mesh, axis)
+        p.div_(total[..., None])
+        ctx.save_for_backward(p, idx, hit)
+        return mx + torch.log(total) - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        p, idx, hit = ctx.saved_tensors
+        out = p * grad[..., None]
+        out.scatter_add_(-1, idx[..., None],
+                         -(grad * hit.to(grad.dtype))[..., None])
+        return out, None, None, None, None
+
+
+def vocab_parallel_xent(logits, labels, start, mesh, axis):
+    return _VocabParallelXent.apply(logits, labels, start, mesh, axis)
 
 
 # --------------------------------------------------------------------------

@@ -208,9 +208,10 @@ class TrainConfig:
 @dataclass(frozen=True)
 class ShardingStrategy:
     """Named sharding strategy; see dist/sharding.py for the rule tables.
-    The port runs its comm fields (``comm/collectives.py``); tensor
-    parallelism, FSDP and expert parallelism resolve to specs but place
-    no tensor yet (ROADMAP Queue 1 item 5(d))."""
+    The port's train step places every leaf by them on a mesh of ranks
+    (tensor, expert and FSDP parallelism, hierarchical MoE dispatch) and
+    runs the comm fields (``comm/collectives.py``); the engine runs on
+    one device (a sharded engine: ROADMAP Queue 1 item 5(e))."""
 
     name: str = "baseline"
     # baseline : DP over data(+pod), TP over model, ZeRO-1 opt states.
@@ -247,7 +248,7 @@ class ShardingStrategy:
     # hierarchical MoE dispatch: shard experts over the pod tier too
     # (``expert`` -> (pod, model)) and route dispatch/combine as
     # pod-local exchange + cross-pod transfer of only the tokens whose
-    # expert lives in another pod (see models/moe.py; the port raises)
+    # expert lives in another pod (see models/moe.py)
     hierarchical_moe: bool = False
     # error instead of falling back to flat sync when the mesh cannot
     # honor the requested comm schedule (no pod tier, pod mismatch)

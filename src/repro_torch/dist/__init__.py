@@ -3,13 +3,13 @@
 * ``mesh``        — named axes over the ranks of a process group, one
                     gloo group per axis;
 * ``sharding``    — logical-axis -> mesh-axis rule tables, PDef-tree ->
-                    resolved-spec resolution, and the ``submesh_for``
-                    bridge from a Flux ``ResourceSet`` allocation to a
-                    mesh over this process's devices;
-* ``actsharding`` — activation constraints: ``constrain`` resolves
-                    ``act_*`` logical names against the active
-                    ``activation_sharding(mesh, strategy)`` context and is
-                    the identity off-mesh and on one device;
+                    resolved-spec resolution, a leaf's placement on a
+                    mesh (``local_shape``, ``shard``, ``gather``), and the
+                    ``submesh_for`` bridge from a Flux ``ResourceSet``
+                    allocation to a mesh over this process's devices;
+* ``actsharding`` — the ``activation_sharding(mesh, strategy)`` context
+                    the model code reads to place its work on a mesh of
+                    ranks (``constrain`` is the identity);
 * ``steps``       — the train step and train-state init/abstract
                     schemas, consumed by the trainer and the executors.
 """

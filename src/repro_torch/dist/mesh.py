@@ -1,12 +1,15 @@
 """The port's device mesh: named axes over the ranks of the running
 process group.  The mesh part of the JAX package's ``dist/sharding.py``
-(``DATA_AXES``, ``make_mesh``, ``axis_size``, ``data_axes``); its rule
-tables for tensor parallelism and FSDP wait for a later slice.
+(``DATA_AXES``, ``make_mesh``, ``axis_size``, ``data_axes``); the rule
+tables and the placement of a leaf on a mesh live in
+``dist/sharding.py``.
 
-Ranks are laid out row-major over the axes, so on ``("pod", "data")``
-rank = pod * data_size + data_index: pod-major, the chunk order the
-train step's gradient chunks follow (``dist/steps.py``).  A mesh of one
-rank needs no process group and is the single-device case.
+Ranks are laid out row-major over the axes, so on ``("pod", "data",
+"model")`` rank = (pod * data_size + data_index) * model_size +
+model_index: pod-major, the chunk order the train step's gradient
+chunks follow (``dist/steps.py``), with the ranks of one ``model`` group
+adjacent.  A mesh of one rank needs no process group and is the
+single-device case: every leaf is whole there, whatever its axes.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import torch.distributed as dist
 
 # mesh axes that carry the data-parallel dimension, outermost first
 DATA_AXES = ("pod", "data")
+# the mesh axis that splits heads, the FFN, the vocabulary and experts
+MODEL_AXES = ("model",)
 
 
 class Mesh:
@@ -57,6 +62,13 @@ class Mesh:
             raise ValueError(f"devices {devices.shape} do not lay out as "
                              f"{tuple(shape)}")
         self.devices = devices
+
+    @property
+    def spans_ranks(self) -> bool:
+        """Whether this mesh runs over a process group (``make_mesh``):
+        each rank then holds its shards.  A mesh built from a shape alone
+        (one rank's view, as the resolvers take it) runs nothing."""
+        return bool(self._groups)
 
     def group(self, axis: str):
         """The process group along ``axis``; None where the axis has
@@ -107,3 +119,16 @@ def axis_size(mesh: Mesh, axes: Tuple[str, ...]) -> int:
 
 def data_axes(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in DATA_AXES if a in mesh.shape)
+
+
+def model_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """The tensor-parallel axis, where the mesh has one."""
+    return tuple(a for a in MODEL_AXES if a in mesh.shape)
+
+
+def batch_axes(mesh: Mesh, tensor_parallel: bool) -> Tuple[str, ...]:
+    """The axes whose ranks take different batch rows, outermost first:
+    the data axes, and ``model`` too where tensor parallelism is off (the
+    model axis then joins the data-parallel domain, as the JAX package's
+    ``batch_sharding`` lays the batch)."""
+    return data_axes(mesh) + (() if tensor_parallel else model_axes(mesh))

@@ -16,8 +16,15 @@ know about:
 A resolved spec is a plain tuple with one entry per tensor dimension:
 ``None``, a mesh axis name, or a tuple of names (``tuple(spec)`` of the
 reference's ``PartitionSpec``).  The resolvers read only ``mesh.shape``.
-Turning a spec into DTensor placements waits for tensor parallelism and
-FSDP (ROADMAP Queue 1 item 5(d)).
+
+Placement: on a mesh of ranks each rank holds one shard of a leaf, a
+plain tensor of :func:`local_shape` (no DTensor: the kernels take local
+tensors).  A dim split over a tuple of axes is laid out rank-major over
+the tuple, as a ``NamedSharding`` lays it: :func:`shard` cuts a whole
+tensor to this rank's shard, :func:`gather` collects a shard back to
+the whole tensor over the spec's axes (every rank of the mesh must
+call it, leaf by leaf in the same order).  A mesh built from a shape
+alone gives one rank's shapes and shards without running anything.
 
 ``submesh_for``'s mesh is a ``dist.mesh.Mesh`` whose ``devices`` hold
 ``torch.device``s of this process.  The degrade rule is the JAX
@@ -145,6 +152,98 @@ def resolve_spec(shape: Sequence[int], axes: Sequence[Optional[str]],
         used.update(cand)
         spec.append(cand[0] if len(cand) == 1 else cand)
     return tuple(spec)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """A spec entry as a tuple of axis names (``()`` for None)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _splits(mesh: Mesh, entry) -> int:
+    return axis_size(mesh, entry_axes(entry))
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh: Mesh
+                ) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a leaf of ``shape``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(int(d) // _splits(mesh, e) for d, e in zip(shape, spec))
+
+
+def shard_index(entry, mesh: Mesh, coords=None) -> int:
+    """This rank's chunk (or that of the rank at ``coords``) of a dim
+    split over ``entry``'s axes: rank-major over the tuple (the first
+    axis outermost)."""
+    coords = mesh.coords if coords is None else coords
+    idx = 0
+    for a in entry_axes(entry):
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
+
+
+def _slices(shape, spec, mesh, coords):
+    out = []
+    for d, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        k = int(d) // _splits(mesh, e)
+        at = shard_index(e, mesh, coords) * k
+        out.append(slice(at, at + k))
+    return tuple(out)
+
+
+def shard(full: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``full``: a tensor of its
+    own (``full`` may be freed), or ``full`` itself where the spec splits
+    nothing here."""
+    out = full
+    for dim, e in enumerate(spec):
+        n = _splits(mesh, e)
+        if n > 1:
+            k = out.shape[dim] // n
+            out = out.narrow(dim, shard_index(e, mesh) * k, k)
+    return out if out is full else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather(local: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from each rank's shard: an all-gather over the
+    axes of every split dim (a collective: every rank calls it)."""
+    from repro_torch.comm.collectives import gather_along
+    out = local
+    for dim, e in enumerate(spec):
+        if _splits(mesh, e) > 1:
+            for a in reversed(entry_axes(e)):
+                out = gather_along(out, dim, mesh, a)
+    return out
+
+
+def gather_to_host(local: torch.Tensor, spec: Spec, mesh: Mesh):
+    """The whole tensor in host memory on rank 0 (None on the other
+    ranks): each rank's shard goes to rank 0 once, over the process
+    group, and rank 0 lays each where its rank's coordinates put it.  A
+    leaf the spec splits nothing of moves nothing.  A collective where it
+    splits: every rank calls it."""
+    import torch.distributed as dist
+    host = local.detach().to("cpu")
+    splits = [_splits(mesh, e) for e in spec]
+    if all(n == 1 for n in splits):
+        return host if mesh.rank == 0 else None
+    shape = [d * n for d, n in zip(host.shape, splits)] + list(
+        host.shape[len(splits):])
+    host = host.contiguous()
+    parts = ([torch.empty_like(host) for _ in range(mesh.size)]
+             if mesh.rank == 0 else None)
+    dist.gather(host, parts, dst=0)
+    if mesh.rank != 0:
+        return None
+    whole = host.new_empty(tuple(shape))
+    dims = tuple(mesh.shape.values())
+    for r, part in enumerate(parts):
+        coords = dict(zip(mesh.axis_names,
+                          (int(c) for c in np.unravel_index(r, dims))))
+        whole[_slices(shape, spec, mesh, coords)] = part
+    return whole
 
 
 def tree_shardings(defs, mesh: Mesh, rules: Dict[str, Rule]):

@@ -14,7 +14,7 @@ arch, engine shapes, strategy, request knobs and replicas):
 The full config unless ``--smoke``.  ``--replicas N`` puts a ``Router``
 over N engines on the mesh's device, each with its own weights drawn
 from ``--seed``.  ``--dp``/``--tp`` above 1 raise: the engine runs on
-one device (ROADMAP Queue 1 items 5(e) and 5(d)).
+one device (ROADMAP Queue 1 item 5(e)).
 """
 from __future__ import annotations
 

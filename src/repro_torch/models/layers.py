@@ -8,6 +8,17 @@ Each layer has ``*_defs(cfg)`` (the PDef schema, with the JAX package's
 key names and logical axes) and ``*_apply(cfg, params, ...)`` (the math
 on tensors).  Matmul weights are cast to the activation type at use, as
 the JAX layers do; ``impl`` selects the kernels (see ``kernels/ops``).
+
+Tensor parallelism: inside an ``activation_sharding`` context on a mesh
+of ranks whose strategy splits the ``model`` axis, a layer gets this
+rank's shard of each weight its spec splits (``dist/sharding.py``).
+Attention then runs the rank's heads (the counts read from the weights'
+shapes) and the MLP its slice of the FFN, each entered through
+``copy_to`` (identity forward, all-reduce backward) and left through
+``reduce_from`` (all-reduce forward); the embedding is a masked local
+take summed over ``model``, and ``logits_apply`` returns the rank's
+vocabulary columns.  Where ``resolve_spec`` leaves a weight whole, no
+collective runs.
 """
 from __future__ import annotations
 
@@ -17,7 +28,9 @@ from typing import NamedTuple, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import collectives as coll
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import actsharding
 from repro_torch.kernels import ops
 from repro_torch.models.params import PDef
 
@@ -108,22 +121,61 @@ def attention_defs(cfg: ModelConfig, cross: bool = False):
     return defs
 
 
-def _project_qkv(cfg, p, x, kv_input=None):
-    """q from ``x``; k and v from ``kv_input`` (an encoder's output, for
-    cross-attention) or from ``x``."""
+def _attention_tp(cfg, p):
+    """(weights, mesh) for tensor parallelism over heads: the mesh where
+    this rank holds a whole number of query and KV heads (the rank's
+    heads, ``model``'s collectives around them), else None, with any
+    weight the spec split over ``model`` gathered back whole (every rank
+    then computes the whole attention; its gradient is this rank's
+    slice)."""
+    mesh, n = actsharding.tp()
+    if mesh is None:
+        return p, None
+    hd = cfg.head_dim
+    q_split = actsharding.tp_splits(cfg.n_heads * hd)
+    kv_split = actsharding.tp_splits(cfg.n_kv_heads * hd)
+    if not (q_split or kv_split):
+        return p, None
+    if (q_split and kv_split and cfg.n_heads % n == 0
+            and cfg.n_kv_heads % n == 0):
+        return p, mesh
+    whole = dict(p)
+    for name, split, dim in (("wq", q_split, 1), ("bq", q_split, 0),
+                             ("wo", q_split, 0), ("wk", kv_split, 1),
+                             ("wv", kv_split, 1), ("bk", kv_split, 0),
+                             ("bv", kv_split, 0)):
+        if split and name in p:
+            whole[name] = coll.gather_dim(p[name], dim, ("model",), mesh,
+                                          sum_grads=False)
+    return whole, None
+
+
+def _project_qkv(cfg, p, x):
+    """q, k and v from ``x``; the head counts are the weights' (this
+    rank's heads under tensor parallelism)."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kv_in = x if kv_input is None else kv_input
-    skv = kv_in.shape[1]
+    hd = cfg.head_dim
     q = x @ p["wq"].to(x.dtype)
-    k = kv_in @ p["wk"].to(x.dtype)
-    v = kv_in @ p["wv"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (q.reshape(b, s, h, hd), k.reshape(b, skv, kv, hd),
-            v.reshape(b, skv, kv, hd))
+    return (q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd),
+            v.reshape(b, s, -1, hd))
+
+
+def cross_kv(cfg: ModelConfig, p, enc_out):
+    """A cross-attention's (k, v) from an encoder's output (B, T, D): (B,
+    T, kv, hd) each, this rank's KV heads under tensor parallelism (the
+    encoder's output then enters through ``copy_to``)."""
+    p, mesh = _attention_tp(cfg, p)
+    enc_out = coll.copy_to(enc_out, mesh, "model")
+    b, t, _ = enc_out.shape
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, t, -1, cfg.head_dim)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, t, -1, cfg.head_dim)
+    return k, v
 
 
 def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
@@ -143,12 +195,15 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
     old one, so the effect is the same) and returns (out, (k, v) of the
     cache)."""
     b, s, _ = x.shape
+    p, mesh = _attention_tp(cfg, p)
+    x = coll.copy_to(x, mesh, "model")
     if cross_kv is not None:
-        q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        q = (x @ p["wq"].to(x.dtype)).reshape(b, s, -1, cfg.head_dim)
         if positions is not None and cfg.pos_type == "rope":
             q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         out = ops.flash_attention(q, *cross_kv, causal=False, impl=impl)
-        return out.reshape(b, s, -1) @ p["wo"].to(x.dtype), None
+        return coll.reduce_from(out.reshape(b, s, -1) @ p["wo"].to(x.dtype),
+                                mesh, "model"), None
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
@@ -193,7 +248,7 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
                                               impl=impl)
         new_kv = (ck, cv)
     out = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
-    return out, new_kv
+    return coll.reduce_from(out, mesh, "model"), new_kv
 
 
 def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None):
@@ -205,15 +260,27 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None):
     return defs
 
 
-def mlp_apply(cfg: ModelConfig, p, x):
+def mlp_apply(cfg: ModelConfig, p, x, d_ff: Optional[int] = None):
     """SwiGLU, or GeLU (the tanh approximation, ``jax.nn.gelu``'s
-    default)."""
+    default).  ``d_ff``: the FFN's whole width (``mlp_defs``'), which
+    tells whether tensor parallelism split it: then ``w_in``/``w_gate``
+    are column-parallel and ``w_out`` row-parallel."""
+    mesh = actsharding.tp()[0] if actsharding.tp_splits(
+        d_ff or cfg.d_ff) else None
+    x = coll.copy_to(x, mesh, "model")
     h = x @ p["w_in"].to(x.dtype)
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_out"].to(x.dtype)
+    return coll.reduce_from(h @ p["w_out"].to(x.dtype), mesh, "model")
+
+
+def vocab_split(cfg: ModelConfig) -> bool:
+    """Whether tensor parallelism splits the vocabulary here: each rank
+    then holds V / size rows of ``tok`` (and columns of ``head``),
+    rank-major over ``model``."""
+    return actsharding.tp_splits(cfg.vocab_size)
 
 
 def embed_defs(cfg: ModelConfig):
@@ -229,7 +296,17 @@ def embed_apply(cfg: ModelConfig, p, tokens, dtype, offset=0):
     """Token embeddings in ``dtype``; with sinusoidal positions, plus
     those of positions ``offset`` .. ``offset + S - 1`` (one offset for
     every row)."""
-    x = p["tok"][tokens].to(dtype)
+    if vocab_split(cfg):
+        mesh = actsharding.tp()[0]
+        # vocab-parallel: this rank's rows, a zero row for every other id,
+        # summed over ``model``
+        rows = p["tok"].shape[0]
+        local = tokens.long() - mesh.coords["model"] * rows
+        hit = (local >= 0) & (local < rows)
+        x = p["tok"][local.clamp(0, rows - 1)].to(dtype)
+        x = coll.reduce_from(x * hit[..., None].to(dtype), mesh, "model")
+    else:
+        x = p["tok"][tokens].to(dtype)
     if cfg.pos_type == "sinusoidal":
         x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
                                      tokens.device).to(dtype)[None]
@@ -237,7 +314,11 @@ def embed_apply(cfg: ModelConfig, p, tokens, dtype, offset=0):
 
 
 def logits_apply(cfg: ModelConfig, p, x, impl=None):
+    """The logits; under a vocab-parallel split (``vocab_split``) only
+    this rank's columns."""
     x = norm_apply(cfg, p["final_norm"], x, impl=impl)
+    if vocab_split(cfg):
+        x = coll.copy_to(x, actsharding.tp()[0], "model")
     if cfg.tie_embeddings:
         return x @ p["tok"].to(x.dtype).T
     return x @ p["head"].to(x.dtype)

@@ -13,8 +13,10 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.comm import collectives as coll
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import actsharding
 from repro_torch.models import layers, transformer
 from repro_torch.models import params as P
 
@@ -69,6 +71,9 @@ class Model(nn.Module):
              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
         """Mean next-token cross-entropy plus the MoE aux loss: (loss,
         {"loss", "xent", "moe_aux"}); ``moe_aux`` is 0 without MoE.
+        Under a vocab-parallel split the logits are this rank's columns
+        and the cross-entropy is ``comm.collectives.vocab_parallel_xent``:
+        the reference's, with no (B, S, V) tensor gathered.
 
         The gold logit is gathered, not contracted with a one-hot as the
         JAX package does (there the contraction stays local under a
@@ -81,10 +86,18 @@ class Model(nn.Module):
             compute_dtype=compute_dtype, frames=batch.get("frames"),
             patches=batch.get("patches"), remat=remat)
         logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            batch["labels"].long()[..., None])[..., 0]
-        xent = (lse - gold).mean()
+        if layers.vocab_split(self.cfg):
+            # this rank's vocabulary columns: the max, the sum of
+            # exponentials and the gold logit are summed over ``model``
+            mesh = actsharding.tp()[0]
+            start = mesh.coords["model"] * logits.shape[-1]
+            xent = coll.vocab_parallel_xent(logits, batch["labels"], start,
+                                            mesh, "model").mean()
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                batch["labels"].long()[..., None])[..., 0]
+            xent = (lse - gold).mean()
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
@@ -101,7 +114,11 @@ class Model(nn.Module):
         ``frames`` (B, T, d_model) run through the encoder except in
         decode, which reads the encoder's projections from the cache."""
         cfg = self.cfg
-        x = layers.embed_apply(cfg, params["embed"], tokens, compute_dtype,
+        # FSDP: the embedding's leaves gathered whole over the batch axes
+        # (identity off ranks)
+        emb = actsharding.gather_leaves(params["embed"],
+                                        layers.embed_defs(cfg))
+        x = layers.embed_apply(cfg, emb, tokens, compute_dtype,
                                offset=offset)
         if cfg.frontend == "vision" and patches is not None:
             x = torch.cat([patches.to(compute_dtype),
@@ -118,7 +135,7 @@ class Model(nn.Module):
             cfg, params["blocks"], x, positions=positions, caches=caches,
             cache_index=cache_index, enc_out=enc_out, mode=mode,
             remat=remat, paging=paging, impl=self.impl)
-        return (layers.logits_apply(cfg, params["embed"], x, impl=self.impl),
+        return (layers.logits_apply(cfg, emb, x, impl=self.impl),
                 new_caches, aux)
 
     @torch.no_grad()

@@ -92,16 +92,19 @@ def _custom_init(name: str, generator, shape, device):
 
 
 def init_params(defs, generator: torch.Generator, dtype=torch.float32,
-                device=None):
+                device=None, local=None):
     """Materialize a PDef tree: normal(0, scale), normal(0, 1 /
     sqrt(fan_in)) with the JAX package's fan-in (the first dim of a
     matrix, stacked dims included), zeros, ones or a named custom init,
     in ``dtype`` unless a leaf overrides it.  Draws are made in float32
     and then cast, so a bfloat16 tree is the rounding of the float32 one
     from the same seed.
+
+    ``local(pdef, tensor)``: what to keep of each leaf as it is drawn
+    (a rank's shard): the whole tree is drawn in the same order either
+    way, and no more than one whole leaf is alive at a time.
     """
     device = generator.device if device is None else torch.device(device)
-
     def make(d: PDef):
         dt = DTYPES[d.dtype] if d.dtype else dtype
         if d.custom is not None:
@@ -121,6 +124,8 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
                         device=device)
         return (x * scale).to(dt)
 
+    if local is not None:
+        return tree_map(lambda d: local(d, make(d)), defs)
     return tree_map(make, defs)
 
 

@@ -18,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import actsharding
 from repro_torch.models import layers, mamba, moe, xlstm
 from repro_torch.models.params import DTYPES, PDef, stack, tree_map
 
@@ -176,8 +177,8 @@ def _apply_position(cfg, i, p, x, *, positions, mode, cache=None,
             if mode == "decode":
                 xk, xv = cache["xk"], cache["xv"]
             else:
-                _, xk, xv = layers._project_qkv(cfg, p["xattn"], hx,
-                                                kv_input=enc_out.to(hx.dtype))
+                xk, xv = layers.cross_kv(cfg, p["xattn"],
+                                         enc_out.to(hx.dtype))
                 if mode == "prefill":
                     new.update(xk=xk.to(torch.bfloat16),
                                xv=xv.to(torch.bfloat16))
@@ -223,11 +224,20 @@ def _superblock(cfg, pslice, x, positions, mode, cslice, cache_index,
     return x, caches, aux_sum
 
 
-def _train_superblock(cfg, pslice, x, positions, enc_out, impl):
+def _train_superblock(cfg, pslice, x, positions, enc_out, impl, ctx=None):
     # the aux loss is an output of the checkpointed block, so its
-    # gradient flows through the recomputation like x's
-    x, _, aux = _superblock(cfg, pslice, x, positions, "train", None, None,
-                            enc_out, None, impl)
+    # gradient flows through the recomputation like x's.  FSDP's gather
+    # of the repeat's weights happens here, inside the checkpointed
+    # region: the recomputation gathers again, and no gathered weight
+    # outlives its layer.  ``ctx``: the activation-sharding context the
+    # block ran under, for its recomputation
+    with actsharding.reenter(ctx):
+        cross = bool(cfg.encoder_layers)
+        pslice = {key: actsharding.gather_leaves(
+            pslice[key], position_defs(cfg, int(key[1:]), cross),
+            skip=("moe",)) for key in sorted(pslice)}
+        x, _, aux = _superblock(cfg, pslice, x, positions, "train", None,
+                                None, enc_out, None, impl)
     return x, aux
 
 
@@ -265,6 +275,7 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
             if remat:
                 x, aux = checkpoint(_train_superblock, cfg, pslice, x,
                                     positions, enc_out, impl,
+                                    actsharding.current(),
                                     use_reentrant=False)
             else:
                 x, aux = _train_superblock(cfg, pslice, x, positions,
@@ -293,13 +304,17 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
                for key, leaves in new.items()}, aux_total
 
 
-def _encoder_layer(cfg, p, x, impl):
-    h = layers.norm_apply(cfg, p["norm1"], x, impl=impl)
-    out, _ = layers.attention_apply(cfg, p["attn"], h, positions=None,
-                                    causal=False, impl=impl)
-    x = x + out
-    h = layers.norm_apply(cfg, p["norm2"], x, impl=impl)
-    return x + layers.mlp_apply(cfg, p["mlp"], h)
+def _encoder_layer(cfg, p, x, impl, ctx=None):
+    with actsharding.reenter(ctx):
+        p = actsharding.gather_leaves(p, tree_map(      # one layer's defs
+            lambda d: PDef(d.shape[1:], d.axes[1:]),
+            encoder_defs(cfg)["enc"]))
+        h = layers.norm_apply(cfg, p["norm1"], x, impl=impl)
+        out, _ = layers.attention_apply(cfg, p["attn"], h, positions=None,
+                                        causal=False, impl=impl)
+        x = x + out
+        h = layers.norm_apply(cfg, p["norm2"], x, impl=impl)
+        return x + layers.mlp_apply(cfg, p["mlp"], h)
 
 
 def encoder_apply(cfg: ModelConfig, enc_params, frames, *, remat=True,
@@ -313,12 +328,14 @@ def encoder_apply(cfg: ModelConfig, enc_params, frames, *, remat=True,
     x = frames + layers.sinusoidal_positions(
         frames.shape[1], cfg.d_model, device=frames.device).to(
             frames.dtype)[None]
+    enc_params = dict(enc_params, enc_norm=actsharding.gather_leaves(
+        enc_params["enc_norm"], encoder_defs(cfg)["enc_norm"]))
     per_layer = tree_map(lambda t: t.unbind(0), enc_params["enc"])
     for r in range(cfg.encoder_layers):
         p = tree_map(lambda ts: ts[r], per_layer)
         if mode == "train" and remat:
             x = checkpoint(_encoder_layer, cfg, p, x, impl,
-                           use_reentrant=False)
+                           actsharding.current(), use_reentrant=False)
         else:
             x = _encoder_layer(cfg, p, x, impl)
     return layers.norm_apply(cfg, enc_params["enc_norm"], x, impl=impl)

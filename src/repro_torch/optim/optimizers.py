@@ -66,8 +66,24 @@ def opt_state_defs(cfg: ModelConfig, model_defs):
 # ---------------------------------------------------------------------------
 
 
-def _global_norm(leaves):
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+def _global_norm(leaves, axes=None, mesh=None):
+    """The global norm.  On a mesh of ranks each leaf is this rank's
+    shard and ``axes[i]`` the mesh axes that shard leaf i: its squares
+    are summed over those axes (one all-reduce for each distinct tuple,
+    in sorted order on every rank), so each element counts once."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    from repro_torch.comm import collectives as coll
+    by_axes = {}
+    for g, ax in zip(leaves, axes):
+        by_axes.setdefault(tuple(ax), []).append(
+            torch.sum(torch.square(g.float())))
+    total = 0.0
+    for ax in sorted(by_axes):
+        part = torch.stack(by_axes[ax]).sum().reshape(1)
+        total = total + coll.sum_over(part, mesh, ax)
+    return torch.sqrt(total).reshape(())
 
 
 def _rms(x):
@@ -82,18 +98,22 @@ def _store(dst, value):
 
 
 def make_optimizer(cfg: ModelConfig, tcfg: TrainConfig):
-    """Returns ``update(grads, opt_state, params, step) -> (params,
-    opt_state, stats)``; params and state are updated in place and
-    returned, ``grads`` are consumed (clipped in place)."""
+    """Returns ``update(grads, opt_state, params, step, norm_axes=None,
+    mesh=None) -> (params, opt_state, stats)``; params and state are
+    updated in place and returned, ``grads`` are consumed (clipped in
+    place).  On a mesh of ranks every leaf is this rank's shard (the
+    gradient's, the parameter's and the state's alike) and
+    ``norm_axes`` holds each leaf's sharding axes, for the global
+    norm."""
 
     def lr_at(step):
         return lr_schedule(step, base_lr=tcfg.learning_rate,
                            warmup_steps=tcfg.warmup_steps,
                            total_steps=tcfg.total_steps)
 
-    def clip(grads):
+    def clip(grads, norm_axes, mesh):
         leaves = [g.float() for g in P.tree_leaves(grads)]
-        gnorm = _global_norm(leaves)
+        gnorm = _global_norm(leaves, norm_axes, mesh)
         scale = torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
         for g in leaves:
             g.mul_(scale)
@@ -120,8 +140,8 @@ def make_optimizer(cfg: ModelConfig, tcfg: TrainConfig):
             _store(vc, vc1)
             _store(p, p1)
 
-        def update(grads, state, params, step):
-            leaves, gnorm = clip(grads)
+        def update(grads, state, params, step, norm_axes=None, mesh=None):
+            leaves, gnorm = clip(grads, norm_axes, mesh)
             lr = lr_at(step)
             for g, vr, vc, p in zip(leaves, P.tree_leaves(state["vr"]),
                                     P.tree_leaves(state["vc"]),
@@ -140,8 +160,8 @@ def make_optimizer(cfg: ModelConfig, tcfg: TrainConfig):
         _store(v, v1)
         _store(p, p32)
 
-    def update(grads, state, params, step):
-        leaves, gnorm = clip(grads)
+    def update(grads, state, params, step, norm_axes=None, mesh=None):
+        leaves, gnorm = clip(grads, norm_axes, mesh)
         lr = lr_at(step)
         t = torch.as_tensor(step).to(torch.float32) + 1.0
         bc1 = 1 - tcfg.b1 ** t

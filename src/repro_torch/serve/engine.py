@@ -56,14 +56,14 @@ from repro_torch.serve.scheduler import Request, Scheduler, StreamError
 def refuse_sharded_mesh(shape) -> None:
     """Raise ``NotImplementedError`` for a mesh ``shape`` (axis -> size)
     of more than one device: the engine runs on one device.  A model
-    axis over several devices waits for tensor parallelism (ROADMAP
-    Queue 1 item 5(d)), a data axis for paged pools on a mesh (item
-    5(e))."""
+    axis over several devices (the trainer's tensor parallelism in a
+    sharded engine) and a data axis (paged pools on a mesh) both wait for
+    ROADMAP Queue 1 item 5(e)."""
     if shape.get("model", 1) > 1:
         raise NotImplementedError(
             f"a {dict(shape)} mesh: the engine's model axis over several "
-            "devices (tensor parallelism) waits for ROADMAP Queue 1 item "
-            "5(d)")
+            "devices (a tensor-parallel engine, its paged pool on the mesh)"
+            " waits for ROADMAP Queue 1 item 5(e)")
     if int(np.prod(list(shape.values()), dtype=np.int64)) > 1:
         raise NotImplementedError(
             f"a {dict(shape)} mesh: the engine's paged pools over a data "

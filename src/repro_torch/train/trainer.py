@@ -1,8 +1,9 @@
 """The training loop: data pipeline + train step + checkpoint/restart.
 The port of the JAX package's ``train/trainer.py``: on one device, or on
-every rank of a data-parallel mesh (``dist.mesh``), where each rank
-draws the same global batch and its step keeps the rank's rows.
-``remesh`` is the elastic transition between ``run`` calls."""
+every rank of a mesh (``dist.mesh``: ``pod``, ``data`` and ``model``
+axes), where each rank holds its shards of the state, draws the same
+global batch and its step keeps the rank's rows.  ``remesh`` is the
+elastic transition between ``run`` calls."""
 from __future__ import annotations
 
 import time
@@ -22,11 +23,11 @@ from repro_torch.models import params as P
 
 class Trainer:
     """Runs on CUDA (the kernels) unless ``device`` says otherwise (the
-    plain versions on the CPU).  ``mesh``: the data-parallel mesh this
-    rank belongs to (every rank builds its own Trainer with the same
-    arguments); ``strategy``: how its gradients sync.  Every
-    architecture of the registry trains, the sequence mixers (jamba,
-    xlstm) included."""
+    plain versions on the CPU).  ``mesh``: the mesh this rank belongs
+    to (every rank builds its own Trainer with the same arguments);
+    ``strategy``: how the rule tables place the state on it and how its
+    gradients sync.  Every architecture of the registry trains, the
+    sequence mixers (jamba, xlstm) included."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  shape: WorkloadShape, *, mesh=None,
@@ -38,11 +39,21 @@ class Trainer:
         self.device = resolve_device(device)
         self._step = dsteps.build_train_step(cfg, tcfg, shape,
                                              strategy=strategy, mesh=mesh)
-        self.ckpt = (CheckpointManager(ckpt_dir, mesh=mesh, strategy=strategy)
-                     if ckpt_dir else None)
+        self.ckpt = self._manager(ckpt_dir) if ckpt_dir else None
         self.state = None
         self.start_step = 0
         self.history: List[Dict] = []
+
+    def _specs(self):
+        """The state's resolved specs on a mesh of ranks, else None."""
+        if self.mesh is None or self.mesh.size == 1:
+            return None
+        return dsteps.train_state_shardings(self.cfg, self.strategy,
+                                            self.mesh)
+
+    def _manager(self, directory, keep: int = 3):
+        return CheckpointManager(directory, keep=keep, mesh=self.mesh,
+                                 specs=self._specs())
 
     # ------------------------------------------------------------------
     def init_or_resume(self):
@@ -65,14 +76,17 @@ class Trainer:
                ) -> float:
         """Elastic transition between ``run()`` calls: rebuild the step
         on ``mesh`` (None: one device), checkpoint at ``start_step`` and
-        restore (params, opt state and the comm residual), then resume at
-        the same step and global batch.  Without a checkpoint manager the
-        state goes through host memory.  A process's ranks are fixed by
-        its process group, so the new mesh must hold as many ranks as the
-        old one: a remesh across rank counts raises (ROADMAP Queue 1 item
-        5).  On one process the new mesh is again one device, and the
-        round trip through the checkpoint (or the host) is real.  Returns
-        host seconds spent in the transition."""
+        restore (params, opt state and the comm residual) resharded for
+        the new mesh, then resume at the same step and global batch.
+        Without a checkpoint manager the state goes through host memory
+        (each leaf gathered whole, then cut to the new shard).  A
+        process's ranks are fixed by its process group, so the new mesh
+        must hold as many ranks as the old one, in any shape (say (data
+        2, model 2) to (data 4, model 1)): a remesh across rank counts
+        raises (ROADMAP Queue 1 item 5(e)).  On one process the new mesh
+        is again one device, and the round trip through the checkpoint
+        (or the host) is real.  Returns host seconds spent in the
+        transition."""
         t0 = time.perf_counter()
         old_n = self.mesh.size if self.mesh is not None else 1
         new_n = mesh.size if mesh is not None else 1
@@ -80,8 +94,8 @@ class Trainer:
             raise NotImplementedError(
                 f"remesh from {old_n} to {new_n} ranks: the ranks of a "
                 "process group are fixed (resizing one: ROADMAP Queue 1 "
-                "item 5)")
-        old_ckpt = self.ckpt
+                "item 5(e))")
+        old_ckpt, old_mesh, old_specs = self.ckpt, self.mesh, self._specs()
         if strategy is not None:
             self.strategy = strategy
         self.mesh = mesh
@@ -89,8 +103,7 @@ class Trainer:
             self.cfg, self.tcfg, self.shape, strategy=self.strategy,
             mesh=mesh)
         if old_ckpt is not None:
-            self.ckpt = CheckpointManager(old_ckpt.dir, keep=old_ckpt.keep,
-                                          mesh=mesh, strategy=self.strategy)
+            self.ckpt = self._manager(old_ckpt.dir, old_ckpt.keep)
         if self.state is not None:
             template = dsteps.abstract_train_state(self.cfg, self.tcfg,
                                                    self.strategy)
@@ -101,10 +114,31 @@ class Trainer:
                                                             self.device)
                 assert int(step) == self.start_step
             else:
-                host = P.tree_map(
-                    lambda t: t.detach().to("cpu", copy=True), self.state)
-                self.state = P.tree_map(lambda t: t.to(self.device), host)
+                self.state = self._reshard(old_mesh, old_specs)
         return time.perf_counter() - t0
+
+    def _reshard(self, old_mesh, old_specs):
+        """The state through host memory: each leaf whole (gathered over
+        ``old_specs`` on ``old_mesh``), then this rank's shard of it on
+        the current mesh."""
+        from repro_torch.dist import sharding as shd
+        new_specs = self._specs()
+
+        def move(t, old, new):
+            if old is not None:
+                t = shd.gather(t.detach(), old, old_mesh)
+            t = t.detach().to("cpu", copy=True)
+            if new is not None:
+                t = shd.shard(t, new, self.mesh)
+            return t.to(self.device)
+
+        leaves = P.tree_leaves(self.state)
+        olds = (P.tree_leaves(old_specs) if old_specs is not None
+                else [None] * len(leaves))
+        news = (P.tree_leaves(new_specs) if new_specs is not None
+                else [None] * len(leaves))
+        return P.tree_unflatten(self.state, [
+            move(t, o, n) for t, o, n in zip(leaves, olds, news)])
 
     # ------------------------------------------------------------------
     def run(self, n_steps: int, *, ckpt_every: int = 0,

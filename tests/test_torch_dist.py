@@ -229,6 +229,10 @@ def test_constrain_is_the_identity_off_mesh_and_on_one_device():
 
 
 def test_constrain_raises_where_the_spec_would_shard():
+    """Where the spec would shard, ``constrain`` is the identity too: a
+    rank holds what its own computation makes (tensor parallelism places
+    the weights, tests/test_torch_tp.py), and only the rank check
+    raises."""
     x = torch.zeros(8, 16, 64)
     mesh = Mesh((2, 4), ("data", "model"))
     with tact.activation_sharding(mesh, TSTRATEGIES["baseline"]):
@@ -236,8 +240,14 @@ def test_constrain_raises_where_the_spec_would_shard():
         # nothing divides: every dim replicates, the identity
         y = torch.zeros(3, 5, 7)
         assert tact.constrain(y, "act_batch", None, "act_ff") is y
-        with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
-            tact.constrain(x, "act_batch", None, "act_ff")
+        assert tact.activation_spec(mesh, TSTRATEGIES["baseline"], x.shape,
+                                    "act_batch", None, "act_ff") == (
+            "data", None, "model")
+        assert tact.constrain(x, "act_batch", None, "act_ff") is x
+        with pytest.raises(ValueError, match="rank-3"):
+            tact.constrain(x, "act_batch", None)
+        # a mesh of one process's shapes runs no collective
+        assert tact.on_ranks() is None and tact.tp() == (None, 1)
     assert tact.current() is None
 
 

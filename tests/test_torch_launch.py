@@ -164,11 +164,11 @@ def test_serve_launcher_arch_flags_and_sharded_meshes(capsys):
     assert [e.stats()["strategy"] for e in eng.engines] == ["optimized"] * 2
     assert eng.stats()["n_generated"] == 9
     assert all(len(r.tokens) == 3 for r in reqs)
-    with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
+    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
         serve.main(["--arch", "yi-6b", "--tp", "2"] + CPU)
     with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
         serve.main(["--arch", "yi-6b", "--dp", "2"] + CPU)
-    with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
+    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
         serve.main(["--spec", str(SPECS / "serve_fleet.json"), "--dp", "2",
                     "--tp", "2"] + CPU)
 
@@ -192,7 +192,7 @@ def test_engine_takes_the_reference_strategy_and_mesh():
     with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
         Engine(cfg, ecfg, mesh=Mesh((2, 1), ("data", "model")),
                device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 5\(d\)"):
+    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
         Engine(cfg, ecfg, mesh=Mesh((1, 2), ("data", "model")),
                device="cpu")
 

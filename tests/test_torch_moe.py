@@ -208,10 +208,15 @@ def test_moe_apply_matches_jax(name, dt, capacity_factor):
 
 
 def test_moe_apply_hierarchical_dispatch_is_not_ported():
+    """Hierarchical dispatch is no flag of ``moe_apply`` any more:
+    ``_hier_homes`` chooses it under the activation-sharding context, as
+    in the reference (tests/test_torch_tp.py holds it to flat), and
+    without a context dispatch is flat."""
     cfg = treg.smoke(GRANITE)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="hierarchical"):
         tmoe.moe_apply(cfg, P.from_numpy(_moe_params(cfg)),
                        torch.zeros(1, 4, cfg.d_model), hierarchical=True)
+    assert tmoe._hier_homes(cfg.moe.n_experts, 4) == 1
 
 
 # ---------------------------------------------------------------------------
