@@ -27,7 +27,10 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
 import threading
+import zipfile
+import zlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -53,6 +56,39 @@ def _to_numpy(leaf: torch.Tensor):
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
     return arr, str(arr.dtype)
+
+
+def _read_stored(path: str, f, info: zipfile.ZipInfo):
+    """The array of a stored ``.npy`` member, read from its offset in
+    the file in one call and held to the member's CRC-32, as
+    ``np.load`` holds it (which reads a member in 256 KiB pieces); None
+    for a compressed member or one ``np.load`` must read itself
+    (Fortran order, objects)."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    fmt = np.lib.format
+    f.seek(info.header_offset)
+    name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+    start = info.header_offset + 30 + name_len + extra_len
+    f.seek(start)
+    read_header = {(1, 0): fmt.read_array_header_1_0,
+                   (2, 0): fmt.read_array_header_2_0}.get(
+                       fmt.read_magic(f))
+    if read_header is None:
+        return None
+    shape, fortran, dtype = read_header(f)
+    if fortran or dtype.hasobject:
+        return None
+    offset = f.tell()
+    f.seek(start)
+    crc = zlib.crc32(f.read(offset - start))
+    count = int(np.prod(shape))
+    arr = np.fromfile(path, dtype=dtype, count=count, offset=offset)
+    if (arr.size != count or offset - start + arr.nbytes != info.file_size
+            or zlib.crc32(arr.reshape(-1).view(np.uint8), crc) != info.CRC):
+        raise zipfile.BadZipFile(f"{path}: {info.filename} does not match "
+                                 f"its size or CRC-32")
+    return arr.reshape(shape)
 
 
 def save_state(state, path: str, meta: Optional[Dict] = None):
@@ -81,26 +117,28 @@ def load_meta(path: str) -> Optional[Dict]:
         return json.load(f).get("__meta__")
 
 
-def restore_state(template, path: str, device=None, comm_rows=None,
-                  local=None):
+def restore_state(template, path: str, device=None, local=None):
     """Restore into the template's structure: every template leaf (a
     tensor, possibly on the ``meta`` device) must be in the checkpoint
     with its shape, except that the comm layer's residual (``comm/...``)
     may be missing from an older checkpoint and then starts at zero, as
     in the JAX package.  Leaves come back as tensors of the template's
-    dtype on ``device`` (default: the CPU); ``comm_rows``, a slice, keeps
-    only those rows of each ``comm/`` leaf, and ``local(key, tensor)``
+    dtype on ``device`` (default: the CPU); ``local(key, tensor)`` is
     what a rank keeps of each leaf (its shard)."""
     with open(path + ".manifest.json") as f:
         manifest = json.load(f)
 
-    def load(z, key, leaf):
+    npz = path + ".npz"
+
+    def load(z, f, key, leaf):
         entry = manifest.get(key)
         if entry is None and key.startswith("comm/"):
             return place(torch.zeros(leaf.shape, dtype=leaf.dtype), key)
         if entry is None:
             raise ValueError(f"{key}: missing from checkpoint {path}")
-        arr = z[entry["id"]]
+        arr = _read_stored(npz, f, z.zip.getinfo(entry["id"] + ".npy"))
+        if arr is None:
+            arr = z[entry["id"]]
         if tuple(arr.shape) != tuple(entry["shape"]) or \
                 tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: stored {arr.shape}, manifest "
@@ -113,15 +151,13 @@ def restore_state(template, path: str, device=None, comm_rows=None,
         return place(t.to(dtype=leaf.dtype), key)
 
     def place(t, key):
-        if comm_rows is not None and key.startswith("comm/"):
-            t = t[comm_rows]
         if local is not None:
             t = local(key, t)
         return t.to(device=device or "cpu")
 
     flat = _flatten(template)
-    with np.load(path + ".npz") as z:
-        leaves = [load(z, k, flat[k]) for k in sorted(flat)]
+    with np.load(npz) as z, open(npz, "rb") as f:
+        leaves = [load(z, f, k, flat[k]) for k in sorted(flat)]
     return P.tree_unflatten(template, leaves)
 
 

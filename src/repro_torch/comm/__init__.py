@@ -29,7 +29,7 @@ from repro_torch.comm.collectives import (  # noqa: F401
     grad_rules, resolve_policy, sync_grads, sync_grads_bucketed,
 )
 from repro_torch.comm.compress import (  # noqa: F401
-    EF_POD_AXIS, compress_payload, ef_defs, ef_rows,
+    EF_POD_AXIS, compress_payload, ef_defs,
 )
 from repro_torch.comm.overlap import (  # noqa: F401
     OverlapSchedule, schedule_overlap,

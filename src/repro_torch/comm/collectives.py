@@ -437,7 +437,7 @@ def sync_grads(stacked, defs, mesh, policy: CommPolicy,
     ``(n_local, *param_shape)`` per-chunk MEAN gradients, the rank's
     share of the global ``n_local * pod * data`` chunks.  ``residual``:
     this rank's rows of the error-feedback tree, ``(1, *param_shape)``
-    (its pod's row; ``compress.ef_rows``).
+    (its pod's row, as ``grad_rules`` place it).
 
     Returns ``(mean_grads, new_residual)``: the whole synced float32
     gradient on every rank, and the residual, which passes through

@@ -14,8 +14,8 @@ alone — one row per logical pod payload (``strategy.compress_pods``),
 each row shaped like the parameter tree — never of the live mesh, so a
 checkpoint holds the whole ``(pods, ...)`` array.  A rank of a mesh
 whose pod tier has ``compress_pods`` pods holds only its own pod's row
-(:func:`ef_rows`); mesh-dependent padding is transient inside the sync
-and never stored.
+(the row dim is split over ``pod``, ``collectives.grad_rules``);
+mesh-dependent padding is transient inside the sync and never stored.
 """
 from __future__ import annotations
 
@@ -37,18 +37,6 @@ def ef_defs(model_defs, strategy: ShardingStrategy):
             d, shape=(pods,) + d.shape, axes=(EF_POD_AXIS,) + d.axes,
             init="zeros", dtype="float32"),
         model_defs)
-
-
-def ef_rows(mesh, pods: int) -> slice:
-    """The rows of the ``(pods, ...)`` residual a rank of ``mesh`` holds:
-    its own pod's row where the mesh's pod tier has ``pods`` pods (the
-    JAX package shards the row dim over ``pod`` there), every row
-    otherwise (replicated)."""
-    pods = max(int(pods), 1)
-    if mesh is not None and mesh.shape.get("pod", 1) == pods > 1:
-        p = mesh.coords["pod"]
-        return slice(p, p + 1)
-    return slice(0, pods)
 
 
 def compress_payload(x, block: int, *, impl=None):

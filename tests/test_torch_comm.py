@@ -48,6 +48,7 @@ from repro_torch.ckpt import checkpoint as tckpt  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.dist import mesh as dmesh  # noqa: E402
+from repro_torch.dist import sharding as tshd  # noqa: E402
 from repro_torch.dist import steps as tsteps  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.quantize import ref as tqref  # noqa: E402
@@ -334,9 +335,21 @@ def test_residual_schema_matches_jax():
                                     strategy=R.COMPRESSED, mesh=pod)
     ef = P.tree_leaves(state["comm"])
     assert ef and all(t.shape[0] == 1 and not t.any() for t in ef)
-    assert comm.ef_rows(pod, 2) == slice(1, 2)
-    assert comm.ef_rows(pod, 4) == slice(0, 4)
-    assert comm.ef_rows(None, 2) == slice(0, 2)
+    # the rows a rank holds are those the residual's resolved spec
+    # gives it: its pod's on a mesh of two pods (pod coordinate 1 here),
+    # every row on one rank
+    pods4 = dataclasses.replace(R.COMPRESSED, compress_pods=4)
+    for strat, rows in ((R.COMPRESSED, slice(1, 2)), (pods4, slice(2, 4))):
+        leaf = P.tree_leaves(tsteps.abstract_train_state(
+            R.TINY, R.TCFG, strat)["comm"])[0]
+        full = torch.arange(float(leaf.shape[0])).view(
+            (-1,) + (1,) * (leaf.dim() - 1)).expand(leaf.shape)
+        spec = P.tree_leaves(tsteps.train_state_shardings(
+            R.TINY, strat, pod)["comm"])[0]
+        assert torch.equal(tshd.shard(full, spec, pod), full[rows])
+    one = tsteps.init_train_state(R.TINY, R.TCFG, device="cpu",
+                                  strategy=R.COMPRESSED)
+    assert all(t.shape[0] == 2 for t in P.tree_leaves(one["comm"]))
 
 
 # ---------------------------------------------------------------------------
@@ -638,8 +651,12 @@ def test_jax_checkpoint_with_residual_restores_into_the_port(tmp_path):
         np.testing.assert_array_equal(a.float().numpy(),
                                       np.asarray(b, np.float32), err_msg=p)
     # a rank of a (pod, data) mesh takes its pod's row
-    rows = tckpt.restore_state(template, tckpt.CheckpointManager(
-        str(tmp_path / "j"))._step_path(5), comm_rows=slice(1, 2))
+    pod = dmesh.Mesh((2, 2), ("pod", "data"), rank=3)
+    specs = {"/".join(k): s for k, s in _leaves(
+        tsteps.train_state_shardings(R.TINY, R.COMPRESSED, pod))}
+    rows = tckpt.restore_state(
+        template, tckpt.CheckpointManager(str(tmp_path / "j"))._step_path(5),
+        local=lambda key, t: tshd.shard(t, specs[key], pod))
     for (_, a), (_, b) in zip(_leaves(rows["comm"]),
                               _leaves(jax.device_get(state["comm"]))):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b)[1:2])

@@ -9,6 +9,7 @@ not coincide); optimizer updates 1e-5 (float32 elementwise arithmetic,
 clip norms summed in another order); data batches bit for bit.
 """
 import dataclasses
+import zipfile
 
 import numpy as np
 import pytest
@@ -389,6 +390,37 @@ def test_checkpoint_round_trip_keeps_every_leaf_and_dtype(tmp_path):
         jsteps.abstract_train_state(JCFG, jbase.TrainConfig(
             param_dtype="bfloat16")), str(tmp_path / "s"))
     _close_trees(back, jb, 0)
+
+
+@pytest.mark.parametrize("how", ["compressed", "corrupt"])
+def test_restore_reads_any_npz_and_refuses_a_corrupt_one(tmp_path, how):
+    """Stored members are read from their offsets in the file and held
+    to their CRC-32; a compressed member (an ``np.savez_compressed``
+    file) goes through ``np.load``."""
+    tcfg = tbase.TrainConfig(param_dtype="bfloat16")
+    state = tsteps.init_train_state(CFG, tcfg, device="cpu")
+    path = str(tmp_path / "s")
+    tckpt.save_state(state, path)
+    template = tsteps.abstract_train_state(CFG, tcfg)
+    with np.load(path + ".npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    if how == "compressed":
+        np.savez_compressed(path + ".npz", **arrays)
+        back = tckpt.restore_state(template, path)
+        for (p, a), (_, b) in zip(_leaves(state), _leaves(back)):
+            assert a.dtype == b.dtype and torch.equal(a, b), p
+        return
+    # one byte of the largest member's array flipped in place
+    big = max(arrays, key=lambda k: arrays[k].nbytes)
+    with zipfile.ZipFile(path + ".npz") as zf:
+        info = zf.getinfo(big + ".npy")
+    with open(path + ".npz", "r+b") as f:
+        f.seek(info.header_offset + info.file_size)   # inside the array
+        byte = f.read(1)[0]
+        f.seek(-1, 1)
+        f.write(bytes([byte ^ 0xFF]))
+    with pytest.raises(zipfile.BadZipFile, match="CRC"):
+        tckpt.restore_state(template, path)
 
 
 def test_manager_commits_keeps_and_ignores_torn_steps(tmp_path):

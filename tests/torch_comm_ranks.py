@@ -27,6 +27,7 @@ from repro_torch.configs.base import (BASELINE, ModelConfig,
                                       ShardingStrategy, TrainConfig,
                                       WorkloadShape)
 from repro_torch.dist import mesh as dmesh
+from repro_torch.dist import sharding as shd
 from repro_torch.models import params as P
 from repro_torch.models.model import Model
 from repro_torch.train import Trainer
@@ -62,7 +63,6 @@ def _sync(mesh, inputs):
     defs = {k: P.PDef(tuple(s), tuple(a))
             for k, (s, a) in inputs["defs"].items()}
     out = {}
-    rows = comm.ef_rows(mesh, COMPRESSED.compress_pods)
     for name, strat, ef in (
             ("hier", HIER, None),
             ("hier-int8", COMPRESSED, inputs["ef"]),
@@ -72,7 +72,12 @@ def _sync(mesh, inputs):
         mine = {k: torch.from_numpy(v[mesh.rank:mesh.rank + 1])
                 for k, v in inputs["stacked"].items()}
         if ef is not None:
-            ef = {k: torch.from_numpy(v[rows]) for k, v in ef.items()}
+            # this rank's rows of the residual, as its resolved spec
+            # places them (its pod's row)
+            ef = {k: shd.shard(torch.from_numpy(v), shd.resolve_spec(
+                v.shape, (comm.EF_POD_AXIS,) + defs[k].axes,
+                comm.grad_rules(strat), mesh), mesh)
+                for k, v in ef.items()}
         synced, new_ef = comm.sync_grads(mine, defs, mesh, policy, strat,
                                          residual=ef)
         out[name] = {"synced": _np_tree(synced),
