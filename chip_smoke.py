@@ -55,7 +55,9 @@ Phases, each printing its own lines:
              training cross-attention (2 x 4096 over 2048 frames, with
              flash_bwd); and the tp phase's local shapes (flash_fwd and
              flash_bwd at yi-6b's heads on model 2 and granite's, rmsnorm
-             at (4096, 4096), moe_gemm over granite's 8 local experts),
+             at (4096, 4096), moe_gemm over granite's 8 local experts; the
+             serve_tp part's paged decode at 4 slots of 16 over 2 heads
+             and paged prefill at a 256-row chunk of 16 over 2 heads),
              each a row of its own in the kernels line; flash_bwd on
              rows that see no key is held against a float32 run of its
              plain version within a bound derived from bf16's rounding;
@@ -162,7 +164,17 @@ Phases, each printing its own lines:
              bytes in one forward against the count the CPU tests pin,
              every kernel's launches at the local shapes, step times,
              payload bytes by axis and peak memory; yi's sharded
-             checkpoint restored on one rank and stepped once;
+             checkpoint restored on one rank and stepped once; then the
+             same four ranks serve (``serve_tp``) on (data 2, model 2),
+             the pools split by KV head and data shard (dp_shards 2):
+             yi-6b at full size (8 requests of 64-512 tokens) and
+             granite-moe-1b-a400m at full size with expert parallelism
+             (4 requests), 32 greedy tokens each, legacy then chunked
+             (256), eager ticks; every rank's streams equal, held to the
+             one-rank eager engine of the same seed (where a stream
+             parts, its token within STREAM_LOGIT_TOL of the one-rank
+             max), tick times, TTFT, tok/s, peak memory and payload bytes
+             a tick by axis printed, every kernel of the path launched;
 7. operator - the Flux-operator control plane over the port: a
              FluxMiniCluster on a simulated ResourceGraph reaches Ready,
              and WorkloadSpecs are applied with the full configs (every
@@ -379,7 +391,6 @@ def rel_l2(got, want):
 def kernel_phase(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rmsnorm import ref as rn_ref
@@ -437,35 +448,11 @@ def kernel_phase(torch, dev):
         shape="q (1,512,32,128), kv (1,512,4,128) bf16, causal")
 
     # paged decode: 8 slots of ragged lengths up to 1024, page 16
-    B, MAXP = 8, 1024 // PAGE
-    n_pages = B * MAXP + 1
-    kp, vp = rnd(n_pages, PAGE, HKV, D), rnd(n_pages, PAGE, HKV, D)
-    bt = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)[:B * MAXP]
-          ).to(torch.int32).reshape(B, MAXP)
-    lens = torch.tensor([1, 17, 100, 256, 511, 700, 1000, 1024],
-                        dtype=torch.int32, device=dev)
-    qd = rnd(B, 1, H, D)
-    got = ops.paged_decode_attention(qd, kp, vp, bt, lens)
-    e, ok = err_within(got, dec_ref.paged_decode_ref(qd, kp, vp, bt, lens), TOL)
-    check(ok, "paged_decode differs from the plain version")
-    check(torch.equal(got, ops.paged_decode_attention(qd, kp, vp, bt, lens)),
-          "paged_decode gave other bits on a second run of the same inputs")
-    kg = kp[bt.long()].reshape(B, MAXP * PAGE, HKV, D).transpose(1, 2)
-    vg = vp[bt.long()].reshape(B, MAXP * PAGE, HKV, D).transpose(1, 2)
-    mask = (torch.arange(MAXP * PAGE, device=dev)[None, :]
-            < lens[:, None].long())[:, None, None, :]
-    filled = int(lens.sum())
-    rows_out["paged_decode"] = dict(
-        max_abs_err=e,
-        ms=median_ms(cpm, lambda: ops.paged_decode_attention(qd, kp, vp, bt, lens)),
-        plain_ms=median_ms(cpm, lambda: dec_ref.paged_decode_ref(qd, kp, vp, bt,
-                                                            lens)),
-        library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
-            qd.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True)),
-        bound=bound(2 * filled * HKV * D * 2 + 2 * qd.numel() * 2
-                    + bt.numel() * 4, 4 * filled * H * D),
-        shape="q (8,1,32,128), pools (1025,16,4,128) bf16, lengths 1..1024")
-    paged_decode_rate(torch, rows_out["paged_decode"], "yi-6b", B * HKV, MAXP)
+    rows_out["paged_decode"], (kp, vp, bt) = paged_decode_row(
+        torch, dev, g, rnd, cpm, H, HKV, [1, 17, 100, 256, 511, 700, 1000, 1024],
+        "yi-6b")
+    rows_out["paged_decode"]["shape"] = (
+        "q (8,1,32,128), pools (1025,16,4,128) bf16, lengths 1..1024")
 
     # paged prefill: a 256-row chunk at start 0 and at start 256, timed
     # at start 256
@@ -1208,19 +1195,65 @@ def bwd_rate(shape, t_dq, t_dkv, matmul, library=None):
             + f"; both {t_dq + t_dkv:.4f} ms{lib}")
 
 
-def paged_decode_rate(torch, row, label, slots_heads, maxp, page=16):
+def paged_decode_rate(torch, row, label, slots_heads, maxp, page=16,
+                      slots=8):
     """Print paged decode's time beside SDPA on the gathered KV and its
     byte bound, with the split plan the wrapper launched."""
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     n, pps = dec_kernel.plan_splits(
         maxp, page, slots_heads,
         torch.cuda.get_device_properties(0).multi_processor_count)
-    print(f"[kernels] paged_decode {label} (8 slots, lengths 1..1024): "
+    print(f"[kernels] paged_decode {label} ({slots} slots, lengths up to "
+          f"1024): "
           f"kernel {row['ms']:.4f} ms in {n} splits of {pps * page} keys, "
           f"SDPA on the gathered KV {row['library_ms']:.4f} ms "
           f"({row['ms'] / row['library_ms']:.2f}x), bound "
           f"{row['bound'][0]:.5f} ms ({row['bound'][0] / row['ms']:.3f} of "
           f"it)")
+
+
+def paged_decode_row(torch, dev, g, rnd, cpm, h, hkv, lens, label, d=128,
+                     page=16):
+    """Paged decode of ``len(lens)`` slots of ``h`` query heads over
+    ``hkv`` KV heads of ``d``, pages of ``page``, each slot at its length
+    of ``lens`` (rows of 1024 tokens, pages from ``g`` in random order):
+    within TOL of its plain version, the same bits twice, timed beside
+    the plain version and SDPA on the gathered KV, with its bound.
+    Returns (the kernels row, (the pools and block table))."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+
+    b, maxp = len(lens), 1024 // page
+    n_pages = b * maxp + 1
+    kp, vp = rnd(n_pages, page, hkv, d), rnd(n_pages, page, hkv, d)
+    bt = (1 + torch.randperm(n_pages - 1, generator=g, device=dev)[:b * maxp]
+          ).to(torch.int32).reshape(b, maxp)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = rnd(b, 1, h, d)
+    got = ops.paged_decode_attention(qd, kp, vp, bt, lens)
+    e, ok = err_within(got, dec_ref.paged_decode_ref(qd, kp, vp, bt, lens), TOL)
+    check(ok, f"paged_decode {label} differs from the plain version")
+    check(torch.equal(got, ops.paged_decode_attention(qd, kp, vp, bt, lens)),
+          f"paged_decode {label} gave other bits on a second run of the same "
+          f"inputs")
+    kg = kp[bt.long()].reshape(b, maxp * page, hkv, d).transpose(1, 2)
+    vg = vp[bt.long()].reshape(b, maxp * page, hkv, d).transpose(1, 2)
+    mask = (torch.arange(maxp * page, device=dev)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    filled = int(lens.sum())
+    row = dict(
+        max_abs_err=e,
+        ms=median_ms(cpm, lambda: ops.paged_decode_attention(qd, kp, vp, bt,
+                                                             lens)),
+        plain_ms=median_ms(cpm, lambda: dec_ref.paged_decode_ref(
+            qd, kp, vp, bt, lens)),
+        library_ms=median_ms(cpm, lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True)),
+        bound=bound(2 * filled * hkv * d * 2 + 2 * qd.numel() * 2
+                    + bt.numel() * 4, 4 * filled * h * d))
+    paged_decode_rate(torch, row, label, b * hkv, maxp, page, slots=b)
+    return row, (kp, vp, bt)
 
 
 def paged_prefill_row(torch, dev, rnd, cpm, label, h, kp, vp, bt1, fills):
@@ -1599,6 +1632,30 @@ def tp_shapes(torch, dev, rows_out, cpm):
                      "1/sqrt(1024))")
     rows_out[f"moe_gemm{TP}"] = row
     del x, xe, we, got
+    serve_tp_shapes(torch, dev, rows_out, cpm, g, rnd)
+
+
+def serve_tp_shapes(torch, dev, rows_out, cpm, g, rnd):
+    """Paged decode and paged prefill at the local shapes a rank of the
+    tp phase's serving part gives them: yi-6b on (data 2, model 2), so a
+    data shard's 4 of the 8 slots and the rank's 16 of 32 query heads
+    over 2 of 4 KV heads of 128, pages of 16, lengths up to 1024; the
+    prefill a 256-row chunk at those heads.  Each held against its plain
+    version, timed beside it, SDPA on the gathered KV and its bound, a
+    row of its own in the kernels line whose launches are the serving
+    part's."""
+    row, (kp, vp, bt) = paged_decode_row(torch, dev, g, rnd, cpm, 16, 2,
+                                         [17, 300, 700, 1024], "serve_tp")
+    row.update(kernel="paged_decode", runs="serve_tp",
+               shape="q (4,1,16,128), pools (257,16,2,128) bf16, lengths "
+                     "17..1024")
+    rows_out[f"paged_decode{TP}"] = row
+    pre = paged_prefill_row(torch, dev, rnd, cpm, "serve_tp", 16, kp, vp,
+                            bt[:1], ((0, 200), (256, 180)))
+    pre.update(kernel="paged_prefill", runs="serve_tp",
+               shape="q (1,256,16,128) at start 256, n_valid 180, page 16, "
+                     "2 KV heads")
+    rows_out[f"paged_prefill{TP}"] = pre
 
 
 def moe_rate(torch, cpm, label, a, b, got):
@@ -2069,43 +2126,62 @@ def _rel_steps(got, a, b):
             (got[a] - got[b]).norm(dim=-1) / got[b].norm(dim=-1)]
 
 
-def teacher_force(torch, dev, cfg, params):
-    """One prompt, then 4 forced decode steps, through the kernels in bf16,
-    the plain versions in bf16 and the plain versions in float32."""
+FORCED_PLEN, FORCED_CHUNK = 200, 256
+
+
+def forced_logits(torch, dev, cfg, params, impl=None, dtype=None, pool=None):
+    """The teacher-forced logits rows (6, V) of one prompt of FORCED_PLEN
+    tokens (seed 7): its prefill's last row (flash_fwd), the same prompt
+    as one chunk into the pool's pages (paged_prefill), then 4 forced
+    decode steps (paged_decode); in ``dtype`` (bf16 by default) through
+    ``impl``'s kernels.  ``pool``: a one-slot page pool of 65 pages (a
+    rank's shard of one on a mesh of ranks, whose context the caller
+    enters; the rows are then this rank's vocabulary columns)."""
     import numpy as np
     from repro_torch.models.layers import PagedView
     from repro_torch.models.model import Model
     from repro_torch.serve import paging
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     rng = np.random.default_rng(7)
-    plen, chunk = 200, 256
+    plen, chunk = FORCED_PLEN, FORCED_CHUNK
     toks = rng.integers(0, cfg.vocab_size, plen + 4)
-    layout = paging.PagedLayout(page_size=16, pages_per_slot=64, n_pages=65)
+    if pool is None:
+        pool = paging.init_pool(cfg, 1, forced_layout(), dev)
     bt = torch.arange(1, 65, dtype=torch.int32, device=dev)[None]
     i32 = dict(dtype=torch.int32, device=dev)
-    got = {}
-    for name, impl, dtype in (("kernels", None, torch.bfloat16),
-                              ("plain", "ref", torch.bfloat16),
-                              ("plain_f32", "ref", torch.float32)):
-        model = Model(cfg, impl=impl)
-        pool = paging.init_pool(cfg, 1, layout, dev)
-        prompt = torch.tensor(toks[None, :plen], device=dev)
-        lg, _ = model.prefill(params, {"tokens": prompt},
-                              compute_dtype=dtype)           # flash_fwd
-        logits = [lg]
-        c = torch.zeros((1, chunk), dtype=torch.long, device=dev)
-        c[0, :plen] = prompt[0]
-        lc, _ = model.prefill_chunk(params, pool, c, PagedView(
-            bt, torch.tensor([0], **i32), n_valid=torch.tensor([plen], **i32),
-            null_page=0), compute_dtype=dtype)                # paged_prefill
-        logits.append(lc[:, plen - 1])
-        for i in range(4):                                    # paged_decode
-            pos = torch.tensor([plen + i], **i32)
-            ld, _ = model.decode_step(
-                params, pool, torch.tensor([[toks[plen + i]]], device=dev),
-                pos, compute_dtype=dtype, paging=PagedView(bt, pos))
-            logits.append(ld)
-        got[name] = torch.cat(logits).float()
+    model = Model(cfg, impl=impl)
+    prompt = torch.tensor(toks[None, :plen], device=dev)
+    lg, _ = model.prefill(params, {"tokens": prompt},
+                          compute_dtype=dtype)               # flash_fwd
+    logits = [lg]
+    c = torch.zeros((1, chunk), dtype=torch.long, device=dev)
+    c[0, :plen] = prompt[0]
+    lc, _ = model.prefill_chunk(params, pool, c, PagedView(
+        bt, torch.tensor([0], **i32), n_valid=torch.tensor([plen], **i32),
+        null_page=0), compute_dtype=dtype)                    # paged_prefill
+    logits.append(lc[:, plen - 1])
+    for i in range(4):                                        # paged_decode
+        pos = torch.tensor([plen + i], **i32)
+        ld, _ = model.decode_step(
+            params, pool, torch.tensor([[toks[plen + i]]], device=dev),
+            pos, compute_dtype=dtype, paging=PagedView(bt, pos))
+        logits.append(ld)
+    return torch.cat(logits).float()
+
+
+def forced_layout():
+    from repro_torch.serve import paging
+    return paging.PagedLayout(page_size=16, pages_per_slot=64, n_pages=65)
+
+
+def teacher_force(torch, dev, cfg, params):
+    """One prompt, then 4 forced decode steps, through the kernels in bf16,
+    the plain versions in bf16 and the plain versions in float32."""
+    got = {name: forced_logits(torch, dev, cfg, params, impl, dtype)
+           for name, impl, dtype in (("kernels", None, torch.bfloat16),
+                                     ("plain", "ref", torch.bfloat16),
+                                     ("plain_f32", "ref", torch.float32))}
 
     k_p, k_f, p_f = (_rel_steps(got, "kernels", "plain"),
                      _rel_steps(got, "kernels", "plain_f32"),
@@ -3421,6 +3497,268 @@ def _exchange_bytes(cfg, shape, mesh_shape):
     return cfg.n_layers * per_layer
 
 
+# the tp phase's serving part: (arch, requests), both at full size
+SERVE_TP_ARCHS = (("yi-6b", 8), ("granite-moe-1b-a400m", 4))
+SERVE_TP_CHUNK = 256
+SERVE_TP_NEW = 32
+
+
+def serve_tp_prompts(cfg, n):
+    """``n`` prompts of 64..512 random tokens (seed 0)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+            for k in rng.integers(64, 513, n)]
+
+
+def serve_tp_engine(cfg, dev, chunk, mesh=None):
+    """8 slots of page-16 pools in 2 shards, prompts up to 512 tokens,
+    1024 in all, weights from seed 0, eager ticks: on ``mesh`` (the
+    ranks' (data 2, model 2): each data shard's slots on its ranks) or
+    on one rank."""
+    from repro_torch.serve import Engine, EngineConfig
+    ecfg = EngineConfig(n_slots=8, page_size=16, max_prompt_len=512,
+                        max_seq_len=1024, prefill_chunk=chunk, dp_shards=2)
+    return Engine(cfg, ecfg, mesh=mesh, seed=0, device=dev,
+                  cuda_graphs=False)
+
+
+def serve_tp_drive(torch, eng, prompts, build):
+    """The prompts through ``eng``, SERVE_TP_NEW greedy tokens each, the
+    launch counts and the collectives' payload bytes read around the run,
+    and each tick's host time by kind (a tick ends when its tokens reach
+    the host)."""
+    from repro_torch.comm import collectives
+    torch.cuda.synchronize()
+    build.reset_launches()
+    collectives.reset_counters()
+    reqs = [eng.submit(p, max_new_tokens=SERVE_TP_NEW) for p in prompts]
+    ticks = {"decode": [], "mixed": [], "prefill": []}
+    t0 = time.perf_counter()
+    while True:
+        n_dec, n_mix = eng.n_decode_steps, eng.n_mixed_steps
+        t = time.perf_counter()
+        if not eng.step():
+            break
+        kind = ("decode" if eng.n_decode_steps > n_dec else "mixed"
+                if eng.n_mixed_steps > n_mix else "prefill")
+        ticks[kind].append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    for r in reqs:
+        check(r.finished and len(r.tokens) == SERVE_TP_NEW,
+              f"request {r.rid} did not finish with {SERVE_TP_NEW} tokens")
+        check(all(0 <= t < eng.cfg.vocab_size for t in r.tokens),
+              f"request {r.rid} has tokens outside the vocabulary")
+    return {"streams": [r.tokens for r in reqs],
+            "launches": dict(build.LAUNCHES),
+            "bytes": dict(collectives.PAYLOAD_BYTES), "ticks": ticks,
+            "ttft_ms": sorted(r.ttft * 1e3 for r in reqs),
+            "tok_s": sum(len(r.tokens) for r in reqs) / elapsed,
+            "seconds": elapsed}
+
+
+def serve_tp_rank(torch, dev, mesh, build):
+    """A rank's serving part: each SERVE_TP_ARCHS arch at full size on
+    ``mesh``, legacy then chunked, each engine built (its weights drawn,
+    this rank keeping its shards) and dropped in turn; per run what
+    ``serve_tp_drive`` measures, the build's seconds, the bytes of the
+    rank's params and pool and its peak allocation; and per arch the
+    teacher-forced logits (``forced_logits``) through the legacy engine's
+    shards, made whole (rank 0's, float32 on the host)."""
+    from repro_torch.configs import registry
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import steps as dsteps
+    from repro_torch.dist.actsharding import activation_sharding
+    from repro_torch.serve import paging
+    out = {}
+    for arch, n in SERVE_TP_ARCHS:
+        cfg = registry.get(arch)
+        prompts = serve_tp_prompts(cfg, n)
+        for chunk in (0, SERVE_TP_CHUNK):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            eng = serve_tp_engine(cfg, dev, chunk, mesh)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
+            run = serve_tp_drive(torch, eng, prompts, build)
+            run.update(
+                build_s=build_s, coords=mesh.coords,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                params_gb=sum(x.numel() * x.element_size() for x in
+                              _leaves_of(eng.params)) / 1e9,
+                pool_gb=sum(x.numel() * x.element_size() for x in
+                            _leaves_of(eng.pool)) / 1e9)
+            out[(arch, chunk)] = run
+            if not chunk:
+                pool = paging.init_pool(cfg, 1, forced_layout(), dev,
+                                        mesh=mesh, strategy=eng.strategy)
+                with activation_sharding(mesh, eng.strategy):
+                    rows = forced_logits(torch, dev, cfg, eng.params,
+                                         pool=pool)
+                vocab = dsteps.logits_sharding(cfg, 1, eng.strategy,
+                                               mesh)[1]
+                rows = shd.gather(rows, (None, vocab), mesh)
+                out[(arch, "forced")] = rows.cpu() if mesh.rank == 0 \
+                    else None
+                del pool
+            del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves_of(tree):
+    from repro_torch.models import params as P
+    return P.tree_leaves(tree)
+
+
+def serve_tp_reference(torch, dev, build):
+    """The one-rank eager engine of each serve_tp run (same config, seed
+    and prompts), on this card: its streams, and per request the float32
+    logits row each of its tokens came from (``_record_logits``); per
+    arch the teacher-forced logits of its weights through the kernels
+    in bf16 and the plain versions in bf16 and float32."""
+    from repro_torch.configs import registry
+    out = {}
+    for arch, n in SERVE_TP_ARCHS:
+        cfg = registry.get(arch)
+        prompts = serve_tp_prompts(cfg, n)
+        for chunk in (0, SERVE_TP_CHUNK):
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = serve_tp_engine(cfg, dev, chunk)
+            logits_of = _record_logits(eng)
+            run = serve_tp_drive(torch, eng, prompts, build)
+            # the requests in submission order: ids rise with it
+            run["logits"] = [logits_of[k] for k in sorted(logits_of)]
+            out[(arch, chunk)] = run
+            if not chunk:
+                out[(arch, "forced")] = {
+                    name: forced_logits(torch, dev, cfg, eng.params, impl,
+                                        dtype).cpu()
+                    for name, impl, dtype in (
+                        ("kernels", None, torch.bfloat16),
+                        ("plain", "ref", torch.bfloat16),
+                        ("plain_f32", "ref", torch.float32))}
+            del eng, logits_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parting(streams, ref_streams, ref_logits):
+    """(request, first step where ``streams`` part from ``ref_streams``,
+    the parting token's gap below the max of the reference's logits
+    row there) of each stream that parts."""
+    out = []
+    for i, (got, want) in enumerate(zip(streams, ref_streams)):
+        k = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if k is not None:
+            row = ref_logits[i][k]
+            out.append((i, k, round(float(row.max() - row[got[k]]), 5)))
+    return out
+
+
+def serve_tp_report(res, refs, smi):
+    """The serving part's checks and lines.  Per arch, the teacher-forced
+    logits through the ranks' shards must stay as close to float32
+    compute as one rank's plain bf16 path is, within LOGIT_NOISE_FACTOR
+    (``teacher_force``'s rule for the kernel path).  Per run: every
+    rank's streams equal rank 0's; rank 0's equal the one-rank eager
+    engine's token for token until they part, and where one parts, its
+    token lies below the one-rank max by no more than two bf16 paths
+    within that rule can disagree: (1 + LOGIT_NOISE_FACTOR) times the
+    one-rank bf16 path's largest teacher-forced logit error against
+    float32 (the line also counts the partings within STREAM_LOGIT_TOL,
+    and, for scale, how the one-rank engine's own chunked and legacy
+    streams part); every kernel of the path launched (each rank's paged
+    decode and rmsnorm, the prefill kernels on the ranks of the data
+    shards that held a prompt).  Returns the ranks' launch counts,
+    summed."""
+    total = {}
+    for arch, _ in SERVE_TP_ARCHS:
+        got = dict(refs[(arch, "forced")],
+                   sharded=res[0]["serve"][(arch, "forced")])
+        s_f, s_k, p_f = (_rel_steps(got, "sharded", "plain_f32"),
+                         _rel_steps(got, "sharded", "kernels"),
+                         _rel_steps(got, "plain", "plain_f32"))
+        err = float((got["kernels"] - got["plain_f32"]).abs().max())
+        limit = (1 + LOGIT_NOISE_FACTOR) * err
+        own = _parting(refs[(arch, SERVE_TP_CHUNK)]["streams"],
+                       refs[(arch, 0)]["streams"], refs[(arch, 0)]["logits"])
+        print(f"[serve_tp] {arch} teacher-forced logits (prefill, chunk, 4 "
+              f"decode steps), relative L2 error per step: ranks vs f32 "
+              f"{s_f}; ranks vs one rank's kernels {s_k}; one rank's plain "
+              f"bf16 vs f32 {p_f} (limit {LOGIT_NOISE_FACTOR} x its max); "
+              f"one rank's kernels' largest logit error against f32 "
+              f"{err:.5f}, so a parting token's gap limit {limit:.5f}; the "
+              f"one-rank engine's own chunked streams part from its legacy "
+              f"ones at (request, step, gap) {own}")
+        check(max(s_f) <= LOGIT_NOISE_FACTOR * max(p_f), f"serve_tp {arch}: "
+              f"the ranks' path drifts from f32 by {max(s_f)}, one rank's "
+              f"plain bf16 by {max(p_f)}")
+        for chunk in (0, SERVE_TP_CHUNK):
+            ref = refs[(arch, chunk)]
+            mode = f"chunked({chunk})" if chunk else "legacy"
+            runs = [r["serve"][(arch, chunk)] for r in res]
+            streams = runs[0]["streams"]
+            for r, run in zip(res, runs):
+                check(run["streams"] == streams, f"serve_tp {arch} {mode}: "
+                      f"rank {r['rank']} has other streams than rank 0")
+            gaps = _parting(streams, ref["streams"], ref["logits"])
+            for i, k, gap in gaps:
+                check(gap <= limit, f"serve_tp {arch} {mode}: request {i} "
+                      f"parts from the one-rank stream at step {k} by a token "
+                      f"{gap:.5f} below the one-rank max (limit {limit:.5f})")
+            report_run(arch, mode, chunk, runs, res, ref, gaps, smi)
+            for run in runs:
+                for k, v in run["launches"].items():
+                    total[k] = total.get(k, 0) + v
+    return total
+
+
+def report_run(arch, mode, chunk, runs, res, ref, gaps, smi):
+    """A serve_tp run's launch checks and its lines."""
+    prefill = "paged_prefill" if chunk else "flash_fwd"
+    moe = ("moe_gemm",) if arch.startswith("granite") else ()
+    for r, run in zip(res, runs):
+        for name in ("paged_decode", "rmsnorm") + moe:
+            check(run["launches"].get(name, 0) > 0, f"serve_tp {arch} "
+                  f"{mode}: rank {r['rank']} never launched {name}")
+    check(sum(run["launches"].get(prefill, 0) for run in runs) > 0,
+          f"serve_tp {arch} {mode}: no rank launched {prefill}")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    r0 = runs[0]
+    n_req, n_ticks = len(r0["streams"]), sum(map(len, r0["ticks"].values()))
+    within = sum(g <= STREAM_LOGIT_TOL for _, _, g in gaps)
+    kind = "mixed" if chunk else "prefill"
+    print(f"[serve_tp] {arch} {mode} on (data 2, model 2), dp_shards 2, "
+          f"{n_req} requests: every rank's streams equal; {len(gaps)} of "
+          f"{n_req} part from the one-rank eager engine's (request, step, "
+          f"gap below its max) {gaps}, {within} within STREAM_LOGIT_TOL "
+          f"({STREAM_LOGIT_TOL}); rank 0: decode tick median "
+          f"{med(r0['ticks']['decode']):.2f} ms over "
+          f"{len(r0['ticks']['decode'])}, {kind} tick median "
+          f"{med(r0['ticks'][kind]):.2f} ms over {len(r0['ticks'][kind])}, "
+          f"TTFT median {med(r0['ttft_ms']):.1f} ms, {r0['tok_s']:.1f} tok/s "
+          f"({r0['seconds']:.2f} s); one rank eager: decode tick median "
+          f"{med(ref['ticks']['decode']):.2f} ms, TTFT median "
+          f"{med(ref['ttft_ms']):.1f} ms, {ref['tok_s']:.1f} tok/s ({smi})")
+    for r, run in zip(res, runs):
+        per_tick = {a: b // n_ticks for a, b in sorted(run["bytes"].items())}
+        print(f"[serve_tp] {arch} {mode} rank {r['rank']} {run['coords']}: "
+              f"built in {run['build_s']:.1f} s, params "
+              f"{run['params_gb']:.2f} GB, pool {run['pool_gb']:.3f} GB, peak "
+              f"{run['peak_gb']:.2f} GB allocated; payload bytes a tick by "
+              f"axis {per_tick} over {n_ticks} ticks; launches "
+              f"{ {k: v for k, v in run['launches'].items() if v} }")
+
+
 def tp_rank(rank, init_file, ckpt_dir, queue):
     """One of the tp phase's four ranks: its own process, on card 0, in
     a gloo process group of four.  Runs each of ``_tp_setup``'s runs
@@ -3429,8 +3767,9 @@ def tp_rank(rank, init_file, ckpt_dir, queue):
     ``queue``: losses, step times, the bytes the allocator gave the
     state against its resolved shards, payload bytes by axis, peak
     memory and launch counts; for the pod run also the exchange's bytes
-    in one forward.  Any failure raises: the process exits non-zero and
-    the parent fails."""
+    in one forward.  Then, the training's memory freed, the serving part
+    on (data 2, model 2) (``serve_tp_rank``).  Any failure raises: the
+    process exits non-zero and the parent fails."""
     import math
     import os
     import warnings
@@ -3530,6 +3869,8 @@ def tp_rank(rank, init_file, ckpt_dir, queue):
         del tr
         gc.collect()
         torch.cuda.empty_cache()
+    # serving on (data 2, model 2), the training's memory freed
+    out["serve"] = serve_tp_rank(torch, dev, meshes[(2, 2)], build)
     dist.destroy_process_group()
     queue.put(out)
 
@@ -3545,7 +3886,11 @@ def tp_phase(torch, dev, build, smi):
     granite's exchange bytes equal to ``_exchange_bytes``, the kernels
     launched at their local shapes, and yi's sharded checkpoint restored
     on this one rank, whose next step's loss is held to the one-rank
-    run's.  Returns the ranks' summed launch counts."""
+    run's.  Then the serving part (``serve_tp_report``): yi-6b and
+    granite-moe-1b-a400m at full size served by the same four ranks on
+    (data 2, model 2), against the one-rank eager engine run here before
+    the ranks start.  Returns the ranks' summed launch counts of the
+    training and of the serving part."""
     import queue as queue_mod
     import shutil
 
@@ -3557,6 +3902,10 @@ def tp_phase(torch, dev, build, smi):
     setup = _tp_setup()
     gc.collect()
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    serve_refs = serve_tp_reference(torch, dev, build)
+    print(f"[tp] serving's one-rank eager references in "
+          f"{time.perf_counter() - t:.1f} s")
     name, gcfg, gshape = setup[2][:3]
     t = time.perf_counter()
     ref = Trainer(gcfg, TrainConfig(grad_accum=2), gshape, seed=0,
@@ -3709,7 +4058,7 @@ def tp_phase(torch, dev, build, smi):
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return total
+    return total, serve_tp_report(res, serve_refs, smi)
 
 
 # ---------------------------------------------------------------------------
@@ -4885,19 +5234,20 @@ def main() -> int:
     stamp("pixtral")
     runs.extend(comm_phase(torch, dev, build, smi))
     stamp("comm")
-    tp_runs = [tp_phase(torch, dev, build, smi)]
-    runs.extend(tp_runs)
+    tp_total, serve_tp_total = tp_phase(torch, dev, build, smi)
+    tp_runs, serve_tp_runs = [tp_total], [serve_tp_total]
+    runs.extend(tp_runs + serve_tp_runs)
     stamp("tp")
 
     kernels = []
     for name, r in rows.items():
         # a head dim 160 row counts the pixtral phase's launches, a tp
-        # shape's row the tp phase's
+        # shape's row the tp phase's training or serving
         base = r.get("kernel", name)
         which = r.get("runs", "pixtral" if base != name else "all")
-        launches = sum(run[base] for run in {"pixtral": pix_runs,
-                                             "tp": tp_runs,
-                                             "all": runs}[which])
+        launches = sum(run.get(base, 0) for run in {
+            "pixtral": pix_runs, "tp": tp_runs, "serve_tp": serve_tp_runs,
+            "all": runs}[which])
         check(launches > 0, f"no main-path run launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[base],

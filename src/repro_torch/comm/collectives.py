@@ -39,7 +39,9 @@ here too, each an ``autograd.Function`` over one axis's group:
 ``copy_to`` (identity forward, all-reduce backward), ``reduce_from``
 (all-reduce forward, identity backward), ``gather_dim`` (all-gather
 forward, reduce-scatter backward), ``exchange`` (the all-to-all of
-hierarchical MoE dispatch over ``pod``) and ``vocab_parallel_xent``.
+hierarchical MoE dispatch over ``pod``) and ``vocab_parallel_xent``;
+``broadcast_along`` hands a serving engine's logits from the data shard
+that ran a prompt to the others (no gradient).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ import dataclasses
 import warnings
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -276,6 +279,21 @@ def scatter_along(x, dim, mesh, axis):
     out = _staged(lambda i, o: dist.reduce_scatter_tensor(o, i, group=g),
                   front, (front.shape[0] // n,) + tuple(front.shape[1:]))
     return out.movedim(0, dim)
+
+
+def broadcast_along(x, mesh, axis, src: int):
+    """``x`` of the rank at coordinate ``src`` of ``axis`` (this rank's
+    other coordinates), on every rank of the axis's group: each passes a
+    tensor of the same shape and dtype, and gets the source's back."""
+    g = _live_group(mesh, axis)
+    if g is None:
+        return x
+    coords = dict(mesh.coords, **{axis: src})
+    root = int(np.ravel_multi_index(tuple(coords[a] for a in mesh.axis_names),
+                                    tuple(mesh.shape.values())))
+    if mesh.coords[axis] == src:
+        _count(x, axis)
+    return _staged(lambda i, o: dist.broadcast(i, root, group=g), x)
 
 
 def _slice_along(x, dim, mesh, axis):

@@ -210,8 +210,9 @@ class ShardingStrategy:
     """Named sharding strategy; see dist/sharding.py for the rule tables.
     The port's train step places every leaf by them on a mesh of ranks
     (tensor, expert and FSDP parallelism, hierarchical MoE dispatch) and
-    runs the comm fields (``comm/collectives.py``); the engine runs on
-    one device (a sharded engine: ROADMAP Queue 1 item 5(e))."""
+    runs the comm fields (``comm/collectives.py``); the engine places its
+    params and paged pools by them on a mesh of ranks too
+    (``dist/steps.py``'s serving placement)."""
 
     name: str = "baseline"
     # baseline : DP over data(+pod), TP over model, ZeRO-1 opt states.

@@ -477,3 +477,54 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                            lr=stats["lr"])
 
     return step_fn
+
+
+# --------------------------------------------------------------------------
+# Serving placement (the engine's params, pool, block table and logits)
+# --------------------------------------------------------------------------
+
+
+def serving_param_shardings(cfg: ModelConfig, strategy: ShardingStrategy,
+                            mesh: dmesh.Mesh) -> Dict:
+    """The resolved spec of every parameter leaf of a serving engine:
+    ``param_rules`` over the model's PDef tree (the reference's
+    ``_serving_param_shardings``)."""
+    return shd.tree_shardings(Model(cfg).param_defs(), mesh,
+                              shd.param_rules(strategy))
+
+
+def paged_cache_shardings(cfg: ModelConfig, layout, n_slots: int,
+                          strategy: ShardingStrategy, mesh: dmesh.Mesh):
+    """The resolved spec of every leaf of the paged pool of ``layout``
+    (a ``serve.paging.PagedLayout``): ``cache_rules`` over
+    ``paged_cache_defs``, whose page dim is named (and so split over the
+    data tier) only when the layout has several shards."""
+    from repro_torch.models import transformer
+    defs = transformer.paged_cache_defs(cfg, n_slots, layout.n_pages,
+                                        layout.page_size,
+                                        n_shards=layout.n_shards)
+    return shd.cache_shardings(defs, mesh, strategy)
+
+
+def paged_table_shardings(mesh: dmesh.Mesh, layout, n_slots: int):
+    """(block table spec, lengths spec): the slots split over the data
+    tier when the pool's shards are the data tier's (``layout.n_shards``
+    equal to its size, dividing ``n_slots``), so each data shard's rows
+    name only its own pages; else nothing split."""
+    d = dmesh.data_axes(mesh)
+    if (layout.n_shards > 1 and d
+            and dmesh.axis_size(mesh, d) == layout.n_shards
+            and n_slots % layout.n_shards == 0):
+        ax = d[0] if len(d) == 1 else d
+        return (ax, None), (ax,)
+    return shd.replicated(mesh), shd.replicated(mesh)
+
+
+def logits_sharding(cfg: ModelConfig, n_rows: int,
+                    strategy: ShardingStrategy, mesh: dmesh.Mesh):
+    """The spec of a serving step's ``(n_rows, vocab)`` logits: rows over
+    the data tier, the vocabulary over ``model`` (the reference's
+    ``_logits_sharding``)."""
+    from repro_torch.dist.actsharding import activation_spec
+    return activation_spec(mesh, strategy, (n_rows, cfg.vocab_size),
+                           "act_batch", "act_vocab")

@@ -15,7 +15,8 @@ rank's shard of each weight its spec splits (``dist/sharding.py``).
 Attention then runs the rank's heads (the counts read from the weights'
 shapes) and the MLP its slice of the FFN, each entered through
 ``copy_to`` (identity forward, all-reduce backward) and left through
-``reduce_from`` (all-reduce forward); the embedding is a masked local
+``row_parallel`` (float32 partials, an all-reduce forward, rounded
+once); the embedding is a masked local
 take summed over ``model``, and ``logits_apply`` returns the rank's
 vocabulary columns.  Where ``resolve_spec`` leaves a weight whole, no
 collective runs.
@@ -150,6 +151,19 @@ def _attention_tp(cfg, p):
     return whole, None
 
 
+def row_parallel(a, w, mesh):
+    """``a @ w`` in ``a``'s type, where ``mesh`` (None: one rank) splits
+    ``w``'s rows and ``a``'s columns over ``model``: the rank's partial
+    product in float32 (of the same bf16 operands), summed over
+    ``model`` in float32 and rounded once, as one rank's product of the
+    whole operands is (partials rounded to bf16 and summed in bf16 would
+    round twice)."""
+    w = w.to(a.dtype)
+    if mesh is None:
+        return a @ w
+    return coll.reduce_from(a.float() @ w.float(), mesh, "model").to(a.dtype)
+
+
 def _project_qkv(cfg, p, x):
     """q, k and v from ``x``; the head counts are the weights' (this
     rank's heads under tensor parallelism)."""
@@ -202,8 +216,7 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
         if positions is not None and cfg.pos_type == "rope":
             q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         out = ops.flash_attention(q, *cross_kv, causal=False, impl=impl)
-        return coll.reduce_from(out.reshape(b, s, -1) @ p["wo"].to(x.dtype),
-                                mesh, "model"), None
+        return row_parallel(out.reshape(b, s, -1), p["wo"], mesh), None
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
@@ -247,8 +260,7 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, causal=True,
                                               paging.lengths, paging.n_valid,
                                               impl=impl)
         new_kv = (ck, cv)
-    out = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
-    return coll.reduce_from(out, mesh, "model"), new_kv
+    return row_parallel(out.reshape(b, s, -1), p["wo"], mesh), new_kv
 
 
 def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None):
@@ -273,7 +285,7 @@ def mlp_apply(cfg: ModelConfig, p, x, d_ff: Optional[int] = None):
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return coll.reduce_from(h @ p["w_out"].to(x.dtype), mesh, "model")
+    return row_parallel(h, p["w_out"], mesh)
 
 
 def vocab_split(cfg: ModelConfig) -> bool:

@@ -266,8 +266,14 @@ def moe_apply(cfg: ModelConfig, p, x, *, impl=None
     gathered = _Gather.apply(yout.reshape(n_rows, d), row.reshape(-1),
                              owner[:, None]).reshape(g, m, k, d)
     gate = coll.copy_to(gate_vals, partial, "model")
-    out = (gathered * gate[..., None].to(dt)).sum(dim=2)
-    out = coll.reduce_from(out, partial, "model")
+    out = gathered * gate[..., None].to(dt)
+    if partial is not None:
+        # this rank's experts' terms summed in float32 over every rank,
+        # rounded once, as one rank's sum of all k terms is
+        out = coll.reduce_from(out.float().sum(dim=2), partial,
+                               "model").to(dt)
+    else:
+        out = out.sum(dim=2)
 
     if mc.dense_residual:
         out = out + mlp_apply(cfg, p["dense"], x, d_ff=mc.d_ff_dense)

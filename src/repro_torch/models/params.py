@@ -122,7 +122,9 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
             raise ValueError(f"unsupported init {d.init!r}")
         x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * scale).to(dt)
+        # scaled in place: a stacked leaf of a full config is gigabytes
+        # in float32, and ranks sharing a card draw theirs at once
+        return x.mul_(scale).to(dt)
 
     if local is not None:
         return tree_map(lambda d: local(d, make(d)), defs)

@@ -126,19 +126,25 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def paged_cache_defs(cfg: ModelConfig, n_slots: int, n_pages: int,
-                     page_size: int):
+                     page_size: int, n_shards: int = 1):
     """Paged decode-state schema: attention KV in one bf16 pool
     ``(n_pages, page_size, kv, hd)`` per position and layer, indexed by
     the engine's block table (page 0 is the null page, never allocated);
     sequence-mixer state slot-major, ``(n_slots, ...)``.  Decoder-only
-    architectures: an encoder-decoder raises, as in the JAX package."""
+    architectures: an encoder-decoder raises, as in the JAX package.
+
+    ``n_shards > 1`` names the page dim with the logical ``pages`` axis,
+    so ``cache_rules`` can split the pool over the data tier (the
+    allocator's shards: each slot's pages lie in its own shard, see
+    ``serve/paging``); otherwise the page dim names no axis."""
     if cfg.encoder_layers:
         raise ValueError(f"{cfg.name}: paged serving supports decoder-only "
                          f"architectures")
+    pages_ax = "pages" if n_shards > 1 else None
     out = {}
     for i, kind in enumerate(cfg.block_pattern):
         c = (_kv_defs(n_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
-                      (None, None, "kv_heads", None))
+                      (pages_ax, None, "kv_heads", None))
              if kind == "attn" else state_defs(cfg, kind, n_slots))
         out[f"p{i}"] = stack(c, cfg.n_repeats)
     return out
@@ -284,6 +290,12 @@ def stack_apply(cfg: ModelConfig, blocks, x, *, positions, caches=None,
             continue
         cslice = None if caches is None else tree_map(lambda ts: ts[r],
                                                       per_cache)
+        # FSDP's gather of the repeat's weights (a serving engine on a
+        # mesh of ranks; the identity elsewhere)
+        cross = bool(cfg.encoder_layers)
+        pslice = {key: actsharding.gather_leaves(
+            pslice[key], position_defs(cfg, int(key[1:]), cross),
+            skip=("moe",)) for key in sorted(pslice)}
         x, layer_caches, aux = _superblock(cfg, pslice, x, positions, mode,
                                           cslice, cache_index, enc_out,
                                           paging, impl)

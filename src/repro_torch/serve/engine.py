@@ -22,6 +22,17 @@ inputs are copied into static device buffers before each replay.
 Sampling runs eagerly after the step.  ``cuda_graphs=False`` runs every
 step eagerly (the comparison on the card); the CPU has no graphs.
 
+On a mesh of gloo ranks (``dist.mesh.make_mesh``) every rank runs the
+same host code (scheduler, allocator, sampling) and holds its shard of
+the params and of the pool, placed by the reference's serving rule
+tables (``dist.steps``): the ``model`` axis splits the heads (and the
+pool's KV heads), the FFN, the vocabulary and the experts, and a data
+tier that the pool's shards match (``dp_shards`` equal to its size)
+splits the slots: a data rank then runs its slots' rows against its own
+pages.  The logits are made whole on every rank before sampling, so
+every rank samples the same tokens.  A tick there runs eagerly: a CUDA
+graph cannot capture a gloo collective.
+
     eng = Engine(registry.smoke("yi-6b"), EngineConfig(n_slots=4),
                  device="cpu")
     req = eng.submit([1, 2, 3], max_new_tokens=8)
@@ -40,9 +51,13 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.comm import collectives as coll
 from repro_torch.configs.base import BASELINE, ModelConfig, ShardingStrategy
 from repro_torch.device import resolve_device
-from repro_torch.dist.mesh import Mesh
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import steps as dsteps
+from repro_torch.dist.actsharding import activation_sharding
+from repro_torch.dist.mesh import Mesh, axis_size
 from repro_torch.kernels import build
 from repro_torch.models import params as P
 from repro_torch.models.layers import PagedView
@@ -53,21 +68,26 @@ from repro_torch.serve import paging
 from repro_torch.serve.scheduler import Request, Scheduler, StreamError
 
 
-def refuse_sharded_mesh(shape) -> None:
-    """Raise ``NotImplementedError`` for a mesh ``shape`` (axis -> size)
-    of more than one device: the engine runs on one device.  A model
-    axis over several devices (the trainer's tensor parallelism in a
-    sharded engine) and a data axis (paged pools on a mesh) both wait for
-    ROADMAP Queue 1 item 5(e)."""
-    if shape.get("model", 1) > 1:
+def check_mesh(mesh, cfg: ModelConfig) -> bool:
+    """Whether ``mesh`` runs the engine over several ranks; raises for a
+    mesh the engine cannot serve on.  A mesh of several devices must span
+    a process group (``dist.mesh.make_mesh``, one rank a device): one
+    built from a shape alone (or over several devices of one process)
+    runs no collective.  A ``sub_quadratic`` arch on a ``model`` axis
+    needs its Mamba and xLSTM blocks' tensor parallelism."""
+    if mesh is None or mesh.size == 1:
+        return False
+    if not mesh.spans_ranks:
+        raise ValueError(
+            f"a {dict(mesh.shape)} mesh over no process group: an engine "
+            "on several devices serves on a mesh of ranks, built by "
+            "dist.mesh.make_mesh after init_process_group")
+    if cfg.sub_quadratic and mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
-            f"a {dict(shape)} mesh: the engine's model axis over several "
-            "devices (a tensor-parallel engine, its paged pool on the mesh)"
-            " waits for ROADMAP Queue 1 item 5(e)")
-    if int(np.prod(list(shape.values()), dtype=np.int64)) > 1:
-        raise NotImplementedError(
-            f"a {dict(shape)} mesh: the engine's paged pools over a data "
-            "axis of several devices wait for ROADMAP Queue 1 item 5(e)")
+            f"{cfg.name} on a {dict(mesh.shape)} mesh: the sequence "
+            "mixers' tensor parallelism (their mamba_in/xl_* cache rules) "
+            "waits for ROADMAP Queue 1 item 5(e)")
+    return True
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -169,17 +189,23 @@ class Engine:
 
     Runs on CUDA unless ``device`` or ``mesh`` says otherwise: a mesh of
     one device (``launch.mesh.make_local_mesh``) sets the engine's
-    device, and a mesh of more raises (``refuse_sharded_mesh``).
-    ``strategy`` is the JAX engine's: on one device it shards nothing,
-    and ``stats()`` names it.  ``params`` (a tree
-    from ``Model.init`` or ``params.from_numpy``) move to the device; by
-    default they are drawn from ``seed`` in ``compute_dtype``.  Timing
+    device.  A mesh of several ranks (``dist.mesh.make_mesh``; every rank
+    builds its engine with the same arguments, ``device`` its own) places
+    params and pool by ``strategy`` (see the module's docstring); any
+    other mesh of several devices raises ``ValueError``
+    (``check_mesh``).  ``strategy`` is the JAX engine's: on one device it
+    shards nothing, and ``stats()`` names it.  ``params`` (a whole tree
+    from ``Model.init`` or ``params.from_numpy``) move to the device, on
+    ranks each rank's shard of each leaf; by default they are drawn from
+    ``seed`` in ``compute_dtype``, on ranks leaf by leaf, each rank
+    keeping its shard of the tree one rank draws.  Timing
     stamps come from ``clock``, counters live in ``metrics`` (the JAX
     engine's metric names), and an optional ``tracer`` records each
     finished request's lifecycle spans.  ``cuda_graphs``: None captures
-    the steps as CUDA graphs on CUDA and runs them eagerly on the CPU;
-    False runs them eagerly; True on the CPU raises.  A capture or
-    replay that fails raises: nothing falls back to an eager run.
+    the steps as CUDA graphs on CUDA and runs them eagerly on the CPU
+    and on a mesh of ranks; False runs them eagerly; True on the CPU or
+    on ranks raises.  A capture or replay that fails raises: nothing
+    falls back to an eager run.
     """
 
     n_prefills = _counter("serve_prefills_total")
@@ -203,8 +229,8 @@ class Engine:
             "serving engine: decoder-only architectures"
         assert cfg.pos_type in ("rope", "none"), \
             "per-slot positions need rope (or no) position encoding"
-        if mesh is not None:
-            refuse_sharded_mesh(mesh.shape)
+        ranks = check_mesh(mesh, cfg)
+        if mesh is not None and not ranks:
             if mesh.devices is not None:
                 mdev = mesh.devices.flat[0]
                 if device is not None and not _same_device(
@@ -217,7 +243,12 @@ class Engine:
             mesh = Mesh((1, 1), ("data", "model"),
                         devices=np.array([[self.device]], dtype=object))
         self.mesh, self.strategy = mesh, strategy
-        on_cuda = self.device.type == "cuda"
+        self._ranks = ranks
+        on_cuda = self.device.type == "cuda" and not ranks
+        if cuda_graphs and ranks:
+            raise ValueError("cuda_graphs=True on a mesh of ranks: a CUDA "
+                             "graph cannot capture the gloo collectives of "
+                             "its ticks")
         if cuda_graphs and not on_cuda:
             raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
                              f"{self.device}")
@@ -239,16 +270,31 @@ class Engine:
             prefill_chunk=ecfg.prefill_chunk if self._chunked else 0,
             clock=self.clock)
         self.model = Model(cfg)
+        self._place(ecfg.n_slots)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = self.model.init(gen, dtype=compute_dtype,
-                                     device=self.device)
+            if ranks:
+                rules = shd.param_rules(strategy)
+                params = P.init_params(
+                    self.model.param_defs(), gen, compute_dtype, self.device,
+                    local=lambda d, t: shd.shard(t, shd.resolve_spec(
+                        d.shape, d.axes, rules, mesh), mesh))
+            else:
+                params = self.model.init(gen, dtype=compute_dtype,
+                                         device=self.device)
+        elif ranks:
+            specs = dsteps.serving_param_shardings(cfg, strategy, mesh)
+            params = P.tree_unflatten(params, [
+                shd.shard(t, sp, mesh) for t, sp in zip(
+                    P.tree_leaves(params), P.tree_leaves(specs))])
         self.params = P.tree_map(lambda t: t.to(self.device), params)
         self.pool = paging.init_pool(cfg, ecfg.n_slots, self.layout,
-                                     self.device)
+                                     self.device, mesh=mesh if ranks else
+                                     None, strategy=strategy)
         self._next_token = np.zeros((ecfg.n_slots,), np.int32)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.prefix_cache = None      # set by a fleet Router (fleet.py)
+        self._holds_prompt = self._runs_prompt = True
         self.n_prefills = 0
         self.n_prefill_tokens = 0
         self.n_decode_steps = 0
@@ -271,15 +317,59 @@ class Engine:
         self.n_captures = 0
         self.capture_ms = 0.0
 
+    def _place(self, n_slots: int) -> None:
+        """Where this rank's work lies on the mesh: ``slot_rows``, the
+        slots whose rows it runs (a data shard's where the data tier
+        splits the slots, else all), the first page id of its pool
+        shard, the specs of its pool leaves and of the logits it makes,
+        and whether a prompt's prefill or chunk runs on the data ranks
+        that do not own its slot too (``_shadow``: where a data axis
+        splits a parameter, whose per-layer gathers every data rank
+        must join)."""
+        self.slot_rows, self._page_base = (0, n_slots), 0
+        self._slot_entry, self._shadow = None, False
+        self._pool_specs = self._logit_spec = None
+        if not self._ranks:
+            return
+        mesh, st = self.mesh, self.strategy
+        bt_spec, _ = dsteps.paged_table_shardings(mesh, self.layout,
+                                                  n_slots)
+        vocab = dsteps.logits_sharding(self.cfg, n_slots, st, mesh)[1]
+        self._pool_specs = paging.pool_specs(self.cfg, n_slots, self.layout,
+                                             mesh, st)
+        if bt_spec:
+            entry = bt_spec[0]
+            shard = shd.shard_index(entry, mesh)
+            per = n_slots // axis_size(mesh, shd.entry_axes(entry))
+            self.slot_rows = (shard * per, (shard + 1) * per)
+            self._page_base = self.alloc.null_page_of(shard * per)
+            self._slot_entry = entry
+            live = {a for a in shd.entry_axes(entry) if mesh.shape[a] > 1}
+            self._shadow = any(
+                a in live for spec in P.tree_leaves(
+                    dsteps.serving_param_shardings(self.cfg, st, mesh))
+                for e in spec for a in shd.entry_axes(e))
+        self._logit_spec = (self._slot_entry, vocab)
+
+    def _holds(self, slot: int) -> bool:
+        return self.slot_rows[0] <= slot < self.slot_rows[1]
+
+    @property
+    def splits_slots(self) -> bool:
+        """Whether the data tier splits the slots (and the pool's pages)
+        over this engine's ranks."""
+        return self._slot_entry is not None
+
     def _static_inputs(self) -> None:
         """Every input of a step, in buffers allocated once (outside any
         graph's pool), and their host staging (pinned on CUDA; on the
         CPU the buffers themselves)."""
         ecfg, pps = self.ecfg, self.layout.pages_per_slot
         ns, i32, i64 = ecfg.n_slots, torch.int32, torch.int64
+        rows = self.slot_rows[1] - self.slot_rows[0]
         shapes = {
-            "tokens": ((ns, 1), i64), "block_table": ((ns, pps), i32),
-            "lengths": ((ns,), i32), "temps": ((ns,), torch.float32),
+            "tokens": ((rows, 1), i64), "block_table": ((rows, pps), i32),
+            "lengths": ((rows,), i32), "temps": ((ns,), torch.float32),
             "c_tokens": ((1, max(ecfg.prefill_chunk, 1)), i64),
             "c_pages": ((1, pps), i32), "c_start": ((1,), i32),
             "c_n": ((1,), i32), "c_null": ((1,), i32),
@@ -312,10 +402,23 @@ class Engine:
         next token, the sampling generator's state (under ``"key"``, the
         JAX engine's name for its sampling key) and the compute counters.
         An engine of the same shapes, with the same or other params,
-        :meth:`adopt_state`s it and goes on from the parked tokens."""
+        :meth:`adopt_state`s it and goes on from the parked tokens.
+
+        On a mesh of ranks the pools are gathered whole to rank 0's host
+        (``dist.sharding.gather_to_host``, a collective: every rank
+        calls it), so rank 0's snapshot is the one a one-rank engine
+        would take, and any engine of the same shapes, on one rank or on
+        a mesh, adopts it; the other ranks' snapshots hold None for
+        each pool leaf."""
         al, sch = self.alloc, self.scheduler
+        if self._ranks:
+            pool = P.tree_unflatten(self.pool, [
+                shd.gather_to_host(t, sp, self.mesh) for t, sp in zip(
+                    P.tree_leaves(self.pool), P.tree_leaves(self._pool_specs))])
+        else:
+            pool = P.tree_map(lambda t: t.to("cpu", copy=True), self.pool)
         return {
-            "pool": P.tree_map(lambda t: t.to("cpu", copy=True), self.pool),
+            "pool": pool,
             "block_table": al.block_table.copy(),
             "lengths": al.lengths.copy(),
             "reserved": al._reserved.copy(),
@@ -336,9 +439,14 @@ class Engine:
         onto this engine's device and the host bookkeeping copies over.
         Parking freezes the tick stream instead of replaying it (the
         generator's state rides the snapshot), so the tokens that follow
-        are those of an uninterrupted run at any temperature."""
+        are those of an uninterrupted run at any temperature.  On a mesh
+        of ranks each rank takes its shard of each whole pool leaf (every
+        rank adopts the same snapshot: rank 0's, where it was taken on
+        ranks)."""
         for key, kv in snap["pool"].items():
             for n, t in kv.items():
+                if self._ranks:
+                    t = shd.shard(t, self._pool_specs[key][n], self.mesh)
                 self.pool[key][n].copy_(t)
         al, sch = self.alloc, self.scheduler
         al.block_table[:] = snap["block_table"]
@@ -467,6 +575,9 @@ class Engine:
         """``step``'s logits: eagerly without graphs and on its first
         call, else from its graph (captured on this call if it has none
         yet), whose launches are counted as an eager run's."""
+        if self._ranks:
+            with activation_sharding(self.mesh, self.strategy):
+                return step.fn(self)
         if not (self.cuda_graphs and step.warm):
             step.warm = True
             return step.fn(self)
@@ -522,6 +633,8 @@ class Engine:
     def _mixed_fn(self):
         s = self._in
         logits = self._decode_fn()
+        if not self._runs_prompt:
+            return logits, None
         c_logits, _ = self.model.prefill_chunk(
             self.params, self.pool, s["c_tokens"],
             PagedView(s["c_pages"], s["c_start"], n_valid=s["c_n"],
@@ -538,6 +651,8 @@ class Engine:
         logits, pcache = self.model.prefill(
             self.params, {"tokens": s["p_tokens"][:, :step_len]},
             compute_dtype=self.compute_dtype, last_index=s["p_last"])
+        if not self._holds_prompt:
+            return logits             # a shadow run (``_place``)
         if cap != step_len:
             pcache = paging.pad_prefill_cache(cfg, pcache, cap)
         paging.scatter_prefill(cfg, self.pool, pcache,
@@ -575,11 +690,16 @@ class Engine:
         tokens = np.full((1, step_len), ecfg.pad_id, np.int64)
         tokens[0, :plen] = req.prompt
         n_pages = paging.round_up(step_len, ecfg.page_size) // ecfg.page_size
-        self._put("p_tokens", tokens)
-        self._put("p_last", np.array([plen - 1]))
-        self._put("p_rows", self.alloc.block_table[slot:slot + 1, :n_pages])
-        self._put("p_slot", np.array([slot]))
-        logits = self._run(step)
+        self._prompt_on(slot)
+        logits = None
+        if self._runs_prompt:
+            self._put("p_tokens", tokens)
+            self._put("p_last", np.array([plen - 1]))
+            self._put("p_rows", self._local_pages(
+                self.alloc.block_table[slot:slot + 1, :n_pages], slot))
+            self._put("p_slot", np.array([slot - self.slot_rows[0]]))
+            logits = self._run(step)
+        logits = self._handoff(logits, slot)
         tok = self._sample(logits, np.array([req.temperature], np.float32))
         self.n_prefills += 1
         self.n_prefill_tokens += plen
@@ -588,9 +708,60 @@ class Engine:
         self._tick_obs("prefill", 1)
 
     def _decode_inputs(self, block_table, lengths) -> None:
-        self._put("tokens", self._next_token[:, None])
-        self._put("block_table", block_table)
-        self._put("lengths", lengths)
+        """The decode's inputs: this rank's slot rows, their pages as ids
+        into its pool shard."""
+        lo, hi = self.slot_rows
+        self._put("tokens", self._next_token[lo:hi, None])
+        self._put("block_table", block_table[lo:hi] - self._page_base)
+        self._put("lengths", lengths[lo:hi])
+
+    # -- a mesh of ranks: which ranks run a prompt, whole logits ------------
+    def _prompt_on(self, slot: int) -> None:
+        """Whether this rank holds ``slot`` (``_holds_prompt``) and runs its
+        prompt's prefill or chunk (``_runs_prompt``: where it holds it,
+        or as a shadow run, ``_place``, whose KV sinks into its null page
+        and whose state it does not keep)."""
+        self._holds_prompt = self._holds(slot)
+        self._runs_prompt = self._holds_prompt or self._shadow
+
+    def _local_pages(self, rows, slot: int):
+        """Page ids ``rows`` of ``slot`` as ids into this rank's pool
+        shard; a shadow run's all name its null page."""
+        if not self._holds_prompt:
+            return np.zeros_like(rows)
+        return rows - self._page_base
+
+    def _whole(self, logits):
+        """This rank's logits of its slot rows made whole: gathered over
+        the data tier where it splits the slots, over ``model`` where it
+        splits the vocabulary."""
+        if not self._ranks:
+            return logits
+        return shd.gather(logits, self._logit_spec, self.mesh)
+
+    def _handoff(self, row, slot: int):
+        """A prompt's logits row ``(1, V)`` (this rank's vocabulary
+        columns; None where this rank did not run it) whole on every
+        rank: gathered over ``model`` where it ran, then handed from the
+        data shard that holds ``slot`` to the others, an axis at a time
+        from the innermost (a rank of the other shards passes a buffer
+        of the same shape)."""
+        if not self._ranks:
+            return row
+        if row is not None:
+            row = shd.gather(row, (None, self._logit_spec[1]), self.mesh)
+        if self._slot_entry is None:
+            return row
+        if row is None:
+            row = torch.empty((1, self.cfg.vocab_size),
+                              dtype=self.compute_dtype, device=self.device)
+        axes = shd.entry_axes(self._slot_entry)
+        shard = self.alloc.shard_of(slot)
+        coords = np.unravel_index(shard, [self.mesh.shape[a] for a in axes])
+        for a, c in reversed(list(zip(axes, coords))):
+            row = coll.broadcast_along(row.to(self.compute_dtype), self.mesh,
+                                       a, int(c))
+        return row
 
     def _run_mixed(self, req: Request, start: int, n: int) -> None:
         """One fused tick: decode every fully prefilled slot + consume
@@ -614,15 +785,21 @@ class Engine:
         for s, r_ in active.items():
             temps[s] = r_.temperature
         self._decode_inputs(bt, lens)
-        self._put("c_tokens", c_tokens)
-        self._put("c_pages", c_pages)
-        self._put("c_start", np.array([start]))
-        self._put("c_n", np.array([n]))
-        self._put("c_null", np.array([self.alloc.null_page_of(slot)]))
+        self._prompt_on(slot)
+        if self._runs_prompt:
+            self._put("c_tokens", c_tokens)
+            self._put("c_pages", self._local_pages(c_pages, slot))
+            self._put("c_start", np.array([start]))
+            self._put("c_n", np.array([n]))
+            self._put("c_null", self._local_pages(
+                np.array([self.alloc.null_page_of(slot)]), slot))
         logits, c_logits = self._run(self._mixed)
+        logits = self._whole(logits)
         if final:
             # a final chunk samples from its last real prompt row
-            logits[slot] = c_logits[0, max(n - 1, 0)]
+            row = (None if c_logits is None
+                   else c_logits[0, max(n - 1, 0)][None])
+            logits[slot] = self._handoff(row, slot)[0]
             temps[slot] = req.temperature
         tok = self._sample(logits, temps)
         self.n_mixed_steps += 1
@@ -646,7 +823,7 @@ class Engine:
         for slot, req in active.items():
             temps[slot] = req.temperature
         self._decode_inputs(self.alloc.block_table, self.alloc.lengths)
-        tok = self._sample(self._run(self._decode), temps)
+        tok = self._sample(self._whole(self._run(self._decode)), temps)
         self.n_decode_steps += 1
         for slot, req in active.items():
             self.alloc.advance(slot)

@@ -143,10 +143,12 @@ def _cacheable(engines: List[Engine]) -> bool:
     """The prefix cache needs chunked, attention-only, shape-identical
     replicas: adoption resumes a chunked prefill mid-prompt, and only
     attention KV is positionwise (seq-mixer state is a recurrence over
-    the whole prefix, not a per-page value)."""
+    the whole prefix, not a per-page value).  Nor may a data tier split
+    an engine's slots over ranks: a page would then lie on one data
+    shard, and a slot of another could not adopt it."""
     e0 = engines[0]
     return all(
-        e._chunked
+        e._chunked and not e.splits_slots
         and all(kind == "attn" for kind in e.cfg.block_pattern)
         and e.ecfg.page_size == e0.ecfg.page_size
         and e.cfg.name == e0.cfg.name

@@ -50,16 +50,56 @@ def round_up(n_tokens: int, page_size: int) -> int:
     return -(-n_tokens // page_size) * page_size
 
 
-def init_pool(cfg: ModelConfig, n_slots: int, layout: PagedLayout, device):
+def pool_specs(cfg: ModelConfig, n_slots: int, layout: PagedLayout,
+               mesh, strategy):
+    """What a rank of ``mesh`` holds of each pool leaf: the reference's
+    resolved spec (``dist.steps.paged_cache_shardings``) where the data
+    tier splits the slots (``paged_table_shardings``), so a data rank
+    keeps its shard's pages and state rows; else that spec without its
+    data axes: every data rank then runs every slot and keeps the whole
+    page range (the ``model`` split of the KV heads stays)."""
+    from repro_torch.dist import steps as dsteps
+    from repro_torch.dist.mesh import data_axes
+    from repro_torch.dist.sharding import entry_axes
+    specs = dsteps.paged_cache_shardings(cfg, layout, n_slots, strategy,
+                                         mesh)
+    if dsteps.paged_table_shardings(mesh, layout, n_slots)[1]:
+        return specs
+    data = set(data_axes(mesh))
+
+    def drop(spec):
+        out = []
+        for e in spec:
+            axes = tuple(a for a in entry_axes(e) if a not in data)
+            out.append(None if not axes else
+                       axes[0] if len(axes) == 1 else axes)
+        return tuple(out)
+
+    return P.tree_map(drop, specs)
+
+
+def init_pool(cfg: ModelConfig, n_slots: int, layout: PagedLayout, device,
+              *, mesh=None, strategy=None):
     """The zeroed pool: bf16 page pools ``{"p{i}": {"k", "v"}}`` of
     ``(reps, n_pages, page_size, kv, hd)`` for attention positions, and
     ``(reps, n_slots, ...)`` state for sequence mixers (the dtypes of
-    ``transformer.state_defs``)."""
+    ``transformer.state_defs``).  On a ``mesh`` of several ranks each
+    rank allocates only its shard of each leaf (``pool_specs``: its KV
+    heads, and its data shard's pages, null page included, where the
+    data tier splits the slots)."""
     defs = transformer.paged_cache_defs(cfg, n_slots, layout.n_pages,
-                                        layout.page_size)
-    return P.tree_map(
-        lambda d: torch.zeros(d.shape, dtype=P.DTYPES[d.dtype],
-                              device=device), defs)
+                                        layout.page_size,
+                                        n_shards=layout.n_shards)
+    if mesh is None or mesh.size == 1:
+        shape = lambda d, s: d.shape                      # noqa: E731
+        specs = P.tree_map(lambda d: (), defs)
+    else:
+        from repro_torch.dist.sharding import local_shape
+        shape = lambda d, s: local_shape(d.shape, s, mesh)  # noqa: E731
+        specs = pool_specs(cfg, n_slots, layout, mesh, strategy)
+    return P.tree_unflatten(defs, [
+        torch.zeros(shape(d, s), dtype=P.DTYPES[d.dtype], device=device)
+        for d, s in zip(P.tree_leaves(defs), P.tree_leaves(specs))])
 
 
 def pad_prefill_cache(cfg: ModelConfig, pcache, cap: int):

@@ -1338,3 +1338,65 @@ def test_a_step_that_reads_the_device_during_capture_raises(dev):
         eng.step()
     assert dict(build.LAUNCHES) == before
     assert eng._decode.graph is None and eng.n_decode_steps == 1
+
+
+@pytest.mark.cuda
+def test_engine_on_four_ranks_of_the_card_holds_to_one_rank(dev, tmp_path):
+    """yi-6b SMOKE on a (data 2, model 2) mesh of four gloo ranks of the
+    card (``dp_shards`` 2, eager ticks), legacy and chunked: every rank
+    launches the serving kernels at its local shapes and gives the same
+    greedy streams, each held to the one-rank engine of the same seed by
+    the bf16 stream rule: every token lies within 3e-2 of the one-rank
+    model's max logit with the stream before it as the prompt (sums over
+    halved heads round otherwise, so a stream may part from the one-rank
+    engine's, shown on failure, where two logits lie that close)."""
+    import multiprocessing
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_serve_ranks as R
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=R.cuda_rank,
+                         args=(r, str(tmp_path / "pg"), q))
+             for r in range(R.WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        res = sorted((q.get(timeout=300) for _ in procs),
+                     key=lambda r: r["rank"])
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    errors = [r["error"] for r in res if "error" in r]
+    assert not errors, "\n".join(errors)
+    assert [p.exitcode for p in procs] == [0] * R.WORLD
+    cfg = registry.smoke(R.YI)
+    eng = R.Engine(cfg, R.EngineConfig(**R.CUDA_ECFG), seed=0, device=dev,
+                   cuda_graphs=False)
+    model = Model(cfg)
+    for chunk in R.CUDA_CHUNKS:
+        streams, _ = res[0][chunk]
+        one, _ = R.cuda_streams(None, chunk, dev)
+        kernels = ("paged_prefill" if chunk else "flash_fwd",
+                   "paged_decode", "rmsnorm")
+        for r in res:
+            assert r[chunk][0] == streams, (r["rank"], chunk)
+            assert all(r[chunk][1][k] > 0 for k in kernels), r[chunk][1]
+        for prompt, got, want in zip(R.CUDA_PROMPTS, streams, one):
+            n = len(got)
+            assert n == R.CUDA_NEW
+            toks = torch.tensor([prompt + got[:-1]] * n, device=dev)
+            last = torch.arange(n, device=dev) + len(prompt) - 1
+            logits, _ = model.prefill(eng.params, {"tokens": toks},
+                                      last_index=last)
+            logits = logits.float()
+            chosen = logits[torch.arange(n, device=dev),
+                            torch.tensor(got, device=dev)]
+            assert bool((chosen >= logits.amax(-1) - 3e-2).all()), \
+                (chunk, got, want)

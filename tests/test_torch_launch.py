@@ -11,7 +11,9 @@ against the reference launcher's on the same spec, less the port's own
 against a directly built ``Router`` or ``Engine`` of the port from the
 same seed, token for token (the weights differ between the packages, a
 torch generator against ``jax.random``, so streams are held inside the
-port); the train launcher's losses on a spec against a direct
+port), except on a (data 2, model 2) mesh of ranks, where the
+reference's engines are given the port's weights and the streams are
+held to the reference's; the train launcher's losses on a spec against a direct
 ``Trainer``'s (1e-6); and each example twin's lifecycle lines against
 the reference example's.
 
@@ -152,7 +154,10 @@ def test_serve_launcher_spec_equals_the_reference(spec, monkeypatch,
 def test_serve_launcher_arch_flags_and_sharded_meshes(capsys):
     """``--arch`` with ``--replicas 2`` and ``--strategy``: a Router over
     two engines, each on the one CPU device, naming the strategy; a
-    ``--tp`` or ``--dp`` mesh raises, naming its ROADMAP item."""
+    ``--dp 2`` mesh spawns two gloo ranks, each running every slot on a
+    whole copy of the weights, whose streams are the one-rank
+    launcher's, token for token (the ``--tp`` meshes:
+    ``test_serve_launcher_on_a_rank_mesh_equals_the_reference``)."""
     from repro_torch.launch import serve
     eng, reqs = serve.main(["--arch", "yi-6b", "--replicas", "2",
                             "--strategy", "optimized", "--prompt-len", "8",
@@ -164,13 +169,68 @@ def test_serve_launcher_arch_flags_and_sharded_meshes(capsys):
     assert [e.stats()["strategy"] for e in eng.engines] == ["optimized"] * 2
     assert eng.stats()["n_generated"] == 9
     assert all(len(r.tokens) == 3 for r in reqs)
-    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
-        serve.main(["--arch", "yi-6b", "--tp", "2"] + CPU)
-    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
-        serve.main(["--arch", "yi-6b", "--dp", "2"] + CPU)
-    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
-        serve.main(["--spec", str(SPECS / "serve_fleet.json"), "--dp", "2",
-                    "--tp", "2"] + CPU)
+    flags = ["--arch", "yi-6b", "--prompt-len", "8", "--gen", "3",
+             "--batch", "2"] + CPU
+    _, one = serve.main(flags)
+    stats, reqs = serve.main(flags + ["--dp", "2"])
+    assert stats["mesh_shape"] == {"data": 2, "model": 1}
+    assert "ranks 2 (gloo)" in capsys.readouterr().out
+    assert [r.tokens for r in reqs] == [r.tokens for r in one]
+
+
+def _reference_requests(monkeypatch, params):
+    """Make the reference's engines draw ``params`` (the port's default
+    draw, carried across) and keep every request its launcher submits;
+    returns that list."""
+    import jax.numpy as jnp
+    from repro.models.model import Model as JModel
+    from repro.serve.engine import Engine as JEngine
+    from repro.serve.fleet import Router as JRouter
+    whole = jax.tree_util.tree_map(
+        lambda t: jnp.asarray(t.float().numpy()), params)
+    monkeypatch.setattr(JModel, "init", lambda self, key: whole)
+    kept = []
+    for cls in (JEngine, JRouter):
+        submit = cls.submit
+
+        def keep(self, *a, _submit=submit, **k):
+            req = _submit(self, *a, **k)
+            kept.append(req)
+            return req
+        monkeypatch.setattr(cls, "submit", keep)
+    return kept
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "yi-6b", "--prompt-len", "16", "--gen", "8", "--batch", "4"],
+    ["--spec", str(SPECS / "serve_fleet.json")]], ids=["arch", "spec"])
+def test_serve_launcher_on_a_rank_mesh_equals_the_reference(
+        argv, monkeypatch, capsys):
+    """``--dp 2 --tp 2``: the port's launcher spawns four gloo ranks of a
+    (data 2, model 2) mesh; the reference's runs on four forced CPU
+    devices, its engines drawing the port's weights (each package draws
+    its own otherwise).  The printed mesh line, the stats (less the
+    port's own keys), the prompts and every request's tokens (bf16 on
+    both sides) are the reference's."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    _need_8()
+    flags = argv + ["--smoke", "--dp", "2", "--tp", "2"]
+    arch = load_spec(argv[1]).arch if argv[0] == "--spec" else argv[1]
+    params = Model(treg.smoke(arch)).init(
+        torch.Generator().manual_seed(0), dtype=torch.bfloat16, device="cpu")
+    kept = _reference_requests(monkeypatch, params)
+    want = _run_reference(monkeypatch, capsys, flags,
+                          module="repro.launch.serve")
+    stats, reqs = serve.main(flags + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    (ghead, gstats), (whead, wstats) = _printed(got), _printed(want)
+    assert ghead == whead and "ranks 4 (gloo)" in got
+    assert _without_port_keys(gstats) == wstats
+    assert _without_port_keys(stats) == wstats
+    assert [r.prompt for r in reqs] == [r.prompt for r in kept]
+    assert [r.tokens for r in reqs] == [r.tokens for r in kept]
+    assert all(r.finished for r in reqs)
 
 
 def test_engine_takes_the_reference_strategy_and_mesh():
@@ -189,10 +249,11 @@ def test_engine_takes_the_reference_strategy_and_mesh():
         "baseline", {"data": 1, "model": 1})
     with pytest.raises(ValueError, match="mesh's device"):
         Engine(cfg, ecfg, mesh=mesh, device="meta")
-    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
+    # a mesh of several ranks built from a shape alone runs no collective
+    with pytest.raises(ValueError, match="make_mesh"):
         Engine(cfg, ecfg, mesh=Mesh((2, 1), ("data", "model")),
                device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
+    with pytest.raises(ValueError, match="make_mesh"):
         Engine(cfg, ecfg, mesh=Mesh((1, 2), ("data", "model")),
                device="cpu")
 
