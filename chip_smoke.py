@@ -175,6 +175,19 @@ Phases, each printing its own lines:
              parts, its token within STREAM_LOGIT_TOL of the one-rank
              max), tick times, TTFT, tok/s, peak memory and payload bytes
              a tick by axis printed, every kernel of the path launched;
+   operator_ranks - the operator on meshes of ranks: one RankPool of
+             four ranks of the card, whose slots FluxMiniCluster
+             allocations map onto: yi-6b at full width and 4 of its 32
+             layers elastic-served through a grow from (1, 2) to (2, 2)
+             mid-decode and a shrink back, each run token for token the
+             uninterrupted run on its starting mesh, and served chunked
+             on (2, 2) by the ServeExecutor (held to the one-rank eager
+             engine by the tp phase's parting rule); lammps-proxy (head
+             dim 32) trained by the SubmeshExecutor on (2, 2) and by the
+             ElasticTrainExecutor 2 -> 4 -> 2 hosts through the
+             checkpoint, against one rank's losses; each placement's
+             mesh, slots and ``ran`` record, each resize's seconds, rank
+             0's ticks, TTFT and tok/s, each rank's peak memory;
 7. operator - the Flux-operator control plane over the port: a
              FluxMiniCluster on a simulated ResourceGraph reaches Ready,
              and WorkloadSpecs are applied with the full configs (every
@@ -4390,6 +4403,365 @@ def operator_phase(torch, dev, build):
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the operator on meshes of ranks: a pool of four gloo ranks of
+# the one card that Flux allocations map onto
+# ---------------------------------------------------------------------------
+
+OPR_LAYERS = 4              # of yi-6b's 32 (8 took the script past 1150 s)
+OPR_REQUESTS = 4            # 8 with yi at 4 layers: the script 1171.2 s
+OPR_NEW = 16
+OPR_CHUNK = 256
+OPR_TRAIN_STEPS = 9
+OPR_SEQ = 2048
+OPR_TIMEOUT_S = 600         # each command on the ranks (and gloo's timeout)
+
+
+def _slot_ids(mesh):
+    return [d.index for d in mesh.devices.flat]
+
+
+def _first_parting(got, want):
+    """(request, tick) where ``got`` first parts from ``want``, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i, next((k for k, (x, y) in enumerate(zip(a, b))
+                            if x != y), min(len(a), len(b)))
+    return None if len(got) == len(want) else (min(len(got), len(want)), 0)
+
+
+def _tick_line(ticks, reqs, n_tok):
+    """Rank 0's decode tick median (ms), TTFT median (ms) and tok/s over
+    the seconds its ticks took."""
+    ttft = sorted(r.ttft for r in reqs if r.ttft is not None)
+    busy = sum(s for _, s in ticks)
+    return (f"{_decode_median(ticks)}, TTFT median "
+            f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, {n_tok / busy:.1f} tok/s "
+            f"over its {busy:.2f} s of ticks")
+
+
+def _decode_median(ticks):
+    """Rank 0's decode tick median (ms) over ``ticks``, (kind, s) each."""
+    dec = sorted(s for k, s in ticks if k == "decode")
+    return (f"rank 0's decode tick median {dec[len(dec) // 2] * 1e3:.2f} ms "
+            f"over {len(dec)}")
+
+
+def operator_ranks_phase(torch, dev, build, smi):
+    """The executors on meshes of ranks: one ``RankPool(4)`` of the one
+    card, whose slots Flux allocations map onto (``ResourceGraph`` of 1
+    pod x 2 hosts x 2 chips: a host's chips are the ``model`` axis, and
+    no allocation degrades):
+
+    * yi-6b at full width and OPR_LAYERS of 32 layers, elastic serving
+      (8 slots, page 16, prompts up to 512, 1024 in all; OPR_REQUESTS
+      greedy requests of 64-512 tokens, OPR_NEW new each, legacy,
+      ``dp_shards`` 1): grown from 1 to 2 hosts mid-decode, (1, 2) ->
+      (2, 2), then a second run shrunk from 2 to 1; with ``model`` 2 on
+      both meshes each data rank repeats the one-data-rank tick, so the
+      streams must equal the uninterrupted run's on the starting mesh
+      token for token;
+    * yi-6b the same depth through the ServeExecutor on a 2-host
+      allocation, (2, 2), chunked (OPR_CHUNK), 4 requests, against the
+      one-rank eager engine of the same seed (the serve_tp parting rule);
+    * lammps-proxy at full size (head dim 32) through the
+      SubmeshExecutor on (2, 2), its loss against one rank's step over
+      the same batch; then through the ElasticTrainExecutor on 1 pod x
+      4 hosts x 1 chip, OPR_TRAIN_STEPS steps of 8 x OPR_SEQ, grown 2 ->
+      4 and shrunk 4 -> 2 hosts through the checkpoint, (2, 1) -> (4, 1)
+      -> (2, 1), the losses against a one-rank Trainer's within TP_RTOL.
+
+    Prints each placement's mesh, slot ids and ``ran`` record, each
+    resize's transition and its park/adopt or save/restore seconds, rank
+    0's decode tick, TTFT and tok/s, each rank's peak allocation and the
+    phase's seconds.  Returns the ranks' launch counts over the
+    executors' runs (the uninterrupted references' aside).  The pool
+    opens at the phase's start; the one-rank references run on this
+    process's card while its ranks start."""
+    import numpy as np
+    from repro_torch.configs import TrainConfig, WorkloadShape, registry, yi_6b
+    from repro_torch.core import (FluxMiniCluster, JobState, MiniClusterSpec,
+                                  NetModel, ResourceGraph, SimClock)
+    from repro_torch.data import synthetic_batch, to_tensors
+    from repro_torch.dist.ranks import RankPool
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.remote import RemoteEngine
+    from repro_torch.spec import (ResourceSpec, ServeSpec, TrainSpec,
+                                  WorkloadSpec)
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    yi = dataclasses.replace(yi_6b.CONFIG, n_layers=OPR_LAYERS)
+    lammps = registry.get("lammps-proxy")
+    prompts = serve_tp_prompts(yi, OPR_REQUESTS)
+    ecfg = dict(n_slots=8, page_size=16, max_prompt_len=512,
+                max_seq_len=1024)
+    sub_steps = 3
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the ranks start (spawn, import torch) while this process runs the
+    # one-rank references; they take the card at their first command
+    pool = RankPool(4, timeout=OPR_TIMEOUT_S)
+    total = {}
+
+    def tally():
+        for k, v in pool.launches(reset=True).items():
+            total[k] = total.get(k, 0) + v
+
+    def cluster(name, hosts, chips, size, max_size):
+        clock = SimClock(seed=0)
+        mc = FluxMiniCluster(clock, NetModel(), ResourceGraph(
+            n_pods=1, hosts_per_pod=hosts, chips_per_host=chips),
+            MiniClusterSpec(name=name, size=size, max_size=max_size))
+        mc.create()
+        mc.wait_ready()
+        return clock, mc
+
+    def until(clock, cond, what):
+        clock.run(until=clock.now + 1e6, stop_when=cond)
+        check(cond(), f"operator_ranks: {what} not reached")
+
+    def uninterrupted(shape):
+        eng = RemoteEngine(yi, EngineConfig(**ecfg), mesh=pool.mesh(shape),
+                           seed=0)
+        reqs = [eng.submit(p, max_new_tokens=OPR_NEW) for p in prompts]
+        eng.run()
+        eng.close()
+        check(all(r.finished and len(r.tokens) == OPR_NEW for r in reqs),
+              "an uninterrupted request did not finish")
+        return [r.tokens for r in reqs], eng, reqs
+
+    def elastic_serve(size, patch_to, want):
+        clock, mc = cluster(f"es{size}", 2, 2, size, 2)
+        name = f"yi-6b:elastic {size}->{patch_to}"
+        h = mc.apply(WorkloadSpec(
+            kind="serve", name=name, arch="yi-6b",
+            resources=ResourceSpec(n_nodes=size, elastic=True),
+            serve=ServeSpec(max_new=OPR_NEW, n_requests=OPR_REQUESTS,
+                            **ecfg)), cfg=yi,
+            # 40 simulated s a tick: the grow's new host boots (~115 s)
+            # while the old mesh decodes, as in tests/test_elastic_serve.py
+            executor_opts=dict(ranks=pool, sim_tick_time=40.0))
+        ex, job = h.executor, h.job
+        job.spec.args["prompts"] = prompts
+        pool.launches(reset=True)
+        until(clock, lambda: job.jobid in ex.sessions
+              and ex.sessions[job.jobid].ticks >= 4, "4 ticks")
+        ses = ex.sessions[job.jobid]
+        first, old = (tuple(ses.mesh.devices.shape),
+                      _slot_ids(ses.mesh)), ses.engine
+        mc.patch_size(patch_to)
+        check(h.phase == "Resizing", f"{name}: the patch opened no resize")
+        until(clock, lambda: job.state == JobState.INACTIVE, f"{name}'s end")
+        tally()
+        _lifecycle(h, elastic=True)
+        rec = ex.ran[job.jobid]
+        res = rec["resumes"]
+        print(f"[operator_ranks] {name}: placed on {first[0]} slots "
+              f"{first[1]}, then {rec['mesh_shape']} slots "
+              f"{_slot_ids(ses.mesh)}; resumes "
+              f"{[(r['transition'], r['tick'], r['mesh_shape']) for r in res]}"
+              f"; park {[round(x, 3) for x in ses.park_s]} s, adopt "
+              f"{[round(x, 3) for x in ses.adopt_s]} s, rebuild "
+              f"{[round(r['rebuild_s'], 3) for r in res]} s; ran "
+              f"{ {k: rec[k] for k in ('n_devices', 'hosts', 'n_requests', 'n_tokens', 'ticks', 'n_resumes')} }; "
+              + _tick_line(old.ticks + ses.engine.ticks, ses.requests,
+                           rec["n_tokens"]))
+        check(rec["n_resumes"] == 1 and res[0]["transition"] ==
+              f"{size}->{patch_to}", f"{name}: resumes {res}")
+        check(rec["mesh_shape"] == (patch_to, 2), f"{name}: ended on "
+              f"{rec['mesh_shape']}")
+        part = _first_parting(rec["tokens"], want)
+        check(part is None, f"{name}: the streams part from the "
+              f"uninterrupted run's at (request, tick) {part}")
+        print(f"[operator_ranks] {name}: all {len(want)} streams equal the "
+              f"uninterrupted run's on {first[0]} token for token")
+
+    try:
+        # the one-rank references on this process's card: the chunked
+        # engine (streams, logits and the bf16 logit error), lammps-proxy's
+        # loss over the submesh batch and its uninterrupted losses
+        t = time.perf_counter()
+        one = Engine(yi, EngineConfig(**ecfg, prefill_chunk=OPR_CHUNK),
+                     seed=0, device=dev, cuda_graphs=False)
+        logits_of = _record_logits(one)
+        reqs = [one.submit(p, max_new_tokens=OPR_NEW) for p in prompts[:4]]
+        one.run()
+        err = float((forced_logits(torch, dev, yi, one.params) -
+                     forced_logits(torch, dev, yi, one.params, "ref",
+                                   torch.float32)).abs().max())
+        one_streams = [r.tokens for r in reqs]
+        one_logits = [logits_of[r.rid] for r in reqs]
+        del one, logits_of, reqs
+        torch.cuda.empty_cache()
+        tr = Trainer(lammps, TrainConfig(total_steps=sub_steps,
+                                         warmup_steps=0),
+                     WorkloadShape("submesh", "train", OPR_SEQ, 4), seed=0,
+                     device=dev)
+        tr.init_or_resume()
+        batch = to_tensors(synthetic_batch(lammps, tr.shape), dev)
+        for _ in range(1 + sub_steps):        # the executor's warm step too
+            tr.state, metrics = tr._step(tr.state, batch)
+        sub_loss = float(metrics["loss"])
+        del tr, batch, metrics
+        one = Trainer(lammps, TrainConfig(total_steps=OPR_TRAIN_STEPS,
+                                          warmup_steps=0),
+                      WorkloadShape("elastic", "train", OPR_SEQ, 8), seed=0,
+                      device=dev)
+        el_want = [r["loss"] for r in one.run(OPR_TRAIN_STEPS, log_every=0)]
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_refs = time.perf_counter() - t
+        pool.run(range(pool.n), "repro_torch.dist.ranks:_ping")
+        print(f"[operator_ranks] one-rank references in {t_refs:.1f} s; "
+              f"RankPool(4) on {pool.devices} answering "
+              f"{time.perf_counter() - t:.1f} s into the phase")
+
+        # elastic serving across (1, 2) and (2, 2)
+        t = time.perf_counter()
+        ref12, eng12, reqs12 = uninterrupted((1, 2))
+        ref22, eng22, reqs22 = uninterrupted((2, 2))
+        check(ref22 == ref12, f"(2, 2)'s uninterrupted streams part from "
+              f"(1, 2)'s at {_first_parting(ref22, ref12)}")
+        for shape, eng, reqs in (((1, 2), eng12, reqs12),
+                                 ((2, 2), eng22, reqs22)):
+            print(f"[operator_ranks] yi-6b ({OPR_LAYERS} of 32 layers) "
+                  f"uninterrupted on {shape}, {OPR_REQUESTS} requests of "
+                  f"{min(map(len, prompts))}-{max(map(len, prompts))} "
+                  f"tokens: " + _tick_line(eng.ticks, reqs,
+                                           OPR_REQUESTS * OPR_NEW))
+        elastic_serve(1, 2, ref12)
+        elastic_serve(2, 1, ref22)
+        print(f"[operator_ranks] elastic serving: "
+              f"{time.perf_counter() - t:.1f} s")
+
+        # the ServeExecutor on a 2-host allocation, chunked
+        t = time.perf_counter()
+        clock, mc = cluster("serve", 2, 2, 2, 2)
+        h = mc.apply(WorkloadSpec(
+            kind="serve", name="yi-6b:chunked", arch="yi-6b",
+            resources=ResourceSpec(n_nodes=2),
+            serve=ServeSpec(max_new=OPR_NEW, n_requests=4,
+                            prefill_chunk=OPR_CHUNK, **ecfg)),
+            cfg=yi, executor_opts=dict(ranks=pool))
+        h.job.spec.args["prompts"] = prompts[:4]
+        pool.launches(reset=True)
+        until(clock, lambda: h.phase in ("Completed", "Failed"), "the end")
+        tally()
+        _lifecycle(h)
+        rec = h.executor.ran[h.job.jobid]
+        eng, = h.executor._engines.values()
+        limit = (1 + LOGIT_NOISE_FACTOR) * err
+        gaps = _parting(rec["tokens"], one_streams, one_logits)
+        for i, k, gap in gaps:
+            check(gap <= limit, f"yi-6b:chunked on (2, 2): request {i} parts "
+                  f"from the one-rank stream at step {k} by {gap:.5f} (limit "
+                  f"{limit:.5f})")
+        print(f"[operator_ranks] yi-6b:chunked: mesh {rec['mesh_shape']} "
+              f"slots {rec['device_ids']}, ran "
+              f"{ {k: rec[k] for k in ('n_devices', 'hosts', 'n_requests', 'n_tokens', 'tokens_per_s', 'ttft_mean_s', 'measured_s')} }; "
+              f"{len(gaps)} of 4 streams part from the one-rank eager "
+              f"engine's (request, step, gap) {gaps}, limit {limit:.5f} "
+              f"(1 + {LOGIT_NOISE_FACTOR}) x one rank's largest teacher-"
+              f"forced logit error {err:.5f}; "
+              + _decode_median(eng.ticks)
+              + f"; {time.perf_counter() - t:.1f} s")
+        eng.close()
+
+        # lammps-proxy through the SubmeshExecutor on (2, 2)
+        t = time.perf_counter()
+        clock, mc = cluster("submesh", 2, 2, 2, 2)
+        h = mc.apply(WorkloadSpec(
+            kind="train", name="lammps-proxy:submesh", arch="lammps-proxy",
+            resources=ResourceSpec(n_nodes=2),
+            train=TrainSpec(total_steps=sub_steps, seq_len=OPR_SEQ)),
+            cfg=lammps, executor_opts=dict(ranks=pool))
+        pool.launches(reset=True)
+        until(clock, lambda: h.phase in ("Completed", "Failed"), "the end")
+        tally()
+        placed_s = time.perf_counter() - t
+        _lifecycle(h)
+        rec = h.executor.ran[h.job.jobid]
+        loss = sub_loss
+        gap = abs(rec["loss"] - loss) / abs(loss)
+        print(f"[operator_ranks] lammps-proxy:submesh: mesh "
+              f"{rec['mesh_shape']} slots {rec['device_ids']}, ran "
+              f"{ {k: rec[k] for k in ('n_devices', 'hosts', 'loss', 'measured_s')} }; "
+              f"one rank's loss over the same batch {loss:.6f}, relative "
+              f"{gap:.3g} (tol {TP_RTOL}); placed, built, warmed and run in "
+              f"{placed_s:.1f} s; {time.perf_counter() - t:.1f} s")
+        check(np.isfinite(rec["loss"]) and gap <= TP_RTOL,
+              f"lammps-proxy on (2, 2): loss {rec['loss']} against {loss}")
+
+        # lammps-proxy elastic: 2 -> 4 -> 2 hosts through the checkpoint
+        t = time.perf_counter()
+        clock, mc = cluster("el", 4, 1, 2, 4)
+        h = mc.apply(WorkloadSpec(
+            kind="train", name="lammps-proxy:elastic", arch="lammps-proxy",
+            resources=ResourceSpec(n_nodes=2, elastic=True),
+            train=TrainSpec(total_steps=OPR_TRAIN_STEPS, global_batch=8,
+                            seq_len=OPR_SEQ)),
+            cfg=lammps, executor_opts=dict(ranks=pool, sim_step_time=60.0))
+        ex, job = h.executor, h.job
+        saves, save = [], ex._save
+
+        def timed_save(ses, source):
+            t0 = time.perf_counter()
+            save(ses, source)
+            saves.append((source, round(time.perf_counter() - t0, 3)))
+
+        ex._save = timed_save
+        pool.launches(reset=True)
+        until(clock, lambda: job.jobid in ex.sessions
+              and ex.sessions[job.jobid].step >= 2, "step 2")
+        ses = ex.sessions[job.jobid]
+        at_grow = ses.step
+        mc.patch_size(4)
+        until(clock, lambda: ses.step >= 5 and len(ses.resumes) >= 1,
+              "the grow's resume")
+        mc.patch_size(2)
+        until(clock, lambda: job.state == JobState.INACTIVE, "the end")
+        tally()
+        _lifecycle(h, elastic=True)
+        rec = ex.ran[job.jobid]
+        want = el_want
+        gaps = [abs(a - b) / abs(b) for a, b in zip(ses.losses, want)]
+        meshes = [tuple(s["mesh_shape"]) for s in ses.segments]
+        print(f"[operator_ranks] lammps-proxy:elastic: segments "
+              f"{[(s['mesh_shape'], s['hosts'], s['from_step'], s['steps']) for s in ses.segments]}"
+              f"; resumes {[(r['transition'], r['step'], r['mesh_shape'], round(r['restore_s'], 3)) for r in ses.resumes]}"
+              f" (restore s); saves (source, s) {saves}; ran "
+              f"{ {k: rec[k] for k in ('mesh_shape', 'n_devices', 'hosts', 'loss', 'steps', 'n_resumes')} }; "
+              f"losses against one rank's Trainer: largest relative gap "
+              f"{max(gaps):.3g} (tol {TP_RTOL}); steps on rank 0 "
+              f"{[round(s['wall_s'], 3) for s in ses.segments]} s a segment"
+              f"; {time.perf_counter() - t:.1f} s")
+        check([r["transition"] for r in ses.resumes] == ["2->4", "4->2"],
+              f"lammps-proxy:elastic: resumes {ses.resumes}")
+        check(meshes == [(2, 1), (4, 1), (2, 1)],
+              f"lammps-proxy:elastic: meshes {meshes}")
+        check(ses.resumes[0]["step"] > at_grow, "the grow paused training")
+        check(len(ses.losses) == OPR_TRAIN_STEPS and max(gaps) <= TP_RTOL,
+              f"lammps-proxy:elastic: losses {ses.losses} against {want}")
+        peaks = pool.peak_gb()
+    finally:
+        pool.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[operator_ranks] peak GB allocated a rank {[round(p, 2) for p in peaks]}"
+          f"; launches on the ranks in the executors' runs "
+          + ", ".join(f"{k} {total.get(k, 0)}" for k in (
+              "rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+              "paged_prefill", "paged_decode"))
+          + f"; {time.perf_counter() - t_phase:.1f} s ({smi})")
+    for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+              "paged_prefill", "paged_decode"):
+        check(total.get(k, 0) > 0, f"the operator_ranks phase never "
+              f"launched {k} on a rank")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the SMOKE configs on the card, the pipeline launcher, and the
 # train -> gate -> canary-promote pipeline at full width
 # ---------------------------------------------------------------------------
@@ -5238,6 +5610,8 @@ def main() -> int:
     tp_runs, serve_tp_runs = [tp_total], [serve_tp_total]
     runs.extend(tp_runs + serve_tp_runs)
     stamp("tp")
+    runs.append(operator_ranks_phase(torch, dev, build, smi))
+    stamp("operator_ranks")
 
     kernels = []
     for name, r in rows.items():

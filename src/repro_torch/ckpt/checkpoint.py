@@ -24,6 +24,7 @@ any mesh of ranks and the JAX package alike.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -31,7 +32,8 @@ import struct
 import threading
 import zipfile
 import zlib
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,10 +60,121 @@ def _to_numpy(leaf: torch.Tensor):
     return arr, str(arr.dtype)
 
 
+# the CRC-32 of a buffer over this many bytes is taken in pieces on
+# threads (zlib releases the GIL) and the pieces' CRCs combined
+CRC_PIECE = 64 << 20
+
+
+def _gf2_times(mat: List[int], vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _zeros_ops() -> List[List[int]]:
+    """The CRC-32 register's operators for 2**k zero bytes, k = 0..63
+    (zlib's ``crc32_combine``)."""
+    bit = [0xEDB88320] + [1 << n for n in range(31)]   # one zero bit
+    op = bit
+    for _ in range(3):                                  # 2, 4, 8 bits
+        op = [_gf2_times(op, op[n]) for n in range(32)]
+    ops = [op]
+    for _ in range(63):
+        op = [_gf2_times(op, op[n]) for n in range(32)]
+        ops.append(op)
+    return ops
+
+
+_ZEROS: List[List[int]] = []
+_POOL: List[ThreadPoolExecutor] = []
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """The CRC-32 of ``a + b`` from ``crc32(a)``, ``crc32(b)`` and
+    ``len(b)``."""
+    if not _ZEROS:
+        _ZEROS.extend(_zeros_ops())
+    k = 0
+    while len2:
+        if len2 & 1:
+            crc1 = _gf2_times(_ZEROS[k], crc1)
+        len2 >>= 1
+        k += 1
+    return crc1 ^ crc2
+
+
+def crc32(buf, crc: int = 0) -> int:
+    """``zlib.crc32(buf, crc)`` of a bytes-like ``buf``, in CRC_PIECE
+    pieces on the host's cores where it is longer."""
+    mv = memoryview(buf).cast("B")
+    n = len(mv)
+    if n <= CRC_PIECE:
+        return zlib.crc32(mv, crc)
+    if not _POOL:
+        _POOL.append(ThreadPoolExecutor(os.cpu_count() or 1))
+    starts = range(0, n, CRC_PIECE)
+    parts = _POOL[0].map(lambda a: zlib.crc32(mv[a:a + CRC_PIECE]), starts)
+    for a, part in zip(starts, parts):
+        crc = crc32_combine(crc, part, min(CRC_PIECE, n - a))
+    return crc
+
+
+def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """What ``np.savez(path, **arrays)`` writes (a stored ZIP64 archive
+    of ``.npy`` members), the arrays written from their own memory and
+    their CRC-32 taken on the host's cores (``zipfile`` copies each
+    array in 16 MiB pieces and takes the CRC on one)."""
+    fmt = np.lib.format
+    central, out = [], open(path, "wb")
+    with out:
+        for key, arr in arrays.items():
+            if not arr.flags.c_contiguous:
+                arr = arr.copy(order="C")
+            head = io.BytesIO()
+            try:
+                fmt.write_array_header_1_0(
+                    head, fmt.header_data_from_array_1_0(arr))
+            except ValueError:
+                fmt.write_array_header_2_0(
+                    head, fmt.header_data_from_array_1_0(arr))
+            head = head.getvalue()
+            data = memoryview(arr.reshape(-1)).cast("B")
+            crc = crc32(data, zlib.crc32(head))
+            size = len(head) + len(data)
+            name = (key + ".npy").encode()
+            offset = out.tell()
+            out.write(struct.pack("<IHHHHHIIIHH", 0x04034B50, 45, 0, 0, 0,
+                                  0x21, crc, 0xFFFFFFFF, 0xFFFFFFFF,
+                                  len(name), 20) + name
+                      + struct.pack("<HHQQ", 1, 16, size, size))
+            out.write(head)
+            out.write(data)
+            central.append(
+                struct.pack("<IHHHHHHIIIHHHHHII", 0x02014B50, 45, 45, 0, 0,
+                            0, 0x21, crc, 0xFFFFFFFF, 0xFFFFFFFF, len(name),
+                            28, 0, 0, 0, 0o600 << 16, 0xFFFFFFFF) + name
+                + struct.pack("<HHQQQ", 1, 24, size, size, offset))
+        cd_start = out.tell()
+        for entry in central:
+            out.write(entry)
+        cd_end, n = out.tell(), len(central)
+        out.write(struct.pack("<IQHHIIQQQQ", 0x06064B50, 44, 45, 45, 0, 0,
+                              n, n, cd_end - cd_start, cd_start))
+        out.write(struct.pack("<IIQI", 0x07064B50, 0, cd_end, 1))
+        out.write(struct.pack("<IHHHHIIH", 0x06054B50, 0, 0,
+                              min(n, 0xFFFF), min(n, 0xFFFF),
+                              min(cd_end - cd_start, 0xFFFFFFFF),
+                              0xFFFFFFFF, 0))
+
+
 def _read_stored(path: str, f, info: zipfile.ZipInfo):
     """The array of a stored ``.npy`` member, read from its offset in
-    the file in one call and held to the member's CRC-32, as
-    ``np.load`` holds it (which reads a member in 256 KiB pieces); None
+    the file in one call and held to the member's CRC-32 (taken on the
+    host's cores), as ``np.load`` holds it (which reads a member in 256 KiB pieces); None
     for a compressed member or one ``np.load`` must read itself
     (Fortran order, objects)."""
     if info.compress_type != zipfile.ZIP_STORED:
@@ -85,7 +198,7 @@ def _read_stored(path: str, f, info: zipfile.ZipInfo):
     count = int(np.prod(shape))
     arr = np.fromfile(path, dtype=dtype, count=count, offset=offset)
     if (arr.size != count or offset - start + arr.nbytes != info.file_size
-            or zlib.crc32(arr.reshape(-1).view(np.uint8), crc) != info.CRC):
+            or crc32(arr.reshape(-1).view(np.uint8), crc) != info.CRC):
         raise zipfile.BadZipFile(f"{path}: {info.filename} does not match "
                                  f"its size or CRC-32")
     return arr.reshape(shape)
@@ -105,7 +218,7 @@ def save_state(state, path: str, meta: Optional[Dict] = None):
     if meta is not None:
         manifest["__meta__"] = meta
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **arrays)
+    _write_npz(tmp, arrays)
     with open(path + ".manifest.json.tmp", "w") as f:
         json.dump(manifest, f)
     os.replace(tmp, path + ".npz")                       # atomic publish

@@ -22,15 +22,21 @@ while mpirun pays a serial per-rank ssh/PMI wireup — this is the
 structural source of the launcher-time gap in the paper's Figure 5.
 
 Every executor runs on the card unless ``device`` says otherwise
-(``"cpu"``: the kernels' plain versions).  ``sharding.submesh_for`` lays
-each allocation over the devices of this process, so on one card every
-allocation is a ``(1, 1)`` mesh on ``cuda:0``; a job whose mesh holds
-more than one device raises, as the port has no tensor or data
-parallelism over the devices of one process yet (ROADMAP Queue 1 item
-5).  Engines and train steps are cached by the mesh's shape and its
-devices' indices, as the JAX package caches them by device id, and every
-warm-up (the kernels' first nvcc build among it) runs outside the timed
-window.  Where the JAX package draws inputs with ``jax.random``, the port
+(``"cpu"``: the kernels' plain versions).  Given a ``dist.ranks.RankPool``
+(``ranks``; ``executor_opts["ranks"]`` through ``apply``),
+``sharding.submesh_for`` lays each allocation over the pool's slots, as
+the JAX package lays it over ``jax.devices()``, and the job runs on its
+mesh's ranks: the train step of ``train.remote.RankSteps``, a
+``Trainer`` on the pool mesh, or a ``serve.remote.RemoteEngine`` (eager
+ticks; parameters drawn on each rank from the seed, each keeping its
+shard).  Without a pool the allocation is laid over the devices of this
+process, so on one card every allocation is a ``(1, 1)`` mesh on
+``cuda:0``, and a mesh of more than one device raises.  Engines and
+train steps are cached by the mesh's shape and its devices' indices
+(slot ids on a pool), as the JAX package caches them by device id; a
+cached job on ranks whose group has been dissolved (its slots joined a
+later placement) is rebuilt.  Every warm-up (the kernels' first nvcc
+build among it) runs outside the timed window.  Where the JAX package draws inputs with ``jax.random``, the port
 draws them with numpy (``data.synthetic_batch``) and parameters with a
 seeded ``torch.Generator``: the same control flow, other numbers.
 """
@@ -76,8 +82,10 @@ def clamp_queued_jobs(instance, new_size: int):
             job.spec.n_nodes = new_size
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
+def _sync(device: Optional[torch.device]) -> None:
+    """Wait for ``device``'s work (None: a job on ranks, whose commands
+    return once the ranks are done)."""
+    if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
@@ -93,13 +101,19 @@ def _device_ids(mesh):
 
 
 def _one_device(mesh) -> torch.device:
-    """The device a job runs on: its mesh's only one."""
+    """The device a job without a pool runs on: its mesh's only one."""
     if mesh.size > 1:
         raise NotImplementedError(
-            f"a {mesh.shape} mesh over {mesh.size} devices: the port runs "
-            "a job on one device (tensor and data parallelism over a "
-            "process's devices: ROADMAP Queue 1 item 5)")
+            f"a {mesh.shape} mesh over {mesh.size} devices: a job runs on "
+            "several devices as ranks of a pool, executor_opts[\"ranks\"] "
+            "(a dist.ranks.RankPool)")
     return mesh.devices.flat[0]
+
+
+def _live(job) -> bool:
+    """Whether a cached engine or step may run again: not one on ranks
+    whose group has been dissolved."""
+    return getattr(job, "alive", True)
 
 
 def _params(cfg, seed: int, device, dtype=torch.bfloat16):
@@ -230,7 +244,7 @@ class SubmeshExecutor:
     def __init__(self, clock: SimClock, net: NetModel,
                  tbon_fanout: int = 2, steps: int = 2,
                  time_scale: float = 1.0, seq_len: int = 32,
-                 strategy=None, cfg=None, device=None):
+                 strategy=None, cfg=None, device=None, ranks=None):
         from repro_torch.dist.sharding import device_list
         self.clock = clock
         self.net = net
@@ -240,7 +254,8 @@ class SubmeshExecutor:
         self.seq_len = seq_len
         self.strategy = strategy
         self.cfg = cfg                  # None -> resolve from job command
-        self.devices = device_list(device)
+        self.ranks = ranks
+        self.devices = device_list(device, ranks)
         self._cache: Dict = {}
         self.ran: Dict[int, Dict] = {}
 
@@ -249,20 +264,25 @@ class SubmeshExecutor:
         # same-shaped allocation on other devices must build onto ITS
         # devices (placement is the point of this executor)
         key = (command,) + _mesh_key(mesh)
-        if key in self._cache:
+        if key in self._cache and _live(self._cache[key]):
             return self._cache[key]
         from repro_torch.configs import BASELINE, TrainConfig
         from repro_torch.configs.base import WorkloadShape
         from repro_torch.data import synthetic_batch, to_tensors
         from repro_torch.dist import steps as dsteps
 
-        dev = _one_device(mesh)
         cfg = self.cfg or smoke_config_for(command)
         strategy = self.strategy or BASELINE
         tcfg = TrainConfig(total_steps=max(self.steps, 1), warmup_steps=0)
         # batch rows cover the data axis; at least 2 rows per shard
         batch_rows = 2 * mesh.shape.get("data", 1)
         shape = WorkloadShape("submesh", "train", self.seq_len, batch_rows)
+        if self.ranks is not None:
+            from repro_torch.train.remote import RankSteps
+            job = RankSteps(mesh, cfg, tcfg, shape, strategy)
+            self._cache[key] = job
+            return job
+        dev = _one_device(mesh)
         step = dsteps.build_train_step(cfg, tcfg, shape, strategy=strategy)
         gen = torch.Generator(device=dev).manual_seed(0)
         state = dsteps.init_train_state(cfg, tcfg, gen, dev,
@@ -270,24 +290,15 @@ class SubmeshExecutor:
         batch = to_tensors(synthetic_batch(cfg, shape), dev)
         state, metrics = step(state, batch)        # build outside timing
         float(metrics["loss"])
-
-        holder = {"state": state}
-
-        def run() -> Dict:
-            t0 = time.perf_counter()
-            metrics = None
-            for _ in range(self.steps):
-                holder["state"], metrics = step(holder["state"], batch)
-            loss = float(metrics["loss"])           # waits for the steps
-            return {"elapsed": time.perf_counter() - t0, "loss": loss}
-
-        self._cache[key] = run
-        return run
+        job = _LocalSteps(step, state, batch)
+        self._cache[key] = job
+        return job
 
     def __call__(self, job: Job, rset: ResourceSet, done):
         from repro_torch.dist.sharding import submesh_for
         mesh = submesh_for(rset, self.devices)
-        out = self._runner(job.spec.command, mesh)()
+        # on ranks: the seconds rank 0's steps took, round trips aside
+        out = self._runner(job.spec.command, mesh).run(self.steps)
         measured = out["elapsed"] * self.time_scale
         self.ran[job.jobid] = {
             "mesh_shape": tuple(mesh.devices.shape),
@@ -300,6 +311,23 @@ class SubmeshExecutor:
         wall = measured + tbon_bootstrap_cost(self.net, rset.n_hosts,
                                               self.k)
         self.clock.call_in(wall, done, "completed", wall)
+
+
+class _LocalSteps:
+    """The SubmeshExecutor's train step on this process's one device, as
+    ``train.remote.RankSteps`` is on ranks."""
+
+    def __init__(self, step, state, batch):
+        self.step, self.state, self.batch = step, state, batch
+
+    def run(self, n: int) -> Dict:
+        """``n`` steps on the batch: the loss and the seconds they took."""
+        t0 = time.perf_counter()
+        metrics = None
+        for _ in range(n):
+            self.state, metrics = self.step(self.state, self.batch)
+        loss = float(metrics["loss"])               # waits for the steps
+        return {"elapsed": time.perf_counter() - t0, "loss": loss}
 
 
 @dataclass
@@ -315,6 +343,7 @@ class _ElasticSession:
     step: int = 0                     # completed optimizer steps
     losses: List[float] = field(default_factory=list)
     state: object = None              # train state on the current device
+    trainer: object = None            # on ranks: its Trainer on the pool mesh
     jitted: object = None             # the train step (the JAX name)
     device: object = None             # the device the state lives on
     mesh: object = None
@@ -340,11 +369,11 @@ class ElasticTrainExecutor(SubmeshExecutor):
     — for a grow, once the new ranks have booted into the cluster graph
     — re-matches the job at the new size, rebuilds the mesh from the
     updated ``ResourceSet`` with ``sharding.submesh_for``, restores the
-    latest committed checkpoint (params AND optimizer state) onto the
-    job's one device (where the JAX package reshards onto the new
-    mesh's devices), and resumes the train step at the same global
-    batch — the data stream is seeded per ``(seed, step, row)``, so
-    host-count changes cannot perturb it.
+    latest committed checkpoint (params AND optimizer state) resharded
+    onto the new mesh's ranks (given a pool; the old ranks saved it and
+    are freed first) or onto the job's one device, and resumes the
+    train step at the same global batch — the data stream is seeded per
+    ``(seed, step, row)``, so host-count changes cannot perturb it.
 
     Shrinks that tear the job's hosts out from under it ride the
     existing requeue path: the reconciler requeues the job, the
@@ -370,11 +399,12 @@ class ElasticTrainExecutor(SubmeshExecutor):
                  global_batch: int = 8, strategy=None, cfg=None,
                  tcfg=None, seed: int = 0, ckpt_root: Optional[str] = None,
                  time_scale: float = 1.0,
-                 sim_step_time: Optional[float] = None, device=None):
+                 sim_step_time: Optional[float] = None, device=None,
+                 ranks=None):
         super().__init__(clock, net, tbon_fanout=tbon_fanout,
                          steps=chunk_steps, time_scale=time_scale,
                          seq_len=seq_len, strategy=strategy, cfg=cfg,
-                         device=device)
+                         device=device, ranks=ranks)
         self.total_steps = total_steps
         self.chunk_steps = max(chunk_steps, 1)
         self.global_batch = global_batch
@@ -410,9 +440,10 @@ class ElasticTrainExecutor(SubmeshExecutor):
             clamp_queued_jobs(self.mc.instance, new_size)
         for ses in self.sessions.values():
             job = ses.job
-            if job.state != JobState.RUN or ses.state is None:
+            if job.state != JobState.RUN or (ses.state is None
+                                             and ses.trainer is None):
                 continue
-            ses.ckpt.save(ses.state, ses.step, meta=self._meta(ses, source))
+            self._save(ses, source)
             ses.pending = new_size
             ses.pending_source = source
             ses.t_resize_sim = self.clock.now
@@ -428,6 +459,15 @@ class ElasticTrainExecutor(SubmeshExecutor):
                               source=source, step=ses.step)
 
     # -- session management ---------------------------------------------------
+    def _save(self, ses: _ElasticSession, source: str) -> None:
+        """A committed checkpoint of the job's state at ``ses.step``,
+        written by its ranks where it lives on them."""
+        meta = self._meta(ses, source)
+        if ses.trainer is not None:
+            ses.trainer.save(meta)
+        else:
+            ses.ckpt.save(ses.state, ses.step, meta=meta)
+
     def _meta(self, ses: _ElasticSession, source: str = "") -> Dict:
         return {
             "step": ses.step,
@@ -462,29 +502,24 @@ class ElasticTrainExecutor(SubmeshExecutor):
     # -- placement: (re)build the step on this allocation's sub-mesh ----------
     def __call__(self, job: Job, rset: ResourceSet, done):
         from repro_torch.configs import BASELINE
-        from repro_torch.dist import steps as dsteps
         from repro_torch.dist.sharding import submesh_for
-        from repro_torch.models import params as P
 
         ses = self._session(job)
         ses.generation += 1
         gen = ses.generation
         strategy = self.strategy or BASELINE
         mesh = submesh_for(rset, self.devices)
-        dev = _one_device(mesh)
         t0 = time.perf_counter()
-        step_fn = dsteps.build_train_step(ses.cfg, ses.tcfg, ses.shape,
-                                          strategy=strategy)
         latest = ses.ckpt.latest_step()
+        if self.ranks is not None:
+            step = self._place_on_ranks(ses, mesh, strategy, latest)
+        else:
+            step = self._place_here(ses, mesh, strategy, latest)
         if latest is not None:
             # every (re)placement restarts the application: in-memory
             # state belongs to devices the job may no longer hold, so
-            # restore the latest COMMITTED checkpoint onto the new
-            # placement's device — params and opt state both
-            template = dsteps.abstract_train_state(ses.cfg, ses.tcfg,
-                                                   strategy)
-            ses.state = None            # the old copy goes before the new
-            ses.state, step = ses.ckpt.restore_latest(template, dev)
+            # the latest COMMITTED checkpoint was restored onto the new
+            # placement — params and opt state both
             ses.step = int(step)
             # steps past the checkpoint re-run after restore: drop them
             del ses.losses[ses.step:]
@@ -503,20 +538,7 @@ class ElasticTrainExecutor(SubmeshExecutor):
                     "t_place_sim": self.clock.now,
                 }
                 ses.t_resize_sim = None
-        elif ses.state is None:
-            # drawn as Trainer(seed=seed) draws it
-            gen_ = torch.Generator(device=dev).manual_seed(ses.seed)
-            ses.state = dsteps.init_train_state(ses.cfg, ses.tcfg, gen_, dev,
-                                                strategy=strategy)
-        else:
-            # re-placed with live state but no committed checkpoint yet
-            # (fault-path requeue before the first save): the state is
-            # committed to the OLD allocation's device, so move it through
-            # host memory onto the new placement's
-            host = P.tree_map(lambda t: t.detach().to("cpu", copy=True),
-                              ses.state)
-            ses.state = P.tree_map(lambda t: t.to(dev), host)
-        ses.jitted, ses.device, ses.mesh = step_fn, dev, mesh
+        ses.mesh = mesh
         if ses.pending is not None and rset.n_hosts == ses.pending:
             ses.pending = None
         ses.segments.append({"mesh_shape": list(mesh.devices.shape),
@@ -533,6 +555,56 @@ class ElasticTrainExecutor(SubmeshExecutor):
                           mesh=list(mesh.devices.shape), step=ses.step)
         boot = tbon_bootstrap_cost(self.net, rset.n_hosts, self.k)
         self.clock.call_in(boot, self._chunk, job, ses, gen, done)
+
+    def _place_here(self, ses: _ElasticSession, mesh, strategy, latest):
+        """The state on the mesh's one device of this process: restored
+        from the checkpoint ``latest`` (returns its step), drawn, or
+        moved there."""
+        from repro_torch.dist import steps as dsteps
+        from repro_torch.models import params as P
+        dev = _one_device(mesh)
+        ses.jitted = dsteps.build_train_step(ses.cfg, ses.tcfg, ses.shape,
+                                             strategy=strategy)
+        ses.device = dev
+        if latest is not None:
+            template = dsteps.abstract_train_state(ses.cfg, ses.tcfg,
+                                                   strategy)
+            ses.state = None            # the old copy goes before the new
+            ses.state, step = ses.ckpt.restore_latest(template, dev)
+            return step
+        if ses.state is None:
+            # drawn as Trainer(seed=seed) draws it
+            gen_ = torch.Generator(device=dev).manual_seed(ses.seed)
+            ses.state = dsteps.init_train_state(ses.cfg, ses.tcfg, gen_, dev,
+                                                strategy=strategy)
+        else:
+            # re-placed with live state but no committed checkpoint yet
+            # (fault-path requeue before the first save): the state is
+            # committed to the OLD allocation's device, so move it through
+            # host memory onto the new placement's
+            host = P.tree_map(lambda t: t.detach().to("cpu", copy=True),
+                              ses.state)
+            ses.state = P.tree_map(lambda t: t.to(dev), host)
+        return None
+
+    def _place_on_ranks(self, ses: _ElasticSession, mesh, strategy, latest):
+        """The job's ``Trainer`` on the mesh's ranks, built at the first
+        placement (restored from the checkpoint ``latest`` or drawn from
+        the seed) and moved by ``Trainer.remesh`` at every later one: to
+        the checkpoint ``latest`` (returns its step), or, where the job
+        holds live state but no committed checkpoint (a fault-path
+        requeue before the first save), through the host.  The old
+        ranks' state is freed before the new mesh draws or restores."""
+        from repro_torch.train import Trainer
+        if ses.trainer is None:
+            ses.trainer = Trainer(ses.cfg, ses.tcfg, ses.shape, mesh=mesh,
+                                  strategy=strategy, ckpt_dir=ses.ckpt.dir,
+                                  seed=ses.seed)
+            ses.trainer.init_or_resume()
+        else:
+            ses.trainer.remesh(mesh, strategy=strategy,
+                               carry="host" if latest is None else "latest")
+        return ses.trainer.start_step if latest is not None else None
 
     # -- elastic transition at a step boundary --------------------------------
     def _try_remesh(self, job: Job, ses: _ElasticSession, done) -> bool:
@@ -556,8 +628,7 @@ class ElasticTrainExecutor(SubmeshExecutor):
         # capture steps run since the resize event, then trade the old
         # allocation for one at the new size (old hosts are preferred by
         # the matcher, so a grow extends rather than migrates)
-        ses.ckpt.save(ses.state, ses.step,
-                      meta=self._meta(ses, ses.pending_source))
+        self._save(ses, ses.pending_source)
         graph.free(job.jobid)
         rset = self.mc.instance.match_pod_local(want)
         assert rset is not None, "remesh match must succeed (checked above)"
@@ -578,14 +649,23 @@ class ElasticTrainExecutor(SubmeshExecutor):
         if ses.pending is not None and self._try_remesh(job, ses, done):
             return
         n = min(self.chunk_steps, self.total_steps - ses.step)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            batch = to_tensors(synthetic_batch(ses.cfg, ses.shape, ses.seed,
-                                               ses.step), ses.device)
-            ses.state, metrics = ses.jitted(ses.state, batch)
-            ses.losses.append(float(metrics["loss"]))
-            ses.step += 1
-        elapsed = time.perf_counter() - t0
+        if ses.trainer is not None:
+            # rank 0's steps, timed on the rank (round trips aside)
+            k = len(ses.trainer.history)
+            recs = ses.trainer.run(n, log_every=0)[k:]
+            ses.losses.extend(r["loss"] for r in recs)
+            ses.step += n
+            elapsed = sum(r["step_time_s"] for r in recs)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                batch = to_tensors(synthetic_batch(ses.cfg, ses.shape,
+                                                   ses.seed, ses.step),
+                                   ses.device)
+                ses.state, metrics = ses.jitted(ses.state, batch)
+                ses.losses.append(float(metrics["loss"]))
+                ses.step += 1
+            elapsed = time.perf_counter() - t0
         seg = ses.segments[-1]
         seg["steps"] += n
         seg["wall_s"] += elapsed
@@ -615,7 +695,7 @@ class ElasticTrainExecutor(SubmeshExecutor):
         dt = (self.sim_step_time * n if self.sim_step_time is not None
               else elapsed * self.time_scale)
         if ses.step >= self.total_steps:
-            ses.ckpt.save(ses.state, ses.step, meta=self._meta(ses, "final"))
+            self._save(ses, "final")
             self.ran[job.jobid] = {
                 "mesh_shape": tuple(ses.mesh.devices.shape),
                 "n_devices": int(ses.mesh.size),
@@ -652,7 +732,7 @@ class ServeExecutor:
                  tbon_fanout: int = 2, n_requests: int = 2,
                  prompt_len: int = 8, max_new: int = 4,
                  time_scale: float = 1.0, strategy=None,
-                 engine_config=None, cfg=None, device=None):
+                 engine_config=None, cfg=None, device=None, ranks=None):
         from repro_torch.dist.sharding import device_list
         self.clock = clock
         self.net = net
@@ -664,7 +744,8 @@ class ServeExecutor:
         self.strategy = strategy
         self.engine_config = engine_config
         self.cfg = cfg                  # None -> resolve from job command
-        self.devices = device_list(device)
+        self.ranks = ranks
+        self.devices = device_list(device, ranks)
         self._engines: Dict = {}
         self.ran: Dict[int, Dict] = {}
 
@@ -688,13 +769,26 @@ class ServeExecutor:
         _sync(eng.device)
         assert all(r.finished for r in warm)
 
+    def _new_engine(self, cfg, ecfg, mesh, seed: int = 0, params=None):
+        """An engine on ``mesh``: on its ranks where the executor has a
+        pool (parameters drawn there from ``seed``, each rank keeping its
+        shard, or cut from ``params``), else on its one device."""
+        if self.ranks is not None:
+            from repro_torch.configs import BASELINE
+            from repro_torch.serve.remote import RemoteEngine
+            return RemoteEngine(cfg, ecfg, mesh=mesh, params=params,
+                                strategy=self.strategy or BASELINE,
+                                seed=seed)
+        from repro_torch.serve import Engine
+        return Engine(cfg, ecfg, params=params, seed=seed,
+                      device=_one_device(mesh))
+
     def _engine(self, command: str, mesh):
         key = (command,) + _mesh_key(mesh)
-        if key in self._engines:
+        if key in self._engines and _live(self._engines[key]):
             return self._engines[key]
-        from repro_torch.serve import Engine
-        eng = Engine(self.cfg or smoke_config_for(command),
-                     self._default_ecfg(), device=_one_device(mesh))
+        eng = self._new_engine(self.cfg or smoke_config_for(command),
+                               self._default_ecfg(), mesh)
         self._warm(eng)
         self._engines[key] = eng
         return eng
@@ -792,7 +886,7 @@ class FleetServeExecutor(ServeExecutor):
     def _fleet(self, command: str, rset: ResourceSet):
         key = (command, tuple(rset.hosts), rset.chips_per_host)
         fleet = self._fleets.get(key)
-        if fleet is not None:
+        if fleet is not None and all(_live(e) for e in fleet.engines):
             return fleet, self._meshes[key]
         from repro_torch.dist.sharding import submesh_for
         from repro_torch.serve import Engine, Router
@@ -802,10 +896,16 @@ class FleetServeExecutor(ServeExecutor):
         params: Dict = {}                # device -> the one parameter set
         engines = []
         for mesh in meshes:
-            dev = _one_device(mesh)
-            if dev not in params:
-                params[dev] = _params(cfg, 0, dev)
-            eng = Engine(cfg, ecfg, params=params[dev], seed=0, device=dev)
+            if self.ranks is not None:
+                # each replica on the disjoint ranks of its host group,
+                # its parameters drawn there from seed 0
+                eng = self._new_engine(cfg, ecfg, mesh)
+            else:
+                dev = _one_device(mesh)
+                if dev not in params:
+                    params[dev] = _params(cfg, 0, dev)
+                eng = Engine(cfg, ecfg, params=params[dev], seed=0,
+                             device=dev)
             self._warm(eng)
             engines.append(eng)
         fleet = Router(engines)       # prefix cache auto-enables when
@@ -906,12 +1006,12 @@ class ElasticServeExecutor(ServeExecutor):
                  engine_config=None, cfg=None, seed: int = 0,
                  ticks_per_chunk: int = 1,
                  sim_tick_time: Optional[float] = 5.0,
-                 drain_ticks: int = 0, device=None):
+                 drain_ticks: int = 0, device=None, ranks=None):
         super().__init__(clock, net, tbon_fanout=tbon_fanout,
                          n_requests=n_requests, prompt_len=prompt_len,
                          max_new=max_new, time_scale=time_scale,
                          strategy=strategy, engine_config=engine_config,
-                         cfg=cfg, device=device)
+                         cfg=cfg, device=device, ranks=ranks)
         self.seed = seed
         self.ticks_per_chunk = max(ticks_per_chunk, 1)
         self.sim_tick_time = sim_tick_time
@@ -977,6 +1077,8 @@ class ElasticServeExecutor(ServeExecutor):
         t0 = time.perf_counter()
         ses.parked = eng.snapshot_state()
         ses.park_s.append(time.perf_counter() - t0)
+        if self.ranks is not None:
+            eng.close()                 # freed before the new mesh draws
         ses.engine = None
         self.clock.trace("serve_park", jobid=ses.job.jobid,
                          in_flight=len(ses.parked["running"]),
@@ -1055,10 +1157,16 @@ class ElasticServeExecutor(ServeExecutor):
         ses.generation += 1
         gen = ses.generation
         mesh = submesh_for(rset, self.devices)
-        dev = _one_device(mesh)
         t0 = time.perf_counter()
-        eng = Engine(ses.cfg, ses.ecfg, device=dev, seed=self.seed,
-                     params=self._device_params(ses.cfg, dev))
+        if self.ranks is not None:
+            if ses.engine is not None:
+                ses.engine.close()      # a requeue's unparked engine
+                ses.engine = None
+            eng = self._new_engine(ses.cfg, ses.ecfg, mesh, seed=self.seed)
+        else:
+            dev = _one_device(mesh)
+            eng = Engine(ses.cfg, ses.ecfg, device=dev, seed=self.seed,
+                         params=self._device_params(ses.cfg, dev))
         if ses.parked is not None:
             self._restore(ses, eng)
         else:
@@ -1303,12 +1411,13 @@ class ElasticFleetServeExecutor(ServeExecutor):
                  max_new: int = 4, time_scale: float = 1.0,
                  strategy=None, engine_config=None, cfg=None,
                  seed: int = 0, ticks_per_chunk: int = 1,
-                 sim_tick_time: Optional[float] = 5.0, device=None):
+                 sim_tick_time: Optional[float] = 5.0, device=None,
+                 ranks=None):
         super().__init__(clock, net, tbon_fanout=tbon_fanout,
                          n_requests=n_requests, prompt_len=prompt_len,
                          max_new=max_new, time_scale=time_scale,
                          strategy=strategy, engine_config=engine_config,
-                         cfg=cfg, device=device)
+                         cfg=cfg, device=device, ranks=ranks)
         self.replicas = max(replicas, 1)
         self.nodes_per_replica = max(nodes_per_replica, 1)
         self.tenant = tenant
@@ -1379,11 +1488,19 @@ class ElasticFleetServeExecutor(ServeExecutor):
         return out
 
     def _build_engine(self, ses: _FleetSession, mesh, params=None):
-        """One warmed replica engine on the mesh's device.  The warm
-        request drives the prefill and the decode step once, outside
-        timing (the shared executor contract); every replica — including
-        reference runs and promoted engines before they adopt a snapshot
-        — warms identically, so warmup never perturbs token identity."""
+        """One warmed replica engine on the mesh's device (on its ranks,
+        given a pool: drawn there from the seed until a promotion gives
+        the fleet other params).  The warm request drives the prefill and
+        the decode step once, outside timing (the shared executor
+        contract); every replica — including reference runs and promoted
+        engines before they adopt a snapshot — warms identically, so
+        warmup never perturbs token identity."""
+        if self.ranks is not None:
+            eng = self._new_engine(ses.cfg, ses.ecfg, mesh, seed=self.seed,
+                                   params=(params if params is not None
+                                           else ses.params))
+            self._warm(eng)
+            return eng
         from repro_torch.serve import Engine
         dev = _one_device(mesh)
         if params is None:
@@ -1588,11 +1705,13 @@ class ElasticFleetServeExecutor(ServeExecutor):
 
     def _promoted_params(self, promo: Dict, eng):
         """The promotion's params on ``eng``'s device in its dtypes, put
-        there once and shared by every replica it promotes."""
+        there once and shared by every replica it promotes (for an
+        engine on ranks, on the host: each replica's ranks cut theirs)."""
         dev = eng.device
         if dev not in promo["on_device"]:
             promo["on_device"][dev] = serving_params(
-                eng.cfg, promo["params"], dev, eng.compute_dtype)
+                eng.cfg, promo["params"], "cpu" if dev is None else dev,
+                eng.compute_dtype)
         return promo["on_device"][dev]
 
     def _promote_step(self, job: Job, ses: _FleetSession):
@@ -1637,7 +1756,9 @@ class ElasticFleetServeExecutor(ServeExecutor):
                                      params=self._promoted_params(promo,
                                                                   eng))
         new_eng.adopt_state(snap)
-        router.swap_engine(i, new_eng)
+        old = router.swap_engine(i, new_eng)
+        if self.ranks is not None:
+            old.close()                 # the same ranks hold the new one
         _sync(new_eng.device)
         promo["next"] = i + 1
         promo["rec"]["steps"].append({

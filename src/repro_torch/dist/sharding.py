@@ -27,10 +27,12 @@ call it, leaf by leaf in the same order).  A mesh built from a shape
 alone gives one rank's shapes and shards without running anything.
 
 ``submesh_for``'s mesh is a ``dist.mesh.Mesh`` whose ``devices`` hold
-``torch.device``s of this process.  The degrade rule is the JAX
-package's: an allocation that names more chips than the list holds
-becomes the largest (hosts, chips) grid that fits, down to one device.
-On one card every allocation is therefore ``(1, 1)`` on ``cuda:0``.
+``torch.device``s of this process, or, given a ``dist.ranks.RankPool``,
+the pool's slots (``.index`` the slot's id), whose ranks then run the
+job.  The degrade rule is the JAX package's: an allocation that names
+more chips than the list holds becomes the largest (hosts, chips) grid
+that fits, down to one device.  Without a pool, every allocation on
+one card is therefore ``(1, 1)`` on ``cuda:0``.
 """
 from __future__ import annotations
 
@@ -50,10 +52,13 @@ Rule = Union[str, Tuple[str, ...], None]
 Spec = Tuple[Union[str, Tuple[str, ...], None], ...]
 
 
-def device_list(device=None) -> List[torch.device]:
-    """The devices a mesh may take: every card of this process (``device``
-    None or a CUDA device; raises where there is no card), or the one CPU
-    device when ``device`` is ``"cpu"``."""
+def device_list(device=None, ranks=None) -> List:
+    """The devices a mesh may take: the slots of the pool ``ranks``
+    (a ``dist.ranks.RankPool``) where one is given, else every card of
+    this process (``device`` None or a CUDA device; raises where there
+    is no card), or the one CPU device when ``device`` is ``"cpu"``."""
+    if ranks is not None:
+        return list(ranks.slots)
     dev = resolve_device(device)
     if dev.type == "cpu":
         return [dev]

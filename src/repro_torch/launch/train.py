@@ -132,9 +132,9 @@ def main(argv=None):
 def _elastic(tr, args):
     """The JAX launcher's phases: one host, two hosts, one host, a
     remesh between phases.  ``sharding.submesh_for`` lays each over the
-    trainer's one device, so every mesh is (1, 1) (several devices of
-    one process: ROADMAP Queue 1 item 5) and each remesh is the
-    checkpoint (or host memory) round trip alone."""
+    trainer's one device (no ``dist.ranks.RankPool`` here), so every
+    mesh is (1, 1) and each remesh is the checkpoint (or host memory)
+    round trip alone."""
     from repro_torch.core.resource_graph import ResourceSet
     from repro_torch.dist.sharding import submesh_for
     hist, started = [], False

@@ -145,10 +145,12 @@ def _cacheable(engines: List[Engine]) -> bool:
     attention KV is positionwise (seq-mixer state is a recurrence over
     the whole prefix, not a per-page value).  Nor may a data tier split
     an engine's slots over ranks: a page would then lie on one data
-    shard, and a slot of another could not adopt it."""
+    shard, and a slot of another could not adopt it.  The cache copies
+    pages between engines of this process, so every replica must be an
+    ``Engine`` here (not a ``serve.remote.RemoteEngine``)."""
     e0 = engines[0]
     return all(
-        e._chunked and not e.splits_slots
+        isinstance(e, Engine) and e._chunked and not e.splits_slots
         and all(kind == "attn" for kind in e.cfg.block_pattern)
         and e.ecfg.page_size == e0.ecfg.page_size
         and e.cfg.name == e0.cfg.name

@@ -23,9 +23,11 @@
 
 A copy of the JAX package's ``spec/reconcile.py`` that binds the port's
 executors (``core/executor.py``), every one the JAX package binds.
-Meshes are laid over the devices the executor runs on
-(``executor_opts["device"]``; the card by default), so on one card every
-allocation is ``(1, 1)``.
+Meshes are laid over the slots of a ``dist.ranks.RankPool``
+(``executor_opts["ranks"]``), whose ranks then run each job on its mesh
+as the reference's executors run it on theirs; without a pool, over the
+devices the executor runs on (``executor_opts["device"]``; the card by
+default), so on one card every allocation is then ``(1, 1)``.
 """
 from __future__ import annotations
 
@@ -45,12 +47,13 @@ class _DryRunExecutor:
     in ``ran`` is the point of the job."""
 
     def __init__(self, clock, net, tbon_fanout: int = 2, strategy=None,
-                 device=None):
+                 device=None, ranks=None):
         self.clock = clock
         self.net = net
         self.k = tbon_fanout
         self.strategy = strategy
         self.device = device
+        self.ranks = ranks
         self.ran: Dict[int, Dict] = {}
 
     def __call__(self, job: Job, rset, done):
@@ -58,7 +61,7 @@ class _DryRunExecutor:
         from repro_torch.configs import BASELINE
         from repro_torch.core.executor import tbon_bootstrap_cost
         from repro_torch.dist.sharding import device_list, submesh_for
-        mesh = submesh_for(rset, device_list(self.device))
+        mesh = submesh_for(rset, device_list(self.device, self.ranks))
         strategy = self.strategy or BASELINE
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
@@ -95,8 +98,10 @@ class WorkloadReconciler:
             strategy = strategy if strategy is not None \
                 else spec.resolved_strategy
             cfg = cfg if cfg is not None else self._registry_cfg(spec)
+            opts = executor_opts or {}
             errors = self._cluster_errors(spec, cfg, strategy,
-                                          (executor_opts or {}).get("device"))
+                                          opts.get("device"),
+                                          opts.get("ranks"))
         if errors:
             raise SpecError(errors)
         ex = self._executor_for(spec, cfg, strategy,
@@ -137,7 +142,7 @@ class WorkloadReconciler:
                 "tenant": s.tenant, "ttft_slo_s": s.ttft_slo_s}
 
     # -- cluster-aware validation ------------------------------------------
-    def _cluster_errors(self, spec, cfg, strategy, device=None):
+    def _cluster_errors(self, spec, cfg, strategy, device=None, ranks=None):
         errs = []
         inst = self.instance
         r = spec.resources
@@ -168,7 +173,7 @@ class WorkloadReconciler:
                     "arch", "not-servable",
                     f"{cfg.name}: per-slot positions need rope (or no) "
                     f"position encoding, not {cfg.pos_type!r}"))
-        errs.extend(self._comm_errors(spec, strategy, device))
+        errs.extend(self._comm_errors(spec, strategy, device, ranks))
         return errs
 
     def _capacity(self) -> int:
@@ -177,7 +182,7 @@ class WorkloadReconciler:
             return mc.spec.effective_max
         return len(self.instance.graph.hosts)
 
-    def _comm_errors(self, spec, strategy, device=None):
+    def _comm_errors(self, spec, strategy, device=None, ranks=None):
         """Probe the comm policy on the mesh this allocation would get.
 
         Only ``comm_strict`` strategies can fail here (non-strict ones
@@ -199,7 +204,7 @@ class WorkloadReconciler:
                 else inst.graph.match(n, policy=inst.match_policy))
         if rset is None:
             return []                   # nothing to probe yet
-        mesh = submesh_for(rset, device_list(device))
+        mesh = submesh_for(rset, device_list(device, ranks))
         try:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")

@@ -1400,3 +1400,60 @@ def test_engine_on_four_ranks_of_the_card_holds_to_one_rank(dev, tmp_path):
                             torch.tensor(got, device=dev)]
             assert bool((chosen >= logits.amax(-1) - 3e-2).all()), \
                 (chunk, got, want)
+
+
+@pytest.mark.cuda
+def test_serve_executor_on_two_ranks_of_the_card_holds_to_one_rank(dev):
+    """yi-6b SMOKE served by the ServeExecutor on a ``RankPool`` of two
+    ranks of the card: a 1-host x 2-chip allocation runs on the (1, 2)
+    mesh of slots 0 and 1, every serving kernel launches on the ranks,
+    and each token lies within 3e-2 of the one-rank model's max logit
+    with the stream before it as the prompt (the bf16 stream rule of the
+    four-rank test above)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import (FluxMiniCluster, JobSpec, MiniClusterSpec,
+                                  NetModel, ResourceGraph, ServeExecutor,
+                                  SimClock)
+    from repro_torch.dist.ranks import RankPool
+    from repro_torch.models.model import Model
+    from repro_torch.serve import Engine, EngineConfig
+
+    cfg = registry.smoke("yi-6b")
+    ecfg = EngineConfig(n_slots=4, page_size=8, max_seq_len=64,
+                        max_prompt_len=16)
+    prompts = [[(7 * i + j) % cfg.vocab_size for j in range(5 + 3 * i)]
+               for i in range(3)]
+    new = 6
+    with RankPool(2, timeout=300) as pool:
+        clock = SimClock(seed=0)
+        mc = FluxMiniCluster(clock, NetModel(), ResourceGraph(
+            n_pods=1, hosts_per_pod=1, chips_per_host=2),
+            MiniClusterSpec(name="ranks", size=1))
+        mc.create()
+        mc.wait_ready()
+        ex = ServeExecutor(clock, NetModel(), max_new=new, cfg=cfg,
+                           engine_config=ecfg, ranks=pool)
+        mc.instance._set_executor(ex)
+        job = mc.instance.submit(JobSpec(n_nodes=1, walltime=1e9,
+                                         command="yi-6b",
+                                         args={"prompts": prompts}))
+        clock.run(until=clock.now + 600,
+                  stop_when=lambda: job.result is not None)
+        launches = pool.launches()
+    assert job.result == "completed"
+    rec = ex.ran[job.jobid]
+    assert rec["mesh_shape"] == (1, 2) and rec["device_ids"] == [0, 1]
+    assert all(launches[k] > 0 for k in ("flash_fwd", "paged_decode",
+                                         "rmsnorm")), launches
+    params = Engine(cfg, ecfg, seed=0, device=dev, cuda_graphs=False).params
+    model = Model(cfg)
+    for prompt, got in zip(prompts, rec["tokens"]):
+        n = len(got)
+        assert n == new
+        toks = torch.tensor([prompt + got[:-1]] * n, device=dev)
+        last = torch.arange(n, device=dev) + len(prompt) - 1
+        logits, _ = model.prefill(params, {"tokens": toks}, last_index=last)
+        logits = logits.float()
+        chosen = logits[torch.arange(n, device=dev),
+                        torch.tensor(got, device=dev)]
+        assert bool((chosen >= logits.amax(-1) - 3e-2).all()), got

@@ -65,6 +65,16 @@ WALL = ("wall_s", "restore_s", "first_chunk_s", "time_to_resume_s",
         "mesh_shape")
 
 
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """Two torch threads a test (xdist runs six workers on eight cores;
+    a thread a core each oversubscribes them), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _need_8():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 JAX devices (conftest forces them)")
@@ -179,14 +189,6 @@ def test_trainer_remesh_matches_jax_and_an_uninterrupted_run(use_ckpt,
     assert losses == [h["loss"] for h in ref.run(9, log_every=0)]
     if use_ckpt:
         assert tr.ckpt.latest_step() == 6         # the second remesh's
-
-
-def test_remesh_across_rank_counts_raises():
-    from repro_torch.dist.mesh import Mesh
-    tr = Trainer(TINY, tbase.TrainConfig(total_steps=2, **_TCFG), SHAPE,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tr.remesh(Mesh((2, 1), ("data", "model"), rank=0))
 
 
 def test_elastic_phase_steps_cover_budget_exactly():

@@ -55,6 +55,16 @@ PKGS = {"jax": (jcore, jspec, jflow, JTINY, {}),
         "torch": (tcore, tspec, tflow, TINY, CPU)}
 
 
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """Two torch threads a test (xdist runs six workers on eight cores;
+    a thread a core each oversubscribes them), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _need_8():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 JAX devices (conftest forces them)")

@@ -23,6 +23,16 @@ TRAIN_SPECS = {
                       "ElasticTrainExecutor")}
 
 
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """Two torch threads a test (xdist runs six workers on eight cores;
+    a thread a core each oversubscribes them), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", list(TRAIN_SPECS))
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_sequence_mixer_train_specs_match_jax(arch, name):

@@ -60,6 +60,16 @@ GRAD_FLOOR = 1e-5
 SEQMIX_BF16_TOL = 6e-2
 
 
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """Two torch threads a test (xdist runs six workers on eight cores;
+    a thread a core each oversubscribes them), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch):
     """(JAX SMOKE config, port SMOKE config) of ``arch``."""
     return jreg.smoke(arch), treg.smoke(arch)
