@@ -114,7 +114,7 @@ Phases, each printing its own lines:
              at full width and 2 layers on one 2 x 4096 batch through the
              kernel path, the plain path in bf16 and the plain path in
              float32;
-             yi-6b at full width and 4 of its 32 layers trained 4 steps
+             yi-6b at full width and 2 of its 32 layers trained 4 steps
              through the port's Trainer (AdamW, float32 master weights,
              bf16 compute, remat) with the launch counts read around the
              run and a checkpoint saved at step 2, restored into a fresh
@@ -122,11 +122,11 @@ Phases, each printing its own lines:
              full width and all 24 layers trained 4 steps, batch 4 x 4096;
    seqmix_train - the sequence mixers trained: gradient checks (as
              above) of a 2-layer ("attn", "mamba") jamba-v0.1-52b and a
-             2-layer ("mlstm", "slstm") xlstm-1.3b (2 x 512); then
+             2-layer ("mlstm", "slstm") xlstm-1.3b (2 x 256); then
              jamba-v0.1-52b
              at full width and those 2 layers and xlstm-1.3b at full
              width and 8 of its 48 layers (one 7 mLSTM : 1 sLSTM
-             super-block; rows of 512 tokens, for time) trained as
+             super-block; rows of 256 tokens, for time) trained as
              yi-6b is (every plain version
              refused), each traced step's shares of the Mamba scan's
              forward and backward, flash_bwd, moe_gemm and the optimizer;
@@ -152,10 +152,12 @@ Phases, each printing its own lines:
              its exact mean;
    tp      - tensor, expert and FSDP parallelism on four ranks of the
              one card (spawned processes, gloo): yi-6b at full width and
-             4 of its 32 layers, 3 steps of 2 x 4096 on (data 2, model
+             2 of its 32 layers, 3 steps of 2 x 4096 on (data 2, model
              2) under baseline (tensor parallelism, ZeRO-1) and
-             optimized (and FSDP), and granite-moe-1b-a400m at full size,
-             3 steps of 4 x 4096 on (pod 2, data 1, model 2) with expert
+             optimized (and FSDP), and granite-moe-1b-a400m at full
+             width and 8 of its 24 layers (GRANITE_TP_LAYERS: the
+             script's time limit), 3 steps of 4 x 4096 on (pod 2, data
+             1, model 2) with expert
              parallelism, hierarchical MoE dispatch and int8
              hierarchical sync; losses against one rank's run of the
              same draw and batch (TP_RTOL) and their grad_norm at every
@@ -175,6 +177,15 @@ Phases, each printing its own lines:
              parts, its token within STREAM_LOGIT_TOL of the one-rank
              max), tick times, TTFT, tok/s, peak memory and payload bytes
              a tick by axis printed, every kernel of the path launched;
+             then (``seqmix_tp``) the same ranks serve jamba-v0.1-52b at
+             full width and 8 of its 32 layers (8 requests) and
+             xlstm-1.3b at full width and 8 of its 48 (4 requests) on
+             (data 2, model 2) by the same rule (the Mamba channels and
+             mLSTM heads over ``model``, the in-projection's u/z halves
+             exchanged, the sLSTM's recurrence whole on every rank), time
+             that exchange alone, and train the seqmix_train phase's
+             2-layer cuts on (data 1, model 4) (jamba 2 x 4096, xlstm 1 x
+             256, 2 steps) against one rank's losses and grad_norm;
    operator_ranks - the operator on meshes of ranks: one RankPool of
              four ranks of the card, whose slots FluxMiniCluster
              allocations map onto: yi-6b at full width and 4 of its 32
@@ -300,8 +311,9 @@ COMPRESS_RTOL = 1e-2
 # depths cut for the script's time limit (each path keeps its checks; the
 # checkpoints through host memory and npz are what take the time)
 COMM_LAYERS = 4             # of granite's 24: four ranks of all 24 need ~150 GB
-YI_TRAIN_LAYERS = 4         # of yi-6b's 32, here and in the tp phase: a 15 GB
-                            # checkpoint, not 25
+YI_TRAIN_LAYERS = 2         # of yi-6b's 32, here and in the tp phase (4
+                            # before the tp phase's seqmix_tp part: the
+                            # seconds each cut saves, PERF.md section 5)
 PIPE_LAYERS = 8             # of granite's 24 in the pipeline: 5.6 GB a step
 QWEN2_LAYERS = 16           # of qwen2-72b's 80: 16.5e9 params, 33 GB in bf16
 COMM_STEPS = 4
@@ -590,6 +602,7 @@ def kernel_phase(torch, dev):
         rows_out[f"{name}{D160}"] = dict(row, kernel=name)
     encdec_shapes(torch, dev, rows_out, cpm)
     tp_shapes(torch, dev, rows_out, cpm)
+    seqmix_tp_shapes(torch, dev, rows_out, cpm)
 
     for name, r in rows_out.items():
         lib = ("none" if r["library_ms"] is None
@@ -1671,6 +1684,76 @@ def serve_tp_shapes(torch, dev, rows_out, cpm, g, rnd):
     rows_out[f"paged_prefill{TP}"] = pre
 
 
+SEQMIX_TP = "_seqmix_tp"     # the kernels line's rows at seqmix_tp's shapes
+
+
+def seqmix_tp_shapes(torch, dev, rows_out, cpm):
+    """The kernels at the local shapes a rank of the tp phase's seqmix_tp
+    part gives them, from a generator of their own: flash_fwd and
+    flash_bwd at jamba's training attention on model 4 (2 x 4096, 8 of
+    its 32 query heads over 2 of 8 KV heads of 128); rmsnorm at those
+    rows' (8192, 4096); paged decode at a serving rank's jamba heads on
+    (data 2, model 2) (a data shard's 4 of 8 slots, 16 query heads over
+    4 KV heads, lengths up to 1024); moe_gemm at jamba's 4 local experts
+    on model 4, two 4096-token groups' capacity (2 x 640 slots) x (4096
+    -> 14336).  Each held against its plain version, timed beside its
+    library call and bound, a row of its own in the kernels line whose
+    launches are the seqmix_tp part's."""
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.moe_gemm import ref as moe_ref
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+    from repro_torch.models.moe import _capacity
+
+    g = torch.Generator(device=dev).manual_seed(3030)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    rows = flash_holds(torch, cpm, rnd, rows_out, 2, 4096, 8, 2, 128,
+                       "jamba on model 4", plain=True)
+    for name, row in rows.items():
+        rows_out[f"{name}{SEQMIX_TP}"] = dict(row, kernel=name,
+                                              runs="seqmix_tp")
+    w = 1 + 0.1 * torch.randn(4096, generator=g, device=dev)
+    x = rnd(8192, 4096)
+    e, ok = err_within(ops.rmsnorm(x, w), rn_ref.rmsnorm_ref(x, w), TOL)
+    check(ok, "rmsnorm (8192, 4096) differs from the plain version")
+    rows_out[f"rmsnorm{SEQMIX_TP}"] = dict(
+        max_abs_err=e, kernel="rmsnorm", runs="seqmix_tp",
+        ms=median_ms(cpm, lambda: ops.rmsnorm(x, w)),
+        plain_ms=median_ms(cpm, lambda: rn_ref.rmsnorm_ref(x, w)),
+        library_ms=median_ms(cpm, lambda: F.rms_norm(x, (4096,), w.to(bf),
+                                                     1e-5)),
+        bound=bound(2 * x.numel() * 2 + w.numel() * 4, 4 * x.numel()),
+        shape="x (8192, 4096) bf16, w (4096,) f32")
+    row, _ = paged_decode_row(torch, dev, g, rnd, cpm, 16, 4,
+                              [77, 300, 545, 1024], "seqmix_tp")
+    row.update(kernel="paged_decode", runs="seqmix_tp",
+               shape="q (4,1,16,128), pools (257,16,4,128) bf16, lengths "
+                     "77..1024")
+    rows_out[f"paged_decode{SEQMIX_TP}"] = row
+    c = 2 * _capacity(4096, registry.get("jamba-v0.1-52b").moe)
+    xe, we = rnd(4, c, 4096), rnd(4, 4096, 14336, scale=0.02)
+    got = moe_kernel.moe_gemm(xe, we)
+    e, ok = err_within(got.float() * 4096 ** -0.5 / 0.02,
+                       moe_ref.moe_gemm_ref(xe, we).float() * 4096 ** -0.5
+                       / 0.02, TOL)
+    check(ok, f"moe_gemm at (4, {c}, 4096) x (4, 4096, 14336) differs from "
+          f"the plain version")
+    row = moe_rate(torch, cpm, "seqmix_tp: jamba's 4 local experts", xe, we,
+                   got)
+    row.update(max_abs_err=e, kernel="moe_gemm", runs="seqmix_tp",
+               plain_ms=median_ms(cpm, lambda: moe_ref.moe_gemm_ref(xe, we)),
+               shape=f"x (4,{c},4096), w (4,4096,14336) bf16 (errors x "
+                     f"1/(0.02 sqrt(4096)))")
+    rows_out[f"moe_gemm{SEQMIX_TP}"] = row
+    del x, xe, we, got
+
+
 def moe_rate(torch, cpm, label, a, b, got):
     """The same bits again, then the grouped GEMM's kernel and torch.bmm
     timed on a @ b and printed beside the bound: (E, M, K) x (E, K, N)."""
@@ -2218,12 +2301,15 @@ JAMBA_LAYERS = 16           # of jamba's 32: 26.05e9 params, 52.1 GB in bf16
 JAMBA_F32_PATTERN = ("attn", "mamba")
 
 
-def seqmix_teacher_force(torch, dev, cfg, params, modes, plen=77):
+def seqmix_teacher_force(torch, dev, cfg, params, modes, plen=77,
+                         mesh=None, strategy=None):
     """One prompt of ``plen`` tokens (77: no multiple of a page or of the
     kernels' 64-row tiles) prefilled at its exact length, its KV padded
     to a page boundary and scattered with its state into slot 0 of a
     pool, then 4 forced decode steps, through each of ``modes`` (name,
-    impl, compute dtype).  Returns {name: logits (5, V) float32}."""
+    impl, compute dtype).  Returns {name: logits (5, V) float32}.  On a
+    ``mesh`` of ranks (whose context the caller enters) the pool is the
+    rank's shard of one and the rows are its vocabulary columns."""
     import numpy as np
     from repro_torch.models.layers import PagedView
     from repro_torch.models.model import Model
@@ -2237,7 +2323,8 @@ def seqmix_teacher_force(torch, dev, cfg, params, modes, plen=77):
     got = {}
     for name, impl, dtype in modes:
         model = Model(cfg, impl=impl)
-        pool = paging.init_pool(cfg, 1, layout, dev)
+        pool = paging.init_pool(cfg, 1, layout, dev, mesh=mesh,
+                                strategy=strategy)
         lg, pc = model.prefill(
             params, {"tokens": torch.tensor(toks[None, :plen], device=dev)},
             compute_dtype=dtype)                             # flash_fwd
@@ -2777,9 +2864,11 @@ def train_phase(torch, dev, build):
 # 7 mLSTM : 1 sLSTM super-block of its 48 layers, for time: the sLSTM
 # recurrence is the host's loop (a step about a minute at 48 layers); and
 # at 2 x XLSTM_SEQ tokens: at 2 x 4096 its step took 20-26 s on an H100,
-# and reading the trace of one step about 400 s more.
+# and reading the trace of one step about 400 s more; 512 before the tp
+# phase's seqmix_tp part took the script past 1200 s on slower hosts (the
+# trace of a 512-token step took ~80 s to read there).
 XLSTM_TRAIN_LAYERS = 8
-XLSTM_SEQ = 512
+XLSTM_SEQ = 256
 SEQMIX_SPANS = ("SelectiveScan", "SelectiveScanBackward")
 SEQMIX_KERNELS = ("flash_fwd", "flash_bwd", "moe_gemm", "rmsnorm")
 
@@ -3220,9 +3309,10 @@ def _function_sync(torch, dist, mesh, strategy, dev):
 def comm_rank(rank, init_file, queue):
     """One of the comm phase's four ranks: its own process, on card 0,
     in a gloo process group of four as rank ``rank`` of a (pod=2, data=2)
-    mesh.  Trains under each strategy, then syncs one large gradient, and
-    puts what it measured on ``queue``.  Any failure raises: the process
-    exits non-zero and the parent fails."""
+    mesh, on torch's default intra-op threads (PERF.md section 5).
+    Trains under each strategy, then syncs one large gradient, and puts
+    what it measured on ``queue``.  Any failure
+    raises: the process exits non-zero and the parent fails."""
     import os
     from datetime import timedelta
 
@@ -3248,7 +3338,8 @@ def comm_rank(rank, init_file, queue):
     mesh = dmesh.make_mesh((2, 2), ("pod", "data"), timeout=timeout)
     cfg, shape, strategies = _comm_setup()
     out = {"rank": rank, "coords": mesh.coords, "runs": {},
-           "n_leaves": len(P.tree_leaves(Model(cfg).param_defs()))}
+           "n_leaves": len(P.tree_leaves(Model(cfg).param_defs())),
+           "threads": torch.get_num_threads()}
     launches = {k: 0 for k in build.LAUNCHES}
     for name, strategy in strategies.items():
         build.reset_launches()
@@ -3350,7 +3441,8 @@ def comm_phase(torch, dev, build, smi):
     init_file.unlink(missing_ok=True)
     ctx = tmp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=comm_rank, args=(r, str(init_file), q))
+    procs = [ctx.Process(target=comm_rank,
+                         args=(r, str(init_file), q))
              for r in range(4)]
     t = time.perf_counter()
     for p in procs:
@@ -3379,7 +3471,8 @@ def comm_phase(torch, dev, build, smi):
           f"comm ranks exited with {[p.exitcode for p in procs]}")
     res = [results[r] for r in range(4)]
     print(f"[comm] 4 ranks on one card, gloo (CUDA payloads through host "
-          f"memory), (pod=2, data=2), each rank one row of each step, in "
+          f"memory), (pod=2, data=2), each rank one row of each step, "
+          f"{res[0]['threads']} torch threads a rank, in "
           f"{time.perf_counter() - t:.1f} s")
 
     def losses(r, name):
@@ -3465,6 +3558,11 @@ def comm_phase(torch, dev, build, smi):
 TP_RTOL = 5e-4
 TP_GRAD_RTOL = 2e-3
 TP_STEPS = 3
+# granite's tp run at 8 of its 24 layers (the pipeline's cut): with the
+# seqmix_tp part the script took 1169.4 s uncut on one host (NVIDIA H100
+# 80GB HBM3, 700.00 W), where its three steps on ranks took 97.6 s
+# (39.8-40.3 s at 8 layers; PERF.md section 5)
+GRANITE_TP_LAYERS = 8
 TP_TIMEOUT_S = 300          # each collective (gloo's own timeout)
 TP_DEADLINE_S = 900         # the ranks' whole run, children included
 
@@ -3474,14 +3572,16 @@ def _tp_setup():
     strategy).  yi-6b at full width and YI_TRAIN_LAYERS of 32 layers,
     2 x 4096 on (data 2, model 2) under ``baseline`` (tensor parallelism,
     ZeRO-1) then ``optimized`` (and FSDP; no pod tier, so one
-    CommFallbackWarning); granite-moe-1b-a400m at full size, 4 x 4096 on
-    (pod 2, data 1, model 2) with tensor and expert parallelism,
-    hierarchical MoE dispatch and hierarchical int8 sync."""
+    CommFallbackWarning); granite-moe-1b-a400m at full width and
+    GRANITE_TP_LAYERS of 24 layers, 4 x 4096 on (pod 2, data 1, model 2)
+    with tensor and expert parallelism, hierarchical MoE dispatch and
+    hierarchical int8 sync."""
     from repro_torch.configs import (STRATEGIES, ShardingStrategy,
                                      WorkloadShape, registry, yi_6b)
 
     yi = dataclasses.replace(yi_6b.CONFIG, n_layers=YI_TRAIN_LAYERS)
-    granite = registry.get("granite-moe-1b-a400m")
+    granite = dataclasses.replace(registry.get("granite-moe-1b-a400m"),
+                                  n_layers=GRANITE_TP_LAYERS)
     hier = ShardingStrategy(
         name="tp-hier-int8", tensor_parallel=True, expert_parallel=True,
         hierarchical_moe=True, hierarchical_collectives=True,
@@ -3571,24 +3671,24 @@ def serve_tp_drive(torch, eng, prompts, build):
             "seconds": elapsed}
 
 
-def serve_tp_rank(torch, dev, mesh, build):
-    """A rank's serving part: each SERVE_TP_ARCHS arch at full size on
-    ``mesh``, legacy then chunked, each engine built (its weights drawn,
-    this rank keeping its shards) and dropped in turn; per run what
+def serve_tp_rank(torch, dev, mesh, build, archs=SERVE_TP_ARCHS,
+                  chunks=(0, SERVE_TP_CHUNK), cfg_of=None):
+    """A rank's serving part: each arch of ``archs`` (its config
+    ``cfg_of(arch)``: full size by default) on ``mesh``, each of
+    ``chunks``' modes, each engine built (its weights drawn, this rank
+    keeping its shards) and dropped in turn; per run what
     ``serve_tp_drive`` measures, the build's seconds, the bytes of the
     rank's params and pool and its peak allocation; and per arch the
-    teacher-forced logits (``forced_logits``) through the legacy engine's
-    shards, made whole (rank 0's, float32 on the host)."""
+    teacher-forced logits (``forced_logits``, a sequence mixer's
+    ``seqmix_teacher_force``) through the legacy engine's shards, made
+    whole (rank 0's, float32 on the host)."""
     from repro_torch.configs import registry
-    from repro_torch.dist import sharding as shd
-    from repro_torch.dist import steps as dsteps
-    from repro_torch.dist.actsharding import activation_sharding
-    from repro_torch.serve import paging
+    cfg_of = cfg_of or registry.get
     out = {}
-    for arch, n in SERVE_TP_ARCHS:
-        cfg = registry.get(arch)
+    for arch, n in archs:
+        cfg = cfg_of(arch)
         prompts = serve_tp_prompts(cfg, n)
-        for chunk in (0, SERVE_TP_CHUNK):
+        for chunk in chunks:
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.synchronize()
@@ -3607,21 +3707,37 @@ def serve_tp_rank(torch, dev, mesh, build):
                             _leaves_of(eng.pool)) / 1e9)
             out[(arch, chunk)] = run
             if not chunk:
-                pool = paging.init_pool(cfg, 1, forced_layout(), dev,
-                                        mesh=mesh, strategy=eng.strategy)
-                with activation_sharding(mesh, eng.strategy):
-                    rows = forced_logits(torch, dev, cfg, eng.params,
-                                         pool=pool)
-                vocab = dsteps.logits_sharding(cfg, 1, eng.strategy,
-                                               mesh)[1]
-                rows = shd.gather(rows, (None, vocab), mesh)
-                out[(arch, "forced")] = rows.cpu() if mesh.rank == 0 \
-                    else None
-                del pool
+                out[(arch, "forced")] = ranks_forced(torch, dev, cfg, eng,
+                                                     mesh)
             del eng
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def ranks_forced(torch, dev, cfg, eng, mesh):
+    """The teacher-forced logits (``forced_logits``, a sequence mixer's
+    ``seqmix_teacher_force``) through the engine ``eng``'s shards on
+    ``mesh``, made whole: rank 0's, float32 on the host (None on the
+    other ranks).  A collective: every rank calls it."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import steps as dsteps
+    from repro_torch.dist.actsharding import activation_sharding
+    from repro_torch.serve import paging
+    with activation_sharding(mesh, eng.strategy):
+        if cfg.sub_quadratic:
+            rows = seqmix_teacher_force(
+                torch, dev, cfg, eng.params,
+                (("ranks", None, torch.bfloat16),), mesh=mesh,
+                strategy=eng.strategy)["ranks"]
+        else:
+            pool = paging.init_pool(cfg, 1, forced_layout(), dev, mesh=mesh,
+                                    strategy=eng.strategy)
+            rows = forced_logits(torch, dev, cfg, eng.params, pool=pool)
+            del pool
+    vocab = dsteps.logits_sharding(cfg, 1, eng.strategy, mesh)[1]
+    rows = shd.gather(rows, (None, vocab), mesh)
+    return rows.cpu() if mesh.rank == 0 else None
 
 
 def _leaves_of(tree):
@@ -3629,18 +3745,21 @@ def _leaves_of(tree):
     return P.tree_leaves(tree)
 
 
-def serve_tp_reference(torch, dev, build):
-    """The one-rank eager engine of each serve_tp run (same config, seed
-    and prompts), on this card: its streams, and per request the float32
-    logits row each of its tokens came from (``_record_logits``); per
-    arch the teacher-forced logits of its weights through the kernels
-    in bf16 and the plain versions in bf16 and float32."""
+def serve_tp_reference(torch, dev, build, archs=SERVE_TP_ARCHS,
+                       chunks=(0, SERVE_TP_CHUNK), cfg_of=None):
+    """The one-rank eager engine of each serving run on ranks (same
+    config, seed and prompts), on this card: its streams, and per
+    request the float32 logits row each of its tokens came from
+    (``_record_logits``); per arch the teacher-forced logits of its
+    weights through the kernels in bf16 and the plain versions in bf16
+    and float32."""
     from repro_torch.configs import registry
+    cfg_of = cfg_of or registry.get
     out = {}
-    for arch, n in SERVE_TP_ARCHS:
-        cfg = registry.get(arch)
+    for arch, n in archs:
+        cfg = cfg_of(arch)
         prompts = serve_tp_prompts(cfg, n)
-        for chunk in (0, SERVE_TP_CHUNK):
+        for chunk in chunks:
             gc.collect()
             torch.cuda.empty_cache()
             eng = serve_tp_engine(cfg, dev, chunk)
@@ -3650,17 +3769,26 @@ def serve_tp_reference(torch, dev, build):
             run["logits"] = [logits_of[k] for k in sorted(logits_of)]
             out[(arch, chunk)] = run
             if not chunk:
-                out[(arch, "forced")] = {
-                    name: forced_logits(torch, dev, cfg, eng.params, impl,
-                                        dtype).cpu()
-                    for name, impl, dtype in (
-                        ("kernels", None, torch.bfloat16),
-                        ("plain", "ref", torch.bfloat16),
-                        ("plain_f32", "ref", torch.float32))}
+                out[(arch, "forced")] = one_rank_forced(torch, dev, cfg,
+                                                        eng.params)
             del eng, logits_of
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def one_rank_forced(torch, dev, cfg, params):
+    """The teacher-forced logits of ``params`` on this card (as
+    ``ranks_forced`` takes them on ranks) through the kernels in bf16
+    and the plain versions in bf16 and float32, on the host."""
+    modes = (("kernels", None, torch.bfloat16), ("plain", "ref",
+                                                 torch.bfloat16),
+             ("plain_f32", "ref", torch.float32))
+    if cfg.sub_quadratic:
+        return {k: v.cpu() for k, v in seqmix_teacher_force(
+            torch, dev, cfg, params, modes).items()}
+    return {name: forced_logits(torch, dev, cfg, params, impl, dtype).cpu()
+            for name, impl, dtype in modes}
 
 
 def _parting(streams, ref_streams, ref_logits):
@@ -3677,80 +3805,97 @@ def _parting(streams, ref_streams, ref_logits):
     return out
 
 
-def serve_tp_report(res, refs, smi):
-    """The serving part's checks and lines.  Per arch, the teacher-forced
-    logits through the ranks' shards must stay as close to float32
-    compute as one rank's plain bf16 path is, within LOGIT_NOISE_FACTOR
-    (``teacher_force``'s rule for the kernel path).  Per run: every
-    rank's streams equal rank 0's; rank 0's equal the one-rank eager
-    engine's token for token until they part, and where one parts, its
-    token lies below the one-rank max by no more than two bf16 paths
-    within that rule can disagree: (1 + LOGIT_NOISE_FACTOR) times the
-    one-rank bf16 path's largest teacher-forced logit error against
-    float32 (the line also counts the partings within STREAM_LOGIT_TOL,
-    and, for scale, how the one-rank engine's own chunked and legacy
-    streams part); every kernel of the path launched (each rank's paged
-    decode and rmsnorm, the prefill kernels on the ranks of the data
-    shards that held a prompt).  Returns the ranks' launch counts,
-    summed."""
+def serve_tp_report(res, refs, smi, archs=SERVE_TP_ARCHS,
+                    chunks=(0, SERVE_TP_CHUNK), key="serve", tag="serve_tp",
+                    forced="prefill, chunk, 4 decode steps"):
+    """The serving part's checks and lines (``key``: the ranks' results
+    under it; ``archs``, ``chunks``: its runs).  Per arch, the
+    teacher-forced logits through the ranks' shards must stay as close
+    to float32 compute as one rank's plain bf16 path is, within
+    LOGIT_NOISE_FACTOR (``teacher_force``'s rule for the kernel path).
+    Per run: every rank's streams equal rank 0's; rank 0's equal the
+    one-rank eager engine's token for token until they part, and where
+    one parts, its token lies below the one-rank max by no more than two
+    bf16 paths within that rule can disagree: (1 + LOGIT_NOISE_FACTOR)
+    times the one-rank bf16 path's largest teacher-forced logit error
+    against float32 (the line also counts the partings within
+    STREAM_LOGIT_TOL, and, for scale, how the one-rank engine's own
+    chunked and legacy streams part); every kernel of the path launched
+    (``_served_kernels``).  Returns the ranks' launch counts, summed."""
     total = {}
-    for arch, _ in SERVE_TP_ARCHS:
+    for arch, _ in archs:
         got = dict(refs[(arch, "forced")],
-                   sharded=res[0]["serve"][(arch, "forced")])
+                   sharded=res[0][key][(arch, "forced")])
         s_f, s_k, p_f = (_rel_steps(got, "sharded", "plain_f32"),
                          _rel_steps(got, "sharded", "kernels"),
                          _rel_steps(got, "plain", "plain_f32"))
         err = float((got["kernels"] - got["plain_f32"]).abs().max())
         limit = (1 + LOGIT_NOISE_FACTOR) * err
-        own = _parting(refs[(arch, SERVE_TP_CHUNK)]["streams"],
-                       refs[(arch, 0)]["streams"], refs[(arch, 0)]["logits"])
-        print(f"[serve_tp] {arch} teacher-forced logits (prefill, chunk, 4 "
-              f"decode steps), relative L2 error per step: ranks vs f32 "
-              f"{s_f}; ranks vs one rank's kernels {s_k}; one rank's plain "
-              f"bf16 vs f32 {p_f} (limit {LOGIT_NOISE_FACTOR} x its max); "
-              f"one rank's kernels' largest logit error against f32 "
-              f"{err:.5f}, so a parting token's gap limit {limit:.5f}; the "
-              f"one-rank engine's own chunked streams part from its legacy "
-              f"ones at (request, step, gap) {own}")
-        check(max(s_f) <= LOGIT_NOISE_FACTOR * max(p_f), f"serve_tp {arch}: "
+        own = ("" if len(chunks) == 1 else
+               "; the one-rank engine's own chunked streams part from its "
+               "legacy ones at (request, step, gap) "
+               + str(_parting(refs[(arch, chunks[1])]["streams"],
+                              refs[(arch, 0)]["streams"],
+                              refs[(arch, 0)]["logits"])))
+        print(f"[{tag}] {arch} teacher-forced logits ({forced}), relative "
+              f"L2 error per step: ranks vs f32 {s_f}; ranks vs one rank's "
+              f"kernels {s_k}; one rank's plain bf16 vs f32 {p_f} (limit "
+              f"{LOGIT_NOISE_FACTOR} x its max); one rank's kernels' largest "
+              f"logit error against f32 {err:.5f}, so a parting token's gap "
+              f"limit {limit:.5f}{own}")
+        check(max(s_f) <= LOGIT_NOISE_FACTOR * max(p_f), f"{tag} {arch}: "
               f"the ranks' path drifts from f32 by {max(s_f)}, one rank's "
               f"plain bf16 by {max(p_f)}")
-        for chunk in (0, SERVE_TP_CHUNK):
+        for chunk in chunks:
             ref = refs[(arch, chunk)]
             mode = f"chunked({chunk})" if chunk else "legacy"
-            runs = [r["serve"][(arch, chunk)] for r in res]
+            runs = [r[key][(arch, chunk)] for r in res]
             streams = runs[0]["streams"]
             for r, run in zip(res, runs):
-                check(run["streams"] == streams, f"serve_tp {arch} {mode}: "
+                check(run["streams"] == streams, f"{tag} {arch} {mode}: "
                       f"rank {r['rank']} has other streams than rank 0")
             gaps = _parting(streams, ref["streams"], ref["logits"])
             for i, k, gap in gaps:
-                check(gap <= limit, f"serve_tp {arch} {mode}: request {i} "
+                check(gap <= limit, f"{tag} {arch} {mode}: request {i} "
                       f"parts from the one-rank stream at step {k} by a token "
                       f"{gap:.5f} below the one-rank max (limit {limit:.5f})")
-            report_run(arch, mode, chunk, runs, res, ref, gaps, smi)
+            report_run(arch, mode, chunk, runs, res, ref, gaps, smi, tag)
             for run in runs:
                 for k, v in run["launches"].items():
                     total[k] = total.get(k, 0) + v
     return total
 
 
-def report_run(arch, mode, chunk, runs, res, ref, gaps, smi):
-    """A serve_tp run's launch checks and its lines."""
-    prefill = "paged_prefill" if chunk else "flash_fwd"
-    moe = ("moe_gemm",) if arch.startswith("granite") else ()
+def _served_kernels(arch, chunk):
+    """(the kernels every rank launches, those some rank launches) in a
+    serve run on (data 2, model 2): an xLSTM's norms alone; an
+    attention arch's decode and norms on every rank (and a MoE arch's
+    experts), its prefill kernel on the ranks of the data shards that
+    held a prompt."""
+    if arch.startswith("xlstm"):
+        return ("rmsnorm",), ()
+    moe = ("moe_gemm",) if arch.startswith(("granite", "jamba")) else ()
+    return (("paged_decode", "rmsnorm") + moe,
+            ("paged_prefill" if chunk else "flash_fwd",))
+
+
+def report_run(arch, mode, chunk, runs, res, ref, gaps, smi,
+               tag="serve_tp"):
+    """A serve run on ranks: its launch checks and its lines."""
+    each, some = _served_kernels(arch, chunk)
     for r, run in zip(res, runs):
-        for name in ("paged_decode", "rmsnorm") + moe:
-            check(run["launches"].get(name, 0) > 0, f"serve_tp {arch} "
+        for name in each:
+            check(run["launches"].get(name, 0) > 0, f"{tag} {arch} "
                   f"{mode}: rank {r['rank']} never launched {name}")
-    check(sum(run["launches"].get(prefill, 0) for run in runs) > 0,
-          f"serve_tp {arch} {mode}: no rank launched {prefill}")
+    for name in some:
+        check(sum(run["launches"].get(name, 0) for run in runs) > 0,
+              f"{tag} {arch} {mode}: no rank launched {name}")
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
     r0 = runs[0]
     n_req, n_ticks = len(r0["streams"]), sum(map(len, r0["ticks"].values()))
     within = sum(g <= STREAM_LOGIT_TOL for _, _, g in gaps)
     kind = "mixed" if chunk else "prefill"
-    print(f"[serve_tp] {arch} {mode} on (data 2, model 2), dp_shards 2, "
+    print(f"[{tag}] {arch} {mode} on (data 2, model 2), dp_shards 2, "
           f"{n_req} requests: every rank's streams equal; {len(gaps)} of "
           f"{n_req} part from the one-rank eager engine's (request, step, "
           f"gap below its max) {gaps}, {within} within STREAM_LOGIT_TOL "
@@ -3764,7 +3909,7 @@ def report_run(arch, mode, chunk, runs, res, ref, gaps, smi):
           f"{med(ref['ttft_ms']):.1f} ms, {ref['tok_s']:.1f} tok/s ({smi})")
     for r, run in zip(res, runs):
         per_tick = {a: b // n_ticks for a, b in sorted(run["bytes"].items())}
-        print(f"[serve_tp] {arch} {mode} rank {r['rank']} {run['coords']}: "
+        print(f"[{tag}] {arch} {mode} rank {r['rank']} {run['coords']}: "
               f"built in {run['build_s']:.1f} s, params "
               f"{run['params_gb']:.2f} GB, pool {run['pool_gb']:.3f} GB, peak "
               f"{run['peak_gb']:.2f} GB allocated; payload bytes a tick by "
@@ -3772,120 +3917,393 @@ def report_run(arch, mode, chunk, runs, res, ref, gaps, smi):
               f"{ {k: v for k, v in run['launches'].items() if v} }")
 
 
+# the tp phase's seqmix_tp part: the sequence mixers on the same four
+# ranks.  Served on (data 2, model 2), dp_shards 2, legacy (no chunked
+# tick on these archs), at full width and SEQMIX_TP_LAYERS layers of
+# their own: jamba's one whole Jamba block (7 Mamba, 1 attention and 4
+# MoE FFNs: 13.3e9 params, 27 GB of bf16 weights a data replica, so
+# ~54 GB on the card), xlstm's 7 mLSTM and the sLSTM of its 48, 4
+# requests (the sLSTM's recurrence is a host loop every rank runs).
+# Trained on (data 1, model 4) at the seqmix_train phase's 2-layer cuts
+# (jamba 3.68e9 params, ~15 GB of float32 state a rank): xlstm one row of
+# 256; jamba the seqmix_train phase's 2 x 4096.  At 1 x 1024 jamba's
+# routing (16 experts, top 2, over 1024 tokens) puts one rank's own bf16
+# paths 0.9e-3 (plain) and 1.6e-3 (kernels) from float32 in grad_norm,
+# too near TP_GRAD_RTOL to tell a sharding fault from bf16 rounding; at
+# 2 x 4096 0.4e-3 and 0.2e-3 (tools/tp_grad_noise.py; without the MoE
+# FFN the ranks lie 1.2e-5 from float32 at 1 x 1024).  The routing moves
+# the served logits too: jamba's ranks sit nearer the teacher-forced
+# rule's edge than a dense arch's, so the ranks also take jamba with dense
+# FFNs through that rule (``seqmix_tp_dense_cfg``).
+SEQMIX_TP_LAYERS = 8
+SEQMIX_TP_SERVE = (("jamba-v0.1-52b", 8), ("xlstm-1.3b", 4))
+SEQMIX_TP_TRAIN = (("jamba-v0.1-52b", JAMBA_F32_PATTERN, 2, 4096),
+                   ("xlstm-1.3b", ("mlstm", "slstm"), 1, 256))
+SEQMIX_TP_STEPS = 2
+# (label, mesh shape, rows) of the in-projection exchange timed alone: a
+# decode tick's rows of a data shard (4 slots), a 512-token prefill, a
+# jamba training batch (2 x 4096) on model 4
+SEQMIX_TP_EXCHANGES = (("decode", (2, 2), 4), ("prefill", (2, 2), 512),
+                       ("train", (1, 4), 8192))
+
+
+def seqmix_tp_cfg(arch):
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get(arch), n_layers=SEQMIX_TP_LAYERS)
+
+
+def seqmix_tp_dense_cfg():
+    """jamba at SEQMIX_TP_LAYERS layers with a dense FFN in place of each
+    MoE one: its teacher-forced logits on the ranks hold the Mamba and
+    attention blocks' split without the experts' routing, which parts
+    any two bf16 paths (``seqmix_tp_report``)."""
+    return dataclasses.replace(seqmix_tp_cfg("jamba-v0.1-52b"), moe=None)
+
+
+def seqmix_tp_train_setup():
+    """(arch, config, shape) of each seqmix_tp train cut."""
+    from repro_torch.configs import WorkloadShape, registry
+    return [(arch, dataclasses.replace(registry.get(arch), n_layers=2,
+                                       block_pattern=pattern),
+             WorkloadShape("chip", "train", seq, rows))
+            for arch, pattern, rows, seq in SEQMIX_TP_TRAIN]
+
+
+def seqmix_tp_reference(torch, dev, build):
+    """The seqmix_tp part's one-rank references on this card: the eager
+    engine's serving runs (``serve_tp_reference``), the dense jamba's
+    teacher-forced logits (``seqmix_tp_dense_cfg``) and each train cut's
+    SEQMIX_TP_STEPS steps (``TrainConfig()``, seed 0): its history."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.train import Trainer
+    out = serve_tp_reference(torch, dev, build, SEQMIX_TP_SERVE, (0,),
+                             seqmix_tp_cfg)
+    cfg = seqmix_tp_dense_cfg()
+    eng = serve_tp_engine(cfg, dev, 0)
+    out["dense_forced"] = one_rank_forced(torch, dev, cfg, eng.params)
+    del eng
+    for arch, cfg, shape in seqmix_tp_train_setup():
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = Trainer(cfg, TrainConfig(), shape, seed=0, device=dev)
+        tr.run(SEQMIX_TP_STEPS, log_every=0)
+        out[(arch, "train")] = tr.history
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _exchange_ms(torch, dev, mesh, cfg, rows, reps=7):
+    """The median host ms of one ``layers.split_halves`` exchange of a
+    mixer layer of ``cfg`` (its in-projection's (1, rows, 2 d_in / model)
+    bf16 columns, to the host and back), on every rank of ``mesh`` (a
+    collective)."""
+    from repro_torch.models import layers
+    d_in = 2 * cfg.d_model                  # jamba's and xlstm's expand 2
+    xz = torch.randn((1, rows, 2 * d_in // mesh.shape["model"]),
+                     device=dev).to(torch.bfloat16)
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        layers.split_halves(xz, mesh)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return sorted(ts)[reps // 2]
+
+
+def seqmix_tp_rank(torch, dev, meshes, build):
+    """A rank's seqmix_tp part: SEQMIX_TP_SERVE served on (data 2, model
+    2) (``serve_tp_rank``), the dense jamba's teacher-forced logits there
+    (``seqmix_tp_dense_cfg``), the in-projection exchange timed alone at
+    SEQMIX_TP_EXCHANGES, then each train cut on (data 1, model 4)
+    (``_tp_train_run``, ``baseline``: tensor and expert parallelism, no
+    data sync)."""
+    from repro_torch.configs import BASELINE
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out = {"held_gb": (torch.cuda.memory_allocated() / 1e9,
+                       torch.cuda.memory_reserved() / 1e9)}
+    out["serve"] = serve_tp_rank(torch, dev, meshes[(2, 2)], build,
+                                 SEQMIX_TP_SERVE, (0,), seqmix_tp_cfg)
+    cfg = seqmix_tp_dense_cfg()
+    eng = serve_tp_engine(cfg, dev, 0, meshes[(2, 2)])
+    out["dense_forced"] = ranks_forced(torch, dev, cfg, eng, meshes[(2, 2)])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["exchange_ms"] = {
+        (arch, label): _exchange_ms(torch, dev, meshes[mshape],
+                                    seqmix_tp_cfg(arch), rows)
+        for arch, _ in SEQMIX_TP_SERVE
+        for label, mshape, rows in SEQMIX_TP_EXCHANGES}
+    out["train"] = {
+        arch: _tp_train_run(torch, dev, build, arch, cfg, shape,
+                            meshes[(1, 4)], BASELINE, SEQMIX_TP_STEPS)
+        for arch, cfg, shape in seqmix_tp_train_setup()}
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def seqmix_tp_report(res, refs, smi):
+    """The seqmix_tp part's checks and lines: the serving runs by
+    ``serve_tp_report``'s rule against the one-rank eager engine, the
+    dense jamba's teacher-forced logits by the same rule (the MoE
+    jamba's ratio beside it), the exchange's times, and each train cut by ``_tp_train_report`` against
+    its one-rank run (launches: jamba's every kernel of the 2-layer cut,
+    as the seqmix_train phase counts them; xlstm's norms).  Returns the
+    ranks' summed launch counts."""
+    from repro_torch.configs import BASELINE
+    total = serve_tp_report(
+        [dict(r, seqmix=r["seqmix"]["serve"]) for r in res], refs, smi,
+        SEQMIX_TP_SERVE, (0,), key="seqmix", tag="seqmix_tp",
+        forced="a 77-token exact-length prefill, 4 decode steps")
+    # the same rule without the MoE routing: jamba with dense FFNs
+    jamba = "jamba-v0.1-52b"
+    ratio = {}
+    for name, ref, rows in (
+            ("MoE", refs[(jamba, "forced")],
+             res[0]["seqmix"]["serve"][(jamba, "forced")]),
+            ("dense", refs["dense_forced"], res[0]["seqmix"]["dense_forced"])):
+        got = dict(ref, sharded=rows)
+        s_f = _rel_steps(got, "sharded", "plain_f32")
+        p_f = _rel_steps(got, "plain", "plain_f32")
+        ratio[name] = (s_f, p_f, max(s_f) / max(p_f))
+    s_f, p_f, r = ratio["dense"]
+    print(f"[seqmix_tp] {jamba} with dense FFNs (moe=None) teacher-forced "
+          f"on (data 2, model 2): relative L2 error per step: ranks vs f32 "
+          f"{s_f}; one rank's plain bf16 vs f32 {p_f}; the ranks' largest "
+          f"{r:.4f} x one rank's (limit {LOGIT_NOISE_FACTOR}); with its MoE "
+          f"FFNs {ratio['MoE'][2]:.4f} x ({smi})")
+    check(r <= LOGIT_NOISE_FACTOR, f"seqmix_tp {jamba} dense: the ranks' "
+          f"path drifts from f32 by {max(s_f)}, one rank's plain bf16 by "
+          f"{max(p_f)}")
+    print(f"[seqmix_tp] the part took {res[0]['seqmix']['seconds']:.1f} s "
+          f"on the ranks; at its start each rank held (allocated, "
+          f"reserved) GB "
+          f"{[tuple(round(x, 2) for x in r['seqmix']['held_gb']) for r in res]}")
+    ms = res[0]["seqmix"]["exchange_ms"]
+    print(f"[seqmix_tp] the in-projection's u/z exchange over model, one "
+          f"layer, rank 0's median host ms (bf16 to the host, gloo "
+          f"all-to-all, back): "
+          + "; ".join(f"{arch} {label} ({rows} rows on "
+                      f"{dict(zip(('data', 'model'), mshape))}) "
+                      f"{ms[(arch, label)]:.3f}"
+                      for arch, _ in SEQMIX_TP_SERVE
+                      for label, mshape, rows in SEQMIX_TP_EXCHANGES)
+          + f" ({smi})")
+    steps = SEQMIX_TP_STEPS
+    for arch, cfg, shape in seqmix_tp_train_setup():
+        counts = ({"rmsnorm": 9 * steps, "flash_fwd": 2 * steps,
+                   "flash_bwd_dq": steps, "flash_bwd_dkv": steps,
+                   "moe_gemm": 12 * steps} if cfg.moe is not None else
+                  {"rmsnorm": 5 * steps})
+        _tp_train_report(
+            "seqmix_tp", f"{cfg.name} {cfg.block_pattern} "
+            f"{shape.global_batch} x {shape.seq_len}", cfg, shape, (1, 4),
+            ("data", "model"),
+            BASELINE, [(r["rank"], r["seqmix"]["train"][arch])
+                       for r in res], refs[(arch, "train")], steps, counts,
+            smi, total)
+    return total
+
+
+def _tp_train_run(torch, dev, build, name, cfg, shape, mesh, strategy,
+                  steps, ckpt=None):
+    """One train run on this rank's ``mesh`` (``TrainConfig()``, seed 0,
+    ``steps`` steps, a checkpoint at the last where ``ckpt``): losses,
+    step times, the bytes the allocator gave the state against its
+    resolved shards, payload bytes by axis, peak memory and launch
+    counts; on a pod tier also the exchange's bytes in one forward."""
+    import math
+    import warnings
+
+    from repro_torch import comm
+    from repro_torch.comm import collectives
+    from repro_torch.configs import TrainConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import steps as dsteps
+    from repro_torch.dist.actsharding import activation_sharding
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model
+    from repro_torch.train import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tr = Trainer(cfg, TrainConfig(), shape, mesh=mesh, strategy=strategy,
+                     ckpt_dir=ckpt, seed=0, device=dev)
+    n_warn = sum(issubclass(x.category, comm.CommFallbackWarning)
+                 for x in caught)
+    # the state's bytes: the bytes the allocator was asked for and still
+    # holds ("requested_bytes": a block's own size rounds up and may take
+    # a whole cached block), against each leaf's shard
+    def asked():
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    before, before_blocks = asked(), torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    tr.init_or_resume()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    held = asked() - before
+    blocks = torch.cuda.memory_allocated() - before_blocks
+    specs = P.tree_leaves(dsteps.train_state_shardings(cfg, strategy, mesh))
+    template = P.tree_leaves(dsteps.abstract_train_state(
+        cfg, TrainConfig(), strategy))
+    shards = [math.prod(shd.local_shape(t.shape, sp, mesh))
+              * t.element_size() for t, sp in zip(template, specs)]
+    check([tuple(x.shape) for x in P.tree_leaves(tr.state)]
+          == [shd.local_shape(t.shape, sp, mesh)
+              for t, sp in zip(template, specs)],
+          f"rank {mesh.rank} {name}: state leaves are not their shards")
+    build.reset_launches()
+    collectives.reset_counters()
+    t = time.perf_counter()
+    tr.run(steps, ckpt_every=steps if ckpt else 0, log_every=0)
+    torch.cuda.synchronize()
+    run = {"history": tr.history, "seconds": time.perf_counter() - t,
+           "launches": dict(build.LAUNCHES),
+           "bytes": dict(collectives.PAYLOAD_BYTES),
+           "held": held, "shards": sum(shards), "blocks": blocks,
+           "init_s": init_s, "warnings": n_warn,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "coords": mesh.coords}
+    if "pod" in mesh.shape:
+        # one forward of the loss over this rank's rows: the exchange's
+        # bytes alone (no gradient sync), the launches not counted
+        rows = shape.global_batch // mesh.shape["pod"]
+        g = torch.Generator(device=dev).manual_seed(99)
+        tok = torch.randint(0, cfg.vocab_size, (rows, shape.seq_len),
+                            generator=g, device=dev)
+        collectives.reset_counters()
+        with torch.no_grad(), activation_sharding(
+                mesh, strategy, global_rows=shape.global_batch):
+            Model(cfg).loss(tr.state["params"],
+                            {"tokens": tok, "labels": tok}, remat=False)
+        torch.cuda.synchronize()
+        run["fwd_pod_bytes"] = collectives.PAYLOAD_BYTES.get("pod", 0)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
 def tp_rank(rank, init_file, ckpt_dir, queue):
     """One of the tp phase's four ranks: its own process, on card 0, in
-    a gloo process group of four.  Runs each of ``_tp_setup``'s runs
-    (``TrainConfig()``, seed 0, TP_STEPS steps; yi's baseline run writes a
-    checkpoint at its last step), and puts what it measured on
-    ``queue``: losses, step times, the bytes the allocator gave the
-    state against its resolved shards, payload bytes by axis, peak
-    memory and launch counts; for the pod run also the exchange's bytes
-    in one forward.  Then, the training's memory freed, the serving part
-    on (data 2, model 2) (``serve_tp_rank``).  Any failure raises: the
-    process exits non-zero and the parent fails."""
-    import math
+    a gloo process group of four, on torch's default intra-op threads
+    (PERF.md section 5).  Runs each of ``_tp_setup``'s runs
+    (``_tp_train_run``, TP_STEPS steps; yi's baseline run writes a
+    checkpoint at its last step), then, the training's memory freed, the
+    serving part on (data 2, model 2) (``serve_tp_rank``), then the
+    seqmix_tp part (``seqmix_tp_rank``), and puts what it measured on
+    ``queue``.  Any failure raises: the process exits non-zero and the
+    parent fails."""
     import os
-    import warnings
     from datetime import timedelta
 
     import torch
     import torch.distributed as dist
 
-    from repro_torch import comm
-    from repro_torch.comm import collectives
-    from repro_torch.configs import TrainConfig
     from repro_torch.dist import mesh as dmesh
-    from repro_torch.dist import sharding as shd
-    from repro_torch.dist import steps as dsteps
-    from repro_torch.dist.actsharding import activation_sharding
     from repro_torch.kernels import build
-    from repro_torch.models import params as P
-    from repro_torch.models.model import Model
-    from repro_torch.train import Trainer
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # four ranks share the card: segments that grow in place keep a rank's
+    # freed blocks reusable across its parts (fixed segments left 4.6 GB
+    # of one rank's reserve unusable when jamba's weights were drawn)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
     timeout = timedelta(seconds=TP_TIMEOUT_S)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=4, timeout=timeout)
     meshes = {}
-    out = {"rank": rank, "runs": {}}
+    out = {"rank": rank, "runs": {}, "threads": torch.get_num_threads()}
     for name, cfg, shape, mshape, axes, strategy in _tp_setup():
         if mshape not in meshes:
             meshes[mshape] = dmesh.make_mesh(mshape, axes, timeout=timeout)
-        mesh = meshes[mshape]
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ckpt = ckpt_dir if name == "yi-6b baseline" else None
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            tr = Trainer(cfg, TrainConfig(), shape, mesh=mesh,
-                         strategy=strategy, ckpt_dir=ckpt, seed=0,
-                         device=dev)
-        n_warn = sum(issubclass(x.category, comm.CommFallbackWarning)
-                     for x in caught)
-        # the state's bytes: the bytes the allocator was asked for and
-        # still holds ("requested_bytes": a block's own size rounds up and
-        # may take a whole cached block), against each leaf's shard
-        def asked():
-            return torch.cuda.memory_stats()["requested_bytes.all.current"]
-
-        before, before_blocks = asked(), torch.cuda.memory_allocated()
-        t = time.perf_counter()
-        tr.init_or_resume()
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t
-        held = asked() - before
-        blocks = torch.cuda.memory_allocated() - before_blocks
-        specs = P.tree_leaves(dsteps.train_state_shardings(cfg, strategy,
-                                                           mesh))
-        template = P.tree_leaves(dsteps.abstract_train_state(
-            cfg, TrainConfig(), strategy))
-        shards = [math.prod(shd.local_shape(t.shape, sp, mesh))
-                  * t.element_size() for t, sp in zip(template, specs)]
-        check([tuple(x.shape) for x in P.tree_leaves(tr.state)]
-              == [shd.local_shape(t.shape, sp, mesh)
-                  for t, sp in zip(template, specs)],
-              f"rank {rank} {name}: state leaves are not their shards")
-        build.reset_launches()
-        collectives.reset_counters()
-        t = time.perf_counter()
-        tr.run(TP_STEPS, ckpt_every=TP_STEPS if ckpt else 0, log_every=0)
-        torch.cuda.synchronize()
-        run = {"history": tr.history, "seconds": time.perf_counter() - t,
-               "launches": dict(build.LAUNCHES),
-               "bytes": dict(collectives.PAYLOAD_BYTES),
-               "held": held, "shards": sum(shards), "blocks": blocks,
-               "init_s": init_s,
-               "warnings": n_warn,
-               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
-               "coords": mesh.coords}
-        if "pod" in mesh.shape:
-            # one forward of the loss over this rank's rows: the exchange's
-            # bytes alone (no gradient sync), the launches not counted
-            rows = shape.global_batch // mesh.shape["pod"]
-            g = torch.Generator(device=dev).manual_seed(99)
-            tok = torch.randint(0, cfg.vocab_size, (rows, shape.seq_len),
-                                generator=g, device=dev)
-            collectives.reset_counters()
-            with torch.no_grad(), activation_sharding(
-                    mesh, strategy, global_rows=shape.global_batch):
-                Model(cfg).loss(tr.state["params"],
-                                {"tokens": tok, "labels": tok}, remat=False)
-            torch.cuda.synchronize()
-            run["fwd_pod_bytes"] = collectives.PAYLOAD_BYTES.get("pod", 0)
-        out["runs"][name] = run
-        del tr
-        gc.collect()
-        torch.cuda.empty_cache()
+        out["runs"][name] = _tp_train_run(
+            torch, dev, build, name, cfg, shape, meshes[mshape], strategy,
+            TP_STEPS, ckpt_dir if name == "yi-6b baseline" else None)
     # serving on (data 2, model 2), the training's memory freed
     out["serve"] = serve_tp_rank(torch, dev, meshes[(2, 2)], build)
+    meshes[(1, 4)] = dmesh.make_mesh((1, 4), ("data", "model"),
+                                     timeout=timeout)
+    out["seqmix"] = seqmix_tp_rank(torch, dev, meshes, build)
     dist.destroy_process_group()
     queue.put(out)
+
+
+def _tp_train_report(tag, name, cfg, shape, mshape, axes, strategy, runs,
+                     want, steps, counts, smi, total):
+    """A train run on ranks (``runs``: (rank, its run) each) against one
+    rank's history ``want``: every rank's losses equal rank 0's, within TP_RTOL of one rank's at every
+    step, grad_norm within TP_GRAD_RTOL, the state bytes its resolved
+    shards' exactly, the launches ``counts`` on every rank (added to
+    ``total``); and its lines."""
+    hist0 = runs[0][1]["history"]
+    losses = [h["loss"] for h in hist0]
+    for rank, run in runs:
+        check([h["loss"] for h in run["history"]] == losses,
+              f"rank {rank} has other {name} losses than rank 0")
+    gaps = [abs(a - b["loss"]) / abs(b["loss"])
+            for a, b in zip(losses, want)]
+    g_gaps = [[abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+               for a, b in zip(run["history"], want)] for _, run in runs]
+    print(f"[{tag}] {name} on {dict(zip(axes, mshape))} ({strategy.name}): "
+          f"losses {[round(x, 5) for x in losses]} against one rank's "
+          f"{[round(h['loss'], 5) for h in want[:steps]]}: largest "
+          f"relative gap {max(gaps):.3g} (tol {TP_RTOL}); grad_norm "
+          f"{[round(h['grad_norm'], 5) for h in hist0]}"
+          f" against {[round(h['grad_norm'], 5) for h in want[:steps]]}"
+          f": relative gaps by step {[f'{max(c):.3g}' for c in zip(*g_gaps)]}"
+          f" over the ranks (tol {TP_GRAD_RTOL})")
+    check(len(gaps) == steps and max(gaps) <= TP_RTOL,
+          f"{name}: sharded losses differ from one rank's by {gaps}")
+    check(all(len(g) == steps for g in g_gaps)
+          and max(map(max, g_gaps)) <= TP_GRAD_RTOL,
+          f"{name}: sharded grad_norms differ from one rank's by {g_gaps}")
+    n_warn = runs[0][1]["warnings"]
+    check(n_warn == (1 if strategy.name == "optimized" else 0),
+          f"{name}: {n_warn} CommFallbackWarnings")
+    for rank, run in runs:
+        _check_launches(f"{tag} {name} rank {rank}", run["launches"], counts)
+        check(run["held"] == run["shards"], f"rank {rank} {name}: the state "
+              f"holds {run['held']} B, its resolved shards {run['shards']} B")
+        if strategy.compress_cross_pod:
+            check(run["launches"]["quantize"] > 0
+                  and run["launches"]["dequantize"] > 0,
+                  f"rank {rank} {name}: no int8 launch on the pod hop")
+        if "fwd_pod_bytes" in run:
+            exp = _exchange_bytes(cfg, shape, mshape)
+            check(run["fwd_pod_bytes"] == exp, f"rank {rank} {name}: the "
+                  f"exchange handed the pod group {run['fwd_pod_bytes']} B "
+                  f"in one forward, not {exp}")
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+        step_ms = sorted(h["step_time_s"] * 1e3 for h in run["history"][1:])
+        per_step = {a: b // steps for a, b in sorted(run["bytes"].items())}
+        print(f"[{tag}] rank {rank} {run['coords']} {name}: steps "
+              f"{[round(h['step_time_s'] * 1e3, 1) for h in run['history']]}"
+              f" ms (median after the first "
+              f"{step_ms[len(step_ms) // 2]:.1f}); state drawn in "
+              f"{run['init_s']:.1f} s, {run['held']} B held = its resolved "
+              f"shards' ({run['blocks']} B of allocator blocks); "
+              f"{run['seconds']:.1f} s for {steps} steps; payload bytes a "
+              f"step by axis {per_step}"
+              + (f"; the exchange's pod bytes in one forward "
+                 f"{run['fwd_pod_bytes']} (= the pinned count)"
+                 if "fwd_pod_bytes" in run else "")
+              + f"; peak {run['peak_gb']:.2f} GB allocated, "
+              f"{run['peak_reserved_gb']:.2f} reserved; launches "
+              f"{ {k: v for k, v in run['launches'].items() if v} } ({smi})")
 
 
 def tp_phase(torch, dev, build, smi):
@@ -3893,17 +4311,17 @@ def tp_phase(torch, dev, build, smi):
     card (``_tp_setup``), each run held against one rank's run of the
     same config, draw and batch on this card (yi-6b's: the train phase's
     run; granite's: grad_accum=2 here, the two pods' rows as two
-    microbatches, whose MoE aux losses are averaged alike): losses within
-    TP_RTOL and grad_norm within TP_GRAD_RTOL at every step, every
-    rank's state bytes equal to its resolved shards',
-    granite's exchange bytes equal to ``_exchange_bytes``, the kernels
-    launched at their local shapes, and yi's sharded checkpoint restored
-    on this one rank, whose next step's loss is held to the one-rank
-    run's.  Then the serving part (``serve_tp_report``): yi-6b and
-    granite-moe-1b-a400m at full size served by the same four ranks on
-    (data 2, model 2), against the one-rank eager engine run here before
-    the ranks start.  Returns the ranks' summed launch counts of the
-    training and of the serving part."""
+    microbatches, whose MoE aux losses are averaged alike) by
+    ``_tp_train_report``, granite's exchange bytes equal to
+    ``_exchange_bytes``, the kernels launched at their local shapes, and
+    yi's sharded checkpoint restored on this one rank, whose next step's
+    loss is held to the one-rank run's.  Then the serving part
+    (``serve_tp_report``): yi-6b and granite-moe-1b-a400m at full size
+    served by the same four ranks on (data 2, model 2), against the
+    one-rank eager engine run here before the ranks start; then the
+    seqmix_tp part (``seqmix_tp_report``), its one-rank references run
+    here too.  Returns the ranks' summed launch counts of the training,
+    of the serving part and of the seqmix_tp part."""
     import queue as queue_mod
     import shutil
 
@@ -3918,6 +4336,10 @@ def tp_phase(torch, dev, build, smi):
     t = time.perf_counter()
     serve_refs = serve_tp_reference(torch, dev, build)
     print(f"[tp] serving's one-rank eager references in "
+          f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    seqmix_refs = seqmix_tp_reference(torch, dev, build)
+    print(f"[tp] seqmix_tp's one-rank references in "
           f"{time.perf_counter() - t:.1f} s")
     name, gcfg, gshape = setup[2][:3]
     t = time.perf_counter()
@@ -3934,6 +4356,10 @@ def tp_phase(torch, dev, build, smi):
     gc.collect()
     torch.cuda.empty_cache()
 
+    print(f"[tp] this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+          f"reserved as the ranks start; the card "
+          f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB free")
     ckpt_dir = ROOT / "build" / "chip_smoke_tp_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     init_file = ROOT / "build" / f"tp_pg_{os.getpid()}"
@@ -3970,80 +4396,21 @@ def tp_phase(torch, dev, build, smi):
           f"tp ranks exited with {[p.exitcode for p in procs]}")
     res = [results[r] for r in range(4)]
     print(f"[tp] 4 ranks on one card, gloo (CUDA payloads through host "
-          f"memory), in {time.perf_counter() - t:.1f} s")
+          f"memory), {res[0]['threads']} torch threads a rank, in "
+          f"{time.perf_counter() - t:.1f} s")
 
     total = {k: 0 for k in build.LAUNCHES}
     for name, cfg, shape, mshape, axes, strategy in setup:
         want = refs["granite" if name.startswith("granite") else "yi-6b"]
-        losses = [h["loss"] for h in res[0]["runs"][name]["history"]]
-        for r in res:
-            check([h["loss"] for h in r["runs"][name]["history"]] == losses,
-                  f"rank {r['rank']} has other {name} losses than rank 0")
-        gaps = [abs(a - b["loss"]) / abs(b["loss"])
-                for a, b in zip(losses, want)]
-        g_gaps = [[abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
-                   for a, b in zip(r["runs"][name]["history"], want)]
-                  for r in res]
-        print(f"[tp] {name} on {dict(zip(axes, mshape))} ({strategy.name}): "
-              f"losses {[round(x, 5) for x in losses]} against one rank's "
-              f"{[round(h['loss'], 5) for h in want[:TP_STEPS]]}: largest "
-              f"relative gap {max(gaps):.3g} (tol {TP_RTOL}); grad_norm "
-              f"{[round(h['grad_norm'], 5) for h in res[0]['runs'][name]['history']]}"
-              f" against {[round(h['grad_norm'], 5) for h in want[:TP_STEPS]]}"
-              f": relative gaps by step {[f'{max(c):.3g}' for c in zip(*g_gaps)]}"
-              f" over the ranks (tol {TP_GRAD_RTOL})")
-        check(len(gaps) == TP_STEPS and max(gaps) <= TP_RTOL,
-              f"{name}: sharded losses differ from one rank's by {gaps}")
-        check(all(len(g) == TP_STEPS for g in g_gaps)
-              and max(map(max, g_gaps)) <= TP_GRAD_RTOL,
-              f"{name}: sharded grad_norms differ from one rank's by "
-              f"{g_gaps}")
-        n_warn = res[0]["runs"][name]["warnings"]
-        check(n_warn == (1 if strategy.name == "optimized" else 0),
-              f"{name}: {n_warn} CommFallbackWarnings")
         L, steps = cfg.n_layers, TP_STEPS
         counts = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
                   "flash_bwd_dkv": L * steps,
                   "rmsnorm": (2 * 2 * L + 1) * steps}
         if cfg.moe is not None:
             counts["moe_gemm"] = 12 * L * steps
-        for r in res:
-            run = r["runs"][name]
-            _check_launches(f"tp {name} rank {r['rank']}", run["launches"],
-                            counts)
-            check(run["held"] == run["shards"], f"rank {r['rank']} {name}: "
-                  f"the state holds {run['held']} B, its resolved shards "
-                  f"{run['shards']} B")
-            if strategy.compress_cross_pod:
-                check(run["launches"]["quantize"] > 0
-                      and run["launches"]["dequantize"] > 0,
-                      f"rank {r['rank']} {name}: no int8 launch on the pod "
-                      f"hop")
-            if "fwd_pod_bytes" in run:
-                exp = _exchange_bytes(cfg, shape, mshape)
-                check(run["fwd_pod_bytes"] == exp, f"rank {r['rank']} "
-                      f"{name}: the exchange handed the pod group "
-                      f"{run['fwd_pod_bytes']} B in one forward, not {exp}")
-            for k, v in run["launches"].items():
-                total[k] += v
-            step_ms = sorted(h["step_time_s"] * 1e3
-                             for h in run["history"][1:])
-            per_step = {a: b // steps for a, b in sorted(run["bytes"].items())}
-            print(f"[tp] rank {r['rank']} {run['coords']} {name}: steps "
-                  f"{[round(h['step_time_s'] * 1e3, 1) for h in run['history']]}"
-                  f" ms (median after the first "
-                  f"{step_ms[len(step_ms) // 2]:.1f}); state drawn in "
-                  f"{run['init_s']:.1f} s, {run['held']} B held = its "
-                  f"resolved shards' ({run['blocks']} B of allocator "
-                  f"blocks); {run['seconds']:.1f} s for {steps} steps; "
-                  f"payload bytes a step by axis {per_step}"
-                  + (f"; the exchange's pod bytes in one forward "
-                     f"{run['fwd_pod_bytes']} (= the pinned count)"
-                     if "fwd_pod_bytes" in run else "")
-                  + f"; peak {run['peak_gb']:.2f} GB allocated, "
-                  f"{run['peak_reserved_gb']:.2f} reserved; launches "
-                  f"{ {k: v for k, v in run['launches'].items() if v} } "
-                  f"({smi})")
+        _tp_train_report("tp", name, cfg, shape, mshape, axes, strategy,
+                         [(r["rank"], r["runs"][name]) for r in res], want,
+                         steps, counts, smi, total)
 
     # yi's sharded checkpoint (step 3), restored whole on this one rank
     cfg, shape = setup[0][1], setup[0][2]
@@ -4071,7 +4438,8 @@ def tp_phase(torch, dev, build, smi):
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return total, serve_tp_report(res, serve_refs, smi)
+    return (total, serve_tp_report(res, serve_refs, smi),
+            seqmix_tp_report(res, seqmix_refs, smi))
 
 
 # ---------------------------------------------------------------------------
@@ -5606,9 +5974,11 @@ def main() -> int:
     stamp("pixtral")
     runs.extend(comm_phase(torch, dev, build, smi))
     stamp("comm")
-    tp_total, serve_tp_total = tp_phase(torch, dev, build, smi)
+    tp_total, serve_tp_total, seqmix_tp_total = tp_phase(torch, dev, build,
+                                                         smi)
     tp_runs, serve_tp_runs = [tp_total], [serve_tp_total]
-    runs.extend(tp_runs + serve_tp_runs)
+    seqmix_tp_runs = [seqmix_tp_total]
+    runs.extend(tp_runs + serve_tp_runs + seqmix_tp_runs)
     stamp("tp")
     runs.append(operator_ranks_phase(torch, dev, build, smi))
     stamp("operator_ranks")
@@ -5616,12 +5986,12 @@ def main() -> int:
     kernels = []
     for name, r in rows.items():
         # a head dim 160 row counts the pixtral phase's launches, a tp
-        # shape's row the tp phase's training or serving
+        # shape's row the tp phase's training, serving or seqmix_tp part
         base = r.get("kernel", name)
         which = r.get("runs", "pixtral" if base != name else "all")
         launches = sum(run.get(base, 0) for run in {
             "pixtral": pix_runs, "tp": tp_runs, "serve_tp": serve_tp_runs,
-            "all": runs}[which])
+            "seqmix_tp": seqmix_tp_runs, "all": runs}[which])
         check(launches > 0, f"no main-path run launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[base],

@@ -39,7 +39,8 @@ here too, each an ``autograd.Function`` over one axis's group:
 ``copy_to`` (identity forward, all-reduce backward), ``reduce_from``
 (all-reduce forward, identity backward), ``gather_dim`` (all-gather
 forward, reduce-scatter backward), ``exchange`` (the all-to-all of
-hierarchical MoE dispatch over ``pod``) and ``vocab_parallel_xent``;
+hierarchical MoE dispatch over ``pod``, and of a sequence mixer's
+in-projection halves over ``model``) and ``vocab_parallel_xent``;
 ``broadcast_along`` hands a serving engine's logits from the data shard
 that ran a prompt to the others (no gradient).
 """
@@ -296,7 +297,7 @@ def broadcast_along(x, mesh, axis, src: int):
     return _staged(lambda i, o: dist.broadcast(i, root, group=g), x)
 
 
-def _slice_along(x, dim, mesh, axis):
+def slice_along(x, dim, mesh, axis):
     """This rank's 1/n of ``x`` along ``dim`` over ``axis``."""
     n = mesh.shape.get(axis, 1) if mesh is not None and mesh.size > 1 else 1
     if n == 1:
@@ -351,37 +352,46 @@ class _GatherDim(torch.autograd.Function):
     def backward(ctx, grad):
         for a in ctx.axes:
             grad = (scatter_along(grad, ctx.dim, ctx.mesh, a) if ctx.sum
-                    else _slice_along(grad, ctx.dim, ctx.mesh, a))
+                    else slice_along(grad, ctx.dim, ctx.mesh, a))
         return grad, None, None, None, None
 
 
-def _exchange(x, mesh, axis):
+def _exchange(x, mesh, axis, send=None, recv=None):
     """All-to-all over ``axis``: block j of ``x``'s first dim goes to the
-    rank at coordinate j, whose block arrives at position j.  Only the
-    blocks bound for other ranks are counted: this rank's own block does
-    not move."""
+    rank at coordinate j, whose block arrives at position j.  ``send``
+    and ``recv`` (rows a rank, None: equal blocks) make the blocks
+    uneven: ``send[j]`` rows go to rank j, ``recv[j]`` come from it.
+    Only the rows bound for other ranks are counted: this rank's own
+    block does not move."""
     g = _live_group(mesh, axis)
     if g is None:
         return x
-    n = mesh.shape[axis]
-    PAYLOAD_BYTES[axis] = (PAYLOAD_BYTES.get(axis, 0)
-                           + x.numel() * x.element_size() * (n - 1) // n)
-    return _staged(lambda i, o: dist.all_to_all_single(o, i, group=g), x,
-                   tuple(x.shape))
+    n, me = mesh.shape[axis], mesh.coords[axis]
+    row = x[0].numel() * x.element_size()
+    moved = (x.shape[0] * (n - 1) // n if send is None
+             else sum(k for j, k in enumerate(send) if j != me))
+    PAYLOAD_BYTES[axis] = PAYLOAD_BYTES.get(axis, 0) + moved * row
+    rows = x.shape[0] if recv is None else sum(recv)
+    return _staged(lambda i, o: dist.all_to_all_single(
+        o, i, output_split_sizes=recv, input_split_sizes=send, group=g),
+        x, (rows,) + tuple(x.shape[1:]))
 
 
 class _Exchange(torch.autograd.Function):
     """The all-to-all of :func:`_exchange`; its backward sends each
-    block's gradient back the way it came (the same exchange)."""
+    block's gradient back the way it came (the exchange with ``send``
+    and ``recv`` swapped)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return _exchange(x, mesh, axis)
+    def forward(ctx, x, mesh, axis, send, recv):
+        ctx.mesh, ctx.axis, ctx.sizes = mesh, axis, (send, recv)
+        return _exchange(x, mesh, axis, send, recv)
 
     @staticmethod
     def backward(ctx, grad):
-        return _exchange(grad, ctx.mesh, ctx.axis), None, None
+        send, recv = ctx.sizes
+        return (_exchange(grad, ctx.mesh, ctx.axis, recv, send),
+                None, None, None, None)
 
 
 def copy_to(x, mesh, axis):
@@ -401,9 +411,10 @@ def gather_dim(x, dim, axes, mesh, *, sum_grads=True):
     return _GatherDim.apply(x, dim, axes, mesh, sum_grads) if axes else x
 
 
-def exchange(x, mesh, axis):
+def exchange(x, mesh, axis, send=None, recv=None):
+    """See :func:`_exchange`; ``send``/``recv`` lists of rows a rank."""
     return x if _live_group(mesh, axis) is None else \
-        _Exchange.apply(x, mesh, axis)
+        _Exchange.apply(x, mesh, axis, send, recv)
 
 
 class _VocabParallelXent(torch.autograd.Function):

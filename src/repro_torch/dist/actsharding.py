@@ -138,6 +138,22 @@ def tp_splits(full: int) -> bool:
     return mesh is not None and full % n == 0
 
 
+def tp_state_shape(d) -> Tuple[int, ...]:
+    """The shape of this rank's part of a decode-state leaf of PDef
+    ``d`` under tensor parallelism: ``resolve_spec``'s split of it by
+    ``cache_rules``, over ``model`` only (its batch rows are the
+    caller's); ``d.shape`` where the context splits nothing."""
+    mesh, _ = tp()
+    if mesh is None:
+        return tuple(d.shape)
+    from repro_torch.dist.sharding import (cache_rules, entry_axes,
+                                           local_shape, resolve_spec)
+    spec = resolve_spec(d.shape, d.axes, cache_rules(current().strategy),
+                        mesh)
+    return local_shape(d.shape, tuple("model" if "model" in entry_axes(e)
+                                      else None for e in spec), mesh)
+
+
 def gather_leaves(params, defs, *, skip=()):
     """Each leaf of ``params`` (a tree shaped like the PDef tree ``defs``,
     unstacked) gathered over the axes of its spec whose ranks take

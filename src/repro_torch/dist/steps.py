@@ -269,8 +269,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     kernels or their plain versions run by the state's device
     (``kernels/ops``).  Every block kind trains: a Mamba position through
     ``models.mamba.SelectiveScan``'s recompute backward, mLSTM and sLSTM
-    by autograd (tensor parallelism of those blocks: ROADMAP Queue 1
-    item 5(e))."""
+    by autograd, on a ``model`` axis too (their tensor parallelism:
+    ``models/mamba.py``, ``models/xlstm.py``)."""
     mesh = mesh if mesh is not None else dmesh.make_mesh((1,), ("data",))
     model = Model(cfg)
     update = make_optimizer(cfg, tcfg)
@@ -283,12 +283,6 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     n_shards = dmesh.axis_size(mesh, batch_ax)
     dp_world = dmesh.axis_size(mesh, dmesh.data_axes(mesh))
     specs = train_state_shardings(cfg, strategy, mesh)
-    if mesh.size > 1 and strategy.tensor_parallel \
-            and mesh.shape.get("model", 1) > 1 \
-            and any(k != "attn" for k in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism of Mamba and xLSTM blocks "
-            "(ROADMAP Queue 1 item 5(e))")
     if mesh.size > 1 and cfg.optimizer == "adafactor" and any(
             shd.local_shape(d.shape, sp, mesh) != tuple(d.shape)
             for d, sp in zip(P.tree_leaves(train_state_defs(cfg)["opt"]),

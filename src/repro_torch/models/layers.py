@@ -164,6 +164,64 @@ def row_parallel(a, w, mesh):
     return coll.reduce_from(a.float() @ w.float(), mesh, "model").to(a.dtype)
 
 
+def tp_whole(p, defs):
+    """``p`` (leaves named as in the PDefs ``defs``) with every leaf
+    that tensor parallelism split over ``model`` (a dim of the rank's
+    shard smaller than its PDef's: ``resolve_spec`` alone decided it)
+    gathered back whole; each such leaf's gradient is then this rank's
+    slice of the whole gradient every rank computes.  A block whose
+    heads or channels do not split computes whole so, as
+    ``_attention_tp`` does."""
+    mesh, _ = actsharding.tp()
+    if mesh is None:
+        return p
+    out = dict(p)
+    for name, t in p.items():
+        for dim, (k, full) in enumerate(zip(t.shape, defs[name].shape)):
+            if k != full:
+                out[name] = coll.gather_dim(out[name], dim, ("model",),
+                                            mesh, sum_grads=False)
+    return out
+
+
+def mixer_tp(p, defs, unit: str):
+    """(weights, mesh) for a sequence mixer's tensor parallelism: the
+    mesh where the leaf ``unit`` (an entry a channel or head of the
+    block) came split over ``model`` (the rank's shards as they are),
+    else None, with any leaf that did split gathered back whole
+    (``tp_whole``)."""
+    mesh, _ = actsharding.tp()
+    if mesh is None:
+        return p, None
+    if p[unit].shape != defs[unit].shape:
+        return p, mesh
+    return tp_whole(p, defs), None
+
+
+def split_halves(xz, mesh):
+    """``(u_r, z_r)``, rank r's channels of each half, from its columns of
+    ``x @ w`` where ``w``'s ``2 d`` columns ``[u | z]`` (a mixer's
+    in-projection) split contiguously over ``model`` (the stored shard,
+    as the rule tables cut it).  Of the 2n column blocks of width d / n,
+    rank j holds blocks 2j and 2j + 1 and block s belongs to rank s mod
+    n (u's block r and z's block r, i.e. s = r and s = n + r): one
+    uneven all-to-all over ``model`` (``comm.collectives.exchange``,
+    whose backward is the reverse) moves each block to its rank, which
+    receives u's block first (from rank r // 2) and z's second."""
+    n, me = mesh.shape["model"], mesh.coords["model"]
+    w = xz.shape[-1] // 2
+    blocks = sorted((((2 * me + i) % n, xz[..., i * w:(i + 1) * w])
+                     for i in range(2)), key=lambda t: t[0])
+    send, recv = [0] * n, [0] * n
+    for dest, _ in blocks:
+        send[dest] = w
+    recv[me // 2] += w
+    recv[(n + me) // 2] += w
+    cols = torch.cat([b for _, b in blocks], dim=-1).movedim(-1, 0)
+    out = coll.exchange(cols, mesh, "model", send, recv).movedim(0, -1)
+    return out[..., :w], out[..., w:]
+
+
 def _project_qkv(cfg, p, x):
     """q, k and v from ``x``; the head counts are the weights' (this
     rank's heads under tensor parallelism)."""

@@ -16,7 +16,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import collectives as coll
 from repro_torch.configs.base import MambaConfig, ModelConfig
+from repro_torch.models import layers
 from repro_torch.models.params import PDef
 
 CHUNK = 256
@@ -67,11 +69,15 @@ def conv_causal(x, w, b, state=None):
     return out + b, xp[:, xp.shape[1] - (k - 1):]
 
 
-def _ssm_params(cfg, p, u):
+def _ssm_params(cfg, p, u, mesh=None):
     """u (B, S, d_in) -> dt (B, S, d_in), B and C (B, S, d_state) in
-    float32, A (d_in, d_state)."""
+    float32, A (d_in, d_state).  Under tensor parallelism (``mesh``) u
+    holds the rank's channels: ``x_proj`` is row-parallel, and its
+    whole dt/B/C enter the rank's channels through ``copy_to``, so their
+    gradients are summed over ``model``."""
     mc, _, dt_rank = _dims(cfg)
-    proj = u @ p["x_proj"].to(u.dtype)
+    proj = coll.copy_to(layers.row_parallel(u, p["x_proj"], mesh), mesh,
+                        "model")
     dt, bmat, cmat = torch.split(proj, [dt_rank, mc.d_state, mc.d_state],
                                  dim=-1)
     dt = F.softplus(dt @ p["dt_proj"].to(u.dtype) + p["dt_bias"].to(u.dtype))
@@ -195,16 +201,25 @@ def mamba_apply(cfg: ModelConfig, p, x, cache=None):
     or None (training: zero state, nothing handed out).  Returns (out,
     new_cache), new_cache in the cache's dtypes, or None without one.
     A cache with S == 1 takes the one-step decode, else the chunked
-    scan (prefill)."""
+    scan (prefill).
+
+    Tensor parallelism (``layers.mixer_tp``): the rank runs its
+    ``d_in / n`` channels (``in_proj``'s columns of both halves, through
+    ``layers.split_halves``; the conv, dt, A, the scan and the state
+    rows), ``x_proj`` and ``out_proj`` row-parallel."""
     mc, d_in, _ = _dims(cfg)
     b, s, _ = x.shape
+    p, mesh = layers.mixer_tp(p, mamba_defs(cfg), "d_skip")
+    x = coll.copy_to(x, mesh, "model")
     xz = x @ p["in_proj"].to(x.dtype)
-    u, z = xz.chunk(2, dim=-1)
+    u, z = (xz.chunk(2, dim=-1) if mesh is None
+            else layers.split_halves(xz, mesh))
+    d_in = u.shape[-1]
     u, new_conv = conv_causal(u, p["conv_w"].to(x.dtype),
                               p["conv_b"].to(x.dtype),
                               None if cache is None else cache["conv"])
     u = F.silu(u)
-    dt, bmat, cmat, a = _ssm_params(cfg, p, u)
+    dt, bmat, cmat, a = _ssm_params(cfg, p, u, mesh)
     uf = u.float()
 
     if cache is None or s > 1:                            # train / prefill
@@ -221,7 +236,7 @@ def mamba_apply(cfg: ModelConfig, p, x, cache=None):
 
     y = y + uf * p["d_skip"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = layers.row_parallel(y, p["out_proj"], mesh)
     if cache is None:
         return out, None
     return out, {"conv": new_conv.to(cache["conv"].dtype),

@@ -151,7 +151,11 @@ def paged_cache_defs(cfg: ModelConfig, n_slots: int, n_pages: int,
 
 
 def _zero_state(cfg, kind, batch, device):
-    return tree_map(lambda d: torch.zeros(d.shape, dtype=DTYPES[d.dtype],
+    """A zeroed state of ``batch`` rows, of the shapes a pool row has:
+    under tensor parallelism the rank's part of each leaf
+    (``actsharding.tp_state_shape``)."""
+    return tree_map(lambda d: torch.zeros(actsharding.tp_state_shape(d),
+                                          dtype=DTYPES[d.dtype],
                                           device=device),
                     state_defs(cfg, kind, batch))
 

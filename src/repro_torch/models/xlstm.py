@@ -20,7 +20,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import collectives as coll
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
+from repro_torch.dist import actsharding
+from repro_torch.models import layers
 from repro_torch.models.mamba import conv_causal
 from repro_torch.models.params import PDef
 
@@ -91,16 +94,33 @@ def mlstm_defs(cfg: ModelConfig):
 
 def mlstm_apply(cfg: ModelConfig, p, x, cache=None):
     """x (B, S, D).  cache {"conv", "C", "n", "m"} or None.  Returns
-    (out, new_cache in the cache's dtypes, or None without one)."""
+    (out, new_cache in the cache's dtypes, or None without one).
+
+    Tensor parallelism (``layers.mixer_tp`` over the heads): the rank
+    runs its heads, ``up_proj``'s columns of both halves through
+    ``layers.split_halves``; ``w_if`` and ``down_proj`` are
+    row-parallel, and the whole gates (with ``b_i``, ``b_f``) enter
+    through ``copy_to`` before the rank takes its heads' columns."""
     xc, d_in, dh = _dims(cfg)
-    h = xc.n_heads
     b, s, _ = x.shape
+    p, mesh = layers.mixer_tp(p, mlstm_defs(cfg), "wq")
+    x = coll.copy_to(x, mesh, "model")
 
     xz = x @ p["up_proj"].to(x.dtype)
-    u, z = xz.chunk(2, dim=-1)
+    u, z = (xz.chunk(2, dim=-1) if mesh is None
+            else layers.split_halves(xz, mesh))
+    h, d_in = p["wq"].shape[0], u.shape[-1]     # the rank's heads
+    conv = None if cache is None else cache["conv"]
+    # heads that do not split over ``model`` while the channels do: the
+    # block computes whole, on the pool's conv rows gathered whole
+    split_conv = conv is not None and conv.shape[-1] != d_in
+    if split_conv:
+        conv = coll.gather_along(conv, 2, actsharding.tp()[0], "model")
     uc, new_conv = conv_causal(u, p["conv_w"].to(x.dtype),
-                               p["conv_b"].to(x.dtype),
-                               None if cache is None else cache["conv"])
+                               p["conv_b"].to(x.dtype), conv)
+    if split_conv:
+        new_conv = coll.slice_along(new_conv, 2, actsharding.tp()[0],
+                                    "model")
     uc = F.silu(uc)
 
     def heads(t):  # (B, S, d_in) -> (B, H, S, dh)
@@ -110,10 +130,18 @@ def mlstm_apply(cfg: ModelConfig, p, x, cache=None):
     k = torch.einsum("bhsd,hde->bhse", heads(uc), p["wk"].float())
     k = k * (dh ** -0.5)
     v = torch.einsum("bhsd,hde->bhse", heads(u), p["wv"].float())
-    gates = u.float() @ p["w_if"].float()
-    gates = gates.reshape(b, s, 2, h).permute(0, 3, 1, 2)        # B H S 2
-    ig = gates[..., 0] + p["b_i"].float()[None, :, None]
-    lf = F.logsigmoid(gates[..., 1] + p["b_f"].float()[None, :, None])
+    gates = layers.row_parallel(u.float(), p["w_if"], mesh)
+    gates = gates.reshape(b, s, 2, xc.n_heads)
+    b_i, b_f = p["b_i"].float(), p["b_f"].float()
+    if mesh is not None:
+        gates, b_i, b_f = (coll.copy_to(t, mesh, "model") for t in
+                           (gates, b_i, b_f))
+        lo = mesh.coords["model"] * h
+        gates, b_i, b_f = gates[..., lo:lo + h], b_i[lo:lo + h], \
+            b_f[lo:lo + h]
+    gates = gates.permute(0, 3, 1, 2)                             # B H S 2
+    ig = gates[..., 0] + b_i[None, :, None]
+    lf = F.logsigmoid(gates[..., 1] + b_f[None, :, None])
 
     if cache is None:
         f32 = dict(dtype=torch.float32, device=x.device)
@@ -135,7 +163,8 @@ def mlstm_apply(cfg: ModelConfig, p, x, cache=None):
     hy = hy.transpose(1, 2)                                # B S H dh
     hy = hy * torch.rsqrt((hy * hy).mean(-1, keepdim=True) + 1e-6)
     hy = hy.reshape(b, s, d_in) * p["hnorm"].float()
-    out = (hy.to(x.dtype) * F.silu(z)) @ p["down_proj"].to(x.dtype)
+    out = layers.row_parallel(hy.to(x.dtype) * F.silu(z), p["down_proj"],
+                              mesh)
     if cache is None:
         return out, None
     c1, n1, m1 = state
@@ -239,11 +268,24 @@ def slstm_defs(cfg: ModelConfig):
 
 def slstm_apply(cfg: ModelConfig, p, x, cache=None):
     """x (B, S, D).  cache {"c", "n", "h", "m"}, each (B, D), or None.
-    The recurrence runs one step per token on the host's loop."""
+    The recurrence runs one step per token on the host's loop.
+
+    Tensor parallelism: a step mixes heads (each gate reads every head's
+    recurrent output), so ``w`` and ``r`` are gathered whole
+    (``layers.tp_whole``) and every rank of ``model`` runs the same
+    recurrence on the whole state (no collective inside the loop; each
+    gathered leaf's gradient is the rank's slice); the gated FFN after
+    it is column- then row-parallel (``up_proj``'s halves through
+    ``layers.split_halves``)."""
     xc, _, _ = _dims(cfg)
     b, s, d = x.shape
     h = xc.n_heads
     dhh = d // h
+    defs = slstm_defs(cfg)
+    p = dict(p, **layers.tp_whole({k: p[k] for k in ("w", "r")},
+                                  {k: defs[k] for k in ("w", "r")}))
+    ffn, mesh = layers.mixer_tp({k: p[k] for k in ("up_proj", "down_proj")},
+                                defs, "down_proj")
 
     wx = x.float() @ p["w"].float()                          # B S 4D
     if cache is None:
@@ -272,9 +314,11 @@ def slstm_apply(cfg: ModelConfig, p, x, cache=None):
     hs = torch.stack(hs, dim=1) * p["hnorm"].float()         # B S D
 
     # gated FFN (the sLSTM block's post-projection)
-    uz = hs.to(x.dtype) @ p["up_proj"].to(x.dtype)
-    u, z = uz.chunk(2, dim=-1)
-    out = (F.silu(z) * u) @ p["down_proj"].to(x.dtype)
+    uz = coll.copy_to(hs.to(x.dtype), mesh, "model") @ \
+        ffn["up_proj"].to(x.dtype)
+    u, z = (uz.chunk(2, dim=-1) if mesh is None
+            else layers.split_halves(uz, mesh))
+    out = layers.row_parallel(F.silu(z) * u, ffn["down_proj"], mesh)
     if cache is None:
         return out, None
     return out, {"c": c.to(cache["c"].dtype), "n": n.to(cache["n"].dtype),

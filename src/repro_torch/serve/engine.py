@@ -26,7 +26,8 @@ On a mesh of gloo ranks (``dist.mesh.make_mesh``) every rank runs the
 same host code (scheduler, allocator, sampling) and holds its shard of
 the params and of the pool, placed by the reference's serving rule
 tables (``dist.steps``): the ``model`` axis splits the heads (and the
-pool's KV heads), the FFN, the vocabulary and the experts, and a data
+pool's KV heads), the FFN, the vocabulary, the experts and a sequence
+mixer's channels or heads (and its state rows), and a data
 tier that the pool's shards match (``dp_shards`` equal to its size)
 splits the slots: a data rank then runs its slots' rows against its own
 pages.  The logits are made whole on every rank before sampling, so
@@ -68,13 +69,12 @@ from repro_torch.serve import paging
 from repro_torch.serve.scheduler import Request, Scheduler, StreamError
 
 
-def check_mesh(mesh, cfg: ModelConfig) -> bool:
+def check_mesh(mesh) -> bool:
     """Whether ``mesh`` runs the engine over several ranks; raises for a
     mesh the engine cannot serve on.  A mesh of several devices must span
     a process group (``dist.mesh.make_mesh``, one rank a device): one
     built from a shape alone (or over several devices of one process)
-    runs no collective.  A ``sub_quadratic`` arch on a ``model`` axis
-    needs its Mamba and xLSTM blocks' tensor parallelism."""
+    runs no collective."""
     if mesh is None or mesh.size == 1:
         return False
     if not mesh.spans_ranks:
@@ -82,11 +82,6 @@ def check_mesh(mesh, cfg: ModelConfig) -> bool:
             f"a {dict(mesh.shape)} mesh over no process group: an engine "
             "on several devices serves on a mesh of ranks, built by "
             "dist.mesh.make_mesh after init_process_group")
-    if cfg.sub_quadratic and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name} on a {dict(mesh.shape)} mesh: the sequence "
-            "mixers' tensor parallelism (their mamba_in/xl_* cache rules) "
-            "waits for ROADMAP Queue 1 item 5(e)")
     return True
 
 
@@ -229,7 +224,7 @@ class Engine:
             "serving engine: decoder-only architectures"
         assert cfg.pos_type in ("rope", "none"), \
             "per-slot positions need rope (or no) position encoding"
-        ranks = check_mesh(mesh, cfg)
+        ranks = check_mesh(mesh)
         if mesh is not None and not ranks:
             if mesh.devices is not None:
                 mdev = mesh.devices.flat[0]

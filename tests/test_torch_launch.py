@@ -233,6 +233,36 @@ def test_serve_launcher_on_a_rank_mesh_equals_the_reference(
     assert all(r.finished for r in reqs)
 
 
+def test_serve_launcher_serves_a_sequence_mixer_on_model_2(monkeypatch,
+                                                         capsys):
+    """``--smoke --dp 1 --tp 2`` with a hybrid (jamba: its Mamba channels,
+    attention heads and experts over ``model``): the port's launcher
+    spawns two gloo ranks, the reference's runs on two forced CPU
+    devices from the port's weights; the printed mesh line, the stats
+    (less the port's own keys), the prompts and every request's tokens
+    (bf16 on both sides) are the reference's."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    _need_8()
+    arch = "jamba-v0.1-52b"
+    flags = ["--arch", arch, "--prompt-len", "8", "--gen", "4", "--batch",
+             "2", "--smoke", "--dp", "1", "--tp", "2"]
+    params = Model(treg.smoke(arch)).init(
+        torch.Generator().manual_seed(0), dtype=torch.bfloat16, device="cpu")
+    kept = _reference_requests(monkeypatch, params)
+    want = _run_reference(monkeypatch, capsys, flags,
+                          module="repro.launch.serve")
+    stats, reqs = serve.main(flags + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    (ghead, gstats), (whead, wstats) = _printed(got), _printed(want)
+    assert ghead == whead and "ranks 2 (gloo)" in got
+    assert stats["mesh_shape"] == {"data": 1, "model": 2}
+    assert _without_port_keys(gstats) == wstats
+    assert [r.prompt for r in reqs] == [r.prompt for r in kept]
+    assert [r.tokens for r in reqs] == [r.tokens for r in kept]
+    assert all(r.finished and len(r.tokens) == 4 for r in reqs)
+
+
 def test_engine_takes_the_reference_strategy_and_mesh():
     from repro_torch.configs import STRATEGIES
     from repro_torch.dist.mesh import Mesh

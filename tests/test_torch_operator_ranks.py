@@ -22,6 +22,8 @@ promoted replica by replica, against the one-device fleets; a cached
 engine whose slots joined a later mesh rebuilt; a rank's exception
 raised here with its traceback.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -447,15 +449,19 @@ def test_cached_engine_is_rebuilt_after_its_slots_join_another_mesh(pool):
 
 
 def test_a_rank_failure_raises_with_its_traceback(pool):
+    """An engine the ranks refuse (sinusoidal positions: no per-slot
+    position; the engine asserts it as it is built on each rank) fails
+    the job with rank 0's traceback, and the pool serves on."""
     clock, mc = _cluster("torch", 1, 2, 1, name="x")
+    cfg = dataclasses.replace(registry.smoke("yi-6b"), pos_type="sinusoidal")
     ex = tcore.ServeExecutor(clock, tcore.NetModel(), n_requests=1,
-                             max_new=2, cfg=registry.smoke("jamba-v0.1-52b"),
+                             max_new=2, cfg=cfg,
                              engine_config=EngineConfig(**ECFG), ranks=pool)
     mc.instance._set_executor(ex)
     mc.instance.submit(tcore.JobSpec(n_nodes=1, walltime=1e9,
-                                     command="jamba-v0.1-52b"))
+                                     command="yi-6b"))
     with pytest.raises(RankError, match="(?s)rank 0 failed.*Traceback"
-                       ".*sequence mixers"):
+                       ".*rope \\(or no\\) position"):
         clock.run(until=clock.now + 600)
     # the pool serves on
     assert pool.run([0, 1], "repro_torch.dist.ranks:_ping") == 0

@@ -17,11 +17,18 @@ not split: the weights are gathered), on (data 4, model 1) with
 shadow runs), and granite's with its experts over ``model``, each in
 legacy and chunked (chunk 3) mode, on every rank; at every tick, free
 plus in-use pages against the usable pool and each shard's
-``serve_pages_in_use`` against the reference's; the shapes each rank
-holds against the reference's resolved specs; snapshots across the mesh
-and one rank, both ways; sampled streams equal on every rank.
+``serve_pages_in_use`` against the reference's; the sequence mixers'
+streams, legacy, on (data 2, model 2) with ``dp_shards`` 2 and 1 and on
+(data 1, model 4) (jamba SMOKE: Mamba channels, attention heads and
+experts over ``model``; xlstm SMOKE: mLSTM heads over ``model``, the
+sLSTM's recurrence whole on every rank; and xlstm SMOKE with 2 heads on
+(data 1, model 4), whose mLSTM blocks compute whole); the shapes each rank holds
+against the reference's resolved specs (the mixers' state rows too);
+snapshots across the mesh and one rank, both ways (a hybrid's from the
+mesh); sampled streams equal on every rank.
 
-The four ranks have 300 s to finish (about 40 s here): a hung
+The four ranks have 300 s to finish (about 60 s here; the JAX engines
+beside them take about 80, the mixers' a compile a prompt length): a hung
 collective fails the module instead of the run.
 """
 import dataclasses
@@ -80,8 +87,19 @@ def _jax_mesh(name):
 
 
 def _jax_params(arch):
-    p = JModel(jreg.smoke(arch)).init(jax.random.PRNGKey(0))
+    return _jax_params_of(jreg.smoke(arch))
+
+
+def _jax_params_of(cfg):
+    p = JModel(cfg).init(jax.random.PRNGKey(0))
     return jax.tree_util.tree_map(np.asarray, jax.device_get(p))
+
+
+def _jax_xlstm_2h():
+    """``R.xlstm_2h``'s config in the JAX package: xlstm SMOKE, 2 heads."""
+    cfg = jreg.smoke(R.XLSTM)
+    return dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm,
+                                                              n_heads=2))
 
 
 @pytest.fixture(scope="module")
@@ -110,9 +128,10 @@ def spawned(tmp_path_factory):
     The ranks work while the JAX engines run (``jax_runs``)."""
     _need_4()
     tmp = tmp_path_factory.mktemp("serve_tp")
-    params = {a: _jax_params(a) for a in (R.YI, R.GRANITE)}
+    params = {a: _jax_params(a) for a in sorted({r[1] for r in R.RUNS})}
     one = R.engine(R.YI, params[R.YI], None, 2, R.CHUNK)
-    inputs = {"params": params, "one_rank_snap": R.to_host(R.park(one))}
+    inputs = {"params": params, "one_rank_snap": R.to_host(R.park(one)),
+              "xlstm_2h_params": _jax_params_of(_jax_xlstm_2h())}
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     ctx = multiprocessing.get_context("spawn")
@@ -147,6 +166,9 @@ def jax_runs(spawned, f32_jax_engine):
                       mesh=_jax_mesh(mesh),
                       params=spawned[2]["params"][arch])
         out[name] = R.drive(eng)
+    out["xlstm_2h"] = R.drive(JEngine(
+        _jax_xlstm_2h(), JEngineConfig(**R.ECFG), strategy=jbase.BASELINE,
+        mesh=_jax_mesh("m4"), params=spawned[2]["xlstm_2h_params"]))
     return out
 
 
@@ -186,7 +208,7 @@ def _same_specs(got, want):
 @pytest.mark.parametrize("strategy", sorted(STRATEGIES))
 @pytest.mark.parametrize("ds", [1, 2, 4])
 @pytest.mark.parametrize("mesh", sorted(R.MESHES))
-@pytest.mark.parametrize("arch", [R.YI, R.GRANITE])
+@pytest.mark.parametrize("arch", [R.YI, R.GRANITE, R.JAMBA, R.XLSTM])
 def test_serving_placement_equals_the_reference(arch, mesh, ds, strategy):
     """Params, pool, block table, lengths and logits: the port's plain
     specs are the reference's resolved ``PartitionSpec``s (its serving
@@ -272,13 +294,9 @@ def test_page_conservation_and_shard_gauges_equal_the_reference(
         assert r[name]["ticks"] == want, (r["rank"], name)
 
 
-@pytest.mark.parametrize("name", ["yi_dm_ds2_l", "yi_m4_ds1_l",
-                                  "yi_d4_ds4_l", "yi_fsdp_dm_ds2_l",
-                                  "granite_dm_ds2_l"])
-def test_each_rank_holds_its_shards(ranks, name):
-    """The params and pool each rank holds are its shards of the
-    reference's resolved specs (on (data 1, model 4) yi's KV heads stay
-    whole; on data-split meshes each data rank holds its pages)."""
+def _holds_its_shards(ranks, name):
+    """Every rank's params and pool shapes are its shards of the
+    reference's resolved specs."""
     arch, mesh, ds, _, strategy = RUNS[name]
     cfg, st = treg.smoke(arch), STRATEGIES[strategy][0]
     layout = R.engine_config(ds).layout()
@@ -295,10 +313,49 @@ def test_each_rank_holds_its_shards(ranks, name):
             assert shape == tshd.local_shape(
                 _paging_shape(cfg, layout, R.ECFG["n_slots"], path), sp,
                 tm), path
+
+
+@pytest.mark.parametrize("name", ["yi_dm_ds2_l", "yi_m4_ds1_l",
+                                  "yi_d4_ds4_l", "yi_fsdp_dm_ds2_l",
+                                  "granite_dm_ds2_l"])
+def test_each_rank_holds_its_shards(ranks, name):
+    """The params and pool each rank holds are its shards of the
+    reference's resolved specs (on (data 1, model 4) yi's KV heads stay
+    whole; on data-split meshes each data rank holds its pages)."""
+    _holds_its_shards(ranks, name)
+    _, mesh, ds, _, _ = RUNS[name]
+    layout = R.engine_config(ds).layout()
     kv = ranks[0][name]["pool"]["p0"]["k"]
     heads = {"dm": 1, "m4": 2, "d4": 2}[mesh]       # of yi's / granite's 2
     assert kv[3] == heads
     assert kv[1] == layout.n_pages // ds
+
+
+@pytest.mark.parametrize("name", [n for n in RUN_NAMES
+                                  if RUNS[n][0] in R.MIXERS])
+def test_each_rank_holds_its_sequence_mixer_shards(ranks, name):
+    """A hybrid's and an xLSTM's params and state rows are each rank's
+    shards of the reference's specs: the Mamba channels, the mLSTM heads
+    and conv channels split over ``model`` (one head a rank on m4), the
+    state's slots over ``data`` where ``dp_shards`` matches it, the
+    sLSTM's state whole."""
+    _holds_its_shards(ranks, name)
+    arch, mesh, ds, _, _ = RUNS[name]
+    cfg = treg.smoke(arch)
+    model = R.MESHES[mesh][0][1]
+    slots = R.ECFG["n_slots"] // (ds if ds > 1 else 1)
+    pool = ranks[0][name]["pool"]
+    if arch == R.JAMBA:
+        d_in = cfg.mamba.expand * cfg.d_model
+        assert pool["p0"]["ssm"] == (cfg.n_repeats, slots, d_in // model,
+                                     cfg.mamba.d_state)
+        assert pool["p0"]["conv"][1:] == (slots, cfg.mamba.d_conv - 1,
+                                          d_in // model)
+    else:
+        h = cfg.xlstm.n_heads
+        dh = cfg.xlstm.expand * cfg.d_model // h
+        assert pool["p0"]["C"] == (cfg.n_repeats, slots, h // model, dh, dh)
+        assert pool["p3"]["c"] == (cfg.n_repeats, slots, cfg.d_model)
 
 
 def test_snapshot_on_ranks_adopted_on_one_rank(spawned, ranks, jax_runs):
@@ -313,12 +370,49 @@ def test_snapshot_on_ranks_adopted_on_one_rank(spawned, ranks, jax_runs):
     assert R.finish(one, R.from_host(snap)) == jax_runs["yi_dm_ds2_c"][0]
 
 
+def test_hybrid_snapshot_on_ranks_adopted_on_one_rank(spawned, ranks,
+                                                     jax_runs):
+    """jamba parked on (data 2, model 2), ``dp_shards`` 2, after
+    PARK_TICKS ticks: rank 0's snapshot holds every state row whole (the
+    Mamba channels gathered over ``model``, the slots over ``data``) and
+    a one-rank engine finishes from it with the JAX engine's streams on
+    that mesh."""
+    snap = ranks[0]["parked_jamba"]
+    assert all(r["parked_jamba"] is None for r in ranks[1:])
+    one = R.engine(R.JAMBA, spawned[2]["params"][R.JAMBA], None, 2)
+    for key in one.pool:
+        for n, t in one.pool[key].items():
+            assert snap["pool"][key][n].shape == tuple(t.shape), (key, n)
+    assert np.abs(snap["pool"]["p0"]["ssm"]).max() > 0
+    assert R.finish(one, R.from_host(snap)) == jax_runs["jamba_dm_ds2_l"][0]
+
+
 def test_one_rank_snapshot_adopted_on_ranks(ranks, jax_runs):
     """A one-rank engine's snapshot, adopted on (data 2, model 2) (each
     rank cutting its shards): every rank finishes with the
     uninterrupted run's streams."""
     for r in ranks:
         assert r["adopted"] == jax_runs["yi_dm_ds2_c"][0], r["rank"]
+
+
+def test_indivisible_mixer_heads_compute_whole_on_ranks(ranks, jax_runs):
+    """xlstm SMOKE with 2 heads on (data 1, model 4): the mLSTM blocks
+    compute whole on every rank (weights gathered), reading and writing
+    their conv state rows, which the pool still splits over ``model``
+    (the reference's spec), while their C rows stay whole; every rank's
+    float32 streams equal the JAX engine's on a (1, 4) mesh from the same
+    parameters, token for token."""
+    cfg = R.xlstm_2h()
+    assert (dataclasses.asdict(cfg.xlstm)
+            == dataclasses.asdict(_jax_xlstm_2h().xlstm))
+    d_in = cfg.xlstm.expand * cfg.d_model
+    want = jax_runs["xlstm_2h"][0]
+    assert all(len(s) == R.NEW for s in want)
+    for r in ranks:
+        got = r["xlstm_2h"]
+        assert got["streams"] == want, r["rank"]
+        assert got["pool"]["p0"]["conv"][-1] == d_in // 4
+        assert got["pool"]["p0"]["C"][2] == cfg.xlstm.n_heads
 
 
 def test_sampled_streams_are_the_same_on_every_rank(ranks):
@@ -328,9 +422,11 @@ def test_sampled_streams_are_the_same_on_every_rank(ranks):
 
 
 def test_graphs_and_sequence_mixers_on_a_model_axis_raise(ranks):
+    """CUDA graphs on ranks raise; a sequence mixer on a ``model`` axis
+    no longer does (its streams: the jamba and xlstm scenarios of
+    ``test_greedy_streams_equal_the_jax_engine_on_the_same_mesh``)."""
     for r in ranks:
         kind, msg = r["graphs"]
         assert kind == "ValueError" and "gloo" in msg
-        kind, msg = r["jamba"]
-        assert kind == "NotImplementedError" and "item 5(e)" in msg
+        assert r["jamba"] is None
 

@@ -28,9 +28,15 @@ Tolerances:
   the JAX package's MoE (einsums where the port runs grouped products)
   at atol 1e-5;
 * checkpoints: a resumed or remeshed run equals the uninterrupted one at
-  rtol 1e-4.
+  rtol 1e-4;
+* the sequence mixers' blocks on (data 2, model 2) and (data 1, model
+  4) (Mamba channels and mLSTM heads over ``model`` through the
+  in-projection's u/z exchange, the sLSTM's recurrence whole on every
+  rank) against the same block whole, forward and every gradient, at
+  rtol 1e-5, atol 1e-6; the exchange alone exactly.
 
-The four ranks have 300 s to finish (about 20 s here): a hung
+The four ranks have 300 s to finish (about 40 s here; the JAX references
+beside them take about 80, jamba's and xlstm's 45 of it): a hung
 collective fails the module instead of the run.
 """
 import dataclasses
@@ -73,7 +79,8 @@ TIMEOUT_S = 300
 MESHES = {"dm": ((2, 2), ("data", "model")),
           "pdm": ((2, 1, 2), ("pod", "data", "model")),
           "d4": ((4, 1), ("data", "model")),
-          "pd": ((2, 2, 1), ("pod", "data", "model"))}
+          "pd": ((2, 2, 1), ("pod", "data", "model")),
+          "m4": ((1, 4), ("data", "model"))}
 STRATEGIES = {"baseline": tbase.BASELINE, "optimized": tbase.OPTIMIZED,
               "zero3": tbase.ZERO3, "hier-moe-int8": R.HIER_INT8}
 
@@ -111,6 +118,30 @@ def _jax_params(arch):
                                   jax.device_get(init(jax.random.PRNGKey(0))))
 
 
+def _block_inputs():
+    """Each mixer block's whole float32 params (the port's draw, every
+    zero-initialised leaf redrawn: a zero bias tests nothing), its input
+    and its output's cotangent; and a (B, S, 2 d) input of
+    ``split_halves`` (d = 16, so every block of it is 4 or 8 wide on
+    ranks) with its cotangent."""
+    from repro_torch.models import transformer
+    rng = np.random.default_rng(7)
+    out = {}
+    for case in R.BLOCKS:
+        cfg, kind = R.block_cfg(case)
+        defs = transformer.position_defs(cfg, cfg.block_pattern.index(kind))
+        full = P.init_params(defs[kind], torch.Generator().manual_seed(7),
+                             torch.float32, "cpu")
+        full = P.tree_map(lambda t: (t if t.abs().max() > 0 else torch.as_tensor(
+            0.1 * rng.standard_normal(t.shape), dtype=t.dtype)).numpy(), full)
+        x, dy = (rng.standard_normal(R.BLOCK_X + (cfg.d_model,)).astype(
+            np.float32) for _ in range(2))
+        out[case] = (full, x, dy)
+    halves = tuple(rng.standard_normal(R.BLOCK_X + (32,)).astype(np.float32)
+                   for _ in range(2))
+    return out, halves
+
+
 def _moe_inputs():
     cfg = treg.smoke(R.GRANITE)
     params = JP.init_params(jmoe.moe_defs(jreg.smoke(R.GRANITE)),
@@ -133,9 +164,11 @@ def spawned(tmp_path_factory):
     collects them."""
     tmp = tmp_path_factory.mktemp("tp")
     moe_params, moe_x = _moe_inputs()
+    blocks, halves = _block_inputs()
     inputs = {"params": {a: _jax_params(a)
-                         for a in (R.YI, R.GRANITE, R.WHISPER)},
-              "moe_params": moe_params, "moe_x": moe_x}
+                         for a in sorted({r[1] for r in R.RUNS})},
+              "moe_params": moe_params, "moe_x": moe_x,
+              "blocks": blocks, "halves": halves}
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     ctx = multiprocessing.get_context("spawn")
@@ -178,14 +211,17 @@ def ranks(spawned, jax_runs):
 # its number of batch shards (the reference's per-chunk step averages
 # them so too)
 REFERENCES = {"yi": (R.YI, 1), "granite2": (R.GRANITE, 2),
-              "granite4": (R.GRANITE, 4), "whisper": (R.WHISPER, 1)}
+              "granite4": (R.GRANITE, 4), "whisper": (R.WHISPER, 1),
+              "jamba2": (R.JAMBA, 2), "xlstm": (R.XLSTM, 1)}
 RUN_REFERENCE = {"yi_baseline": "yi", "yi_optimized": "yi",
                  "yi_zero3": "yi", "yi_zero3_dm": "yi",
                  "yi_optimized_pod": "yi", "yi_optimized_pod_int8": "yi",
                  "granite_baseline": "granite2",
                  "granite_zero3_dm": "granite4", "granite_hier": "granite2",
                  "granite_hier_int8": "granite2",
-                 "whisper_baseline": "whisper", "whisper_zero3": "whisper"}
+                 "whisper_baseline": "whisper", "whisper_zero3": "whisper",
+                 "jamba_baseline": "jamba2", "jamba_optimized": "jamba2",
+                 "xlstm_baseline": "xlstm"}
 INT8_RUNS = ("yi_optimized_pod_int8", "granite_hier_int8")
 
 
@@ -233,7 +269,7 @@ def _jax_mesh(name):
 
 @pytest.mark.parametrize("strategy", sorted(STRATEGIES))
 @pytest.mark.parametrize("mesh", sorted(MESHES))
-@pytest.mark.parametrize("arch", [R.YI, R.GRANITE])
+@pytest.mark.parametrize("arch", [R.YI, R.GRANITE, R.JAMBA, R.XLSTM])
 def test_shards_equal_the_reference_train_state_shardings(arch, mesh,
                                                           strategy):
     """Each rank's init holds, of every parameter, optimizer and residual
@@ -345,6 +381,69 @@ def test_optimizer_state_is_zero1_sharded_over_data(ranks):
     # zero3 on (data 4, model 1): embed over data for both
     z = r["yi_zero3"]["shapes"]
     assert wq(z["params"]) == wq(z["opt"]["v"]) == (2, 16, 64)
+
+
+# ---------------------------------------------------------------------------
+# the sequence mixers' blocks on ranks against the same blocks whole
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh", ["dm", "m4"])
+def test_split_halves_on_ranks_regroups_the_columns(ranks, mesh):
+    """``layers.split_halves`` on ranks: each rank's contiguous columns of
+    ``[u | z]`` become ``[u_r | z_r]`` (the forward, gathered over
+    ``model``), and the gradient goes back to the columns it came from
+    (the reverse exchange).  Rank 0 keeps u's block 0 and sends its
+    other block (u's 1) away, and on the way back keeps u_0's gradient
+    and sends z_0's: 2 blocks of d / n columns moved in all."""
+    whole, dy = ranks[-1]["inputs"]["halves"]
+    n, d = MESHES[mesh][0][1], whole.shape[-1] // 2
+    w = d // n
+    order = np.concatenate([np.r_[r * w:(r + 1) * w, d + r * w:d + (r + 1) * w]
+                            for r in range(n)])
+    got = _rank_results(ranks)[0]["blocks"][(mesh, "halves")]
+    np.testing.assert_array_equal(got["uz"], whole[..., order])
+    want = np.empty_like(dy)
+    want[..., order] = dy
+    np.testing.assert_array_equal(got["grad"], want)
+    rows = whole.shape[0] * whole.shape[1]
+    assert got["model_bytes"] == 2 * rows * w * 4
+
+
+@pytest.mark.parametrize("case", list(R.BLOCKS))
+@pytest.mark.parametrize("mesh", ["dm", "m4"])
+def test_mixer_blocks_on_ranks_equal_the_block_whole(ranks, mesh, case):
+    """A Mamba block (its ``in_proj`` halves exchanged over ``model``,
+    ``x_proj`` and ``out_proj`` row-parallel), an mLSTM block (the rank's
+    heads, one a rank on m4; its gates reduced, then cut by head) and an
+    sLSTM block (``w`` and ``r`` gathered, the recurrence whole on every
+    rank, its FFN column- then row-parallel) on each mesh of ranks, and
+    a Mamba block of 130 channels and an mLSTM block of 2 heads, which
+    split on model 2 and compute whole on model 4 (the leaves the spec
+    split gathered): the output, the input's gradient and every
+    parameter's gradient gathered whole equal the block run whole in
+    this process (float32 sums in another order: rtol 1e-5, atol 1e-6).
+    Where the block splits, rank 0's ``model`` bytes hold at least the
+    exchange of ``in_proj``'s (or ``up_proj``'s) halves forward and
+    back."""
+    from repro_torch.models import transformer
+    full, x, dy = ranks[-1]["inputs"]["blocks"][case]
+    cfg, kind = R.block_cfg(case)
+    p = P.tree_map(lambda t: t.requires_grad_(True), P.from_numpy(full))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, _ = transformer.MIXERS[kind](cfg, p, xt)
+    (y * torch.from_numpy(dy)).sum().backward()
+    got = _rank_results(ranks)[0]["blocks"][(mesh, case)]
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got["y"], y.detach().numpy(), **tol)
+    np.testing.assert_allclose(got["dx"], xt.grad.numpy(), **tol)
+    for (path, a), (_, b) in zip(_leaves(got["grads"]),
+                                 _leaves(P.tree_map(lambda t: t.grad, p))):
+        np.testing.assert_allclose(a, b.numpy(), err_msg=str(path), **tol)
+    d_in, n = 2 * cfg.d_model, MESHES[mesh][0][1]
+    if not case.endswith("_whole") or mesh == "dm":
+        assert got["model_bytes"] > 2 * x.shape[0] * x.shape[1] * (
+            d_in // n) * 4
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ file; what it returns holds numpy arrays and plain values only.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import traceback
@@ -27,7 +28,9 @@ from repro_torch.serve import Engine, EngineConfig
 
 WORLD = 4
 TIMEOUT = timedelta(seconds=120)
-YI, GRANITE, JAMBA = "yi-6b", "granite-moe-1b-a400m", "jamba-v0.1-52b"
+YI, GRANITE, JAMBA, XLSTM = ("yi-6b", "granite-moe-1b-a400m",
+                              "jamba-v0.1-52b", "xlstm-1.3b")
+MIXERS = (JAMBA, XLSTM)
 MESHES = {"dm": ((2, 2), ("data", "model")),
           "m4": ((1, 4), ("data", "model")),
           "d4": ((4, 1), ("data", "model"))}
@@ -38,7 +41,9 @@ CHUNK = 3
 # (name, arch, mesh, dp_shards, prefill_chunk, strategy) of each greedy
 # scenario; ``optimized`` splits params over ``data`` too (FSDP), so a
 # prompt runs on every data rank (the ones that do not hold its slot as
-# shadow runs, joining the gathers)
+# shadow runs, joining the gathers).  The sequence mixers (jamba: Mamba
+# channels over ``model``; xlstm: mLSTM heads, one a rank on m4, and the
+# sLSTM's recurrence whole on every rank) take no chunked ticks
 RUNS = tuple((f"{key}_{mesh}_ds{ds}_{'c' if chunk else 'l'}", arch, mesh,
               ds, chunk, strategy)
              for key, arch, mesh, ds, strategy in (
@@ -47,9 +52,24 @@ RUNS = tuple((f"{key}_{mesh}_ds{ds}_{'c' if chunk else 'l'}", arch, mesh,
                  ("yi", YI, "m4", 1, "baseline"),
                  ("yi", YI, "d4", 4, "baseline"),
                  ("yi_fsdp", YI, "dm", 2, "optimized"),
-                 ("granite", GRANITE, "dm", 2, "baseline"))
-             for chunk in (0, CHUNK))
+                 ("granite", GRANITE, "dm", 2, "baseline"),
+                 ("jamba", JAMBA, "dm", 2, "baseline"),
+                 ("jamba", JAMBA, "dm", 1, "baseline"),
+                 ("jamba", JAMBA, "m4", 1, "baseline"),
+                 ("xlstm", XLSTM, "dm", 2, "baseline"),
+                 ("xlstm", XLSTM, "dm", 1, "baseline"),
+                 ("xlstm", XLSTM, "m4", 1, "baseline"))
+             for chunk in ((0,) if arch in MIXERS else (0, CHUNK)))
 PARK_TICKS = 3              # ticks before a snapshot: no request finished
+
+
+def xlstm_2h():
+    """xlstm SMOKE with 2 heads: on (data 1, model 4) its mLSTM channels
+    (and conv state rows) split but its heads do not, so the blocks
+    compute whole on every rank from gathered weights."""
+    cfg = registry.smoke(XLSTM)
+    return dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm,
+                                                              n_heads=2))
 HOT = 0.8                   # the sampled scenario's temperature
 
 
@@ -132,8 +152,9 @@ def _raises(fn):
 
 
 def run_rank(rank, init_file, inputs_file, queue):
-    """``inputs_file``: a pickle of the JAX package's parameters (yi and
-    granite SMOKE, whole) and a one-rank engine's snapshot."""
+    """``inputs_file``: a pickle of the JAX package's parameters (the
+    SMOKE configs of every arch of ``RUNS``, whole) and a one-rank
+    engine's snapshot."""
     torch.set_num_threads(2)
     os.environ.setdefault("OMP_NUM_THREADS", "2")
     try:
@@ -161,13 +182,23 @@ def run_rank(rank, init_file, inputs_file, queue):
             eng = engine(YI, params[YI], meshes["dm"], 2, CHUNK)
             snap = park(eng)
             res["parked"] = (to_host(snap) if rank == 0 else None)
+            # a hybrid's too: its Mamba state rows gathered whole
+            snap = park(engine(JAMBA, params[JAMBA], meshes["dm"], 2))
+            res["parked_jamba"] = (to_host(snap) if rank == 0 else None)
             # a one-rank snapshot adopted on (data 2, model 2)
             eng = engine(YI, params[YI], meshes["dm"], 2, CHUNK)
             res["adopted"] = finish(eng, from_host(inputs["one_rank_snap"]))
+            # heads model 4 does not divide: whole blocks, split conv rows
+            eng = Engine(xlstm_2h(), engine_config(), mesh=meshes["m4"],
+                         params=P.from_numpy(inputs["xlstm_2h_params"]),
+                         device="cpu", compute_dtype=torch.float32)
+            res["xlstm_2h"] = {
+                "streams": drive(eng)[0],
+                "pool": P.tree_map(lambda t: tuple(t.shape), eng.pool)}
             # sampled: every rank draws the same tokens
             res["hot"] = drive(engine(YI, params[YI], meshes["dm"], 2, CHUNK),
                                HOT)[0]
-            # both raise before any parameter is drawn
+            # graphs raise before any parameter is drawn; a hybrid builds
             res["graphs"] = _raises(lambda: Engine(
                 registry.smoke(YI), engine_config(2), mesh=meshes["dm"],
                 device="cpu", cuda_graphs=True))

@@ -39,6 +39,7 @@ from repro_torch.train import Trainer
 WORLD = 4
 TIMEOUT = timedelta(seconds=120)
 YI, GRANITE, WHISPER = "yi-6b", "granite-moe-1b-a400m", "whisper-base"
+JAMBA, XLSTM = "jamba-v0.1-52b", "xlstm-1.3b"
 # float32 compute isolates the placement from bf16 noise.  The learning
 # rate is 1e-3 for the int8 runs' sake: AdamW's first step moves every
 # weight by about lr whatever its gradient, so a near-zero gradient
@@ -75,7 +76,31 @@ RUNS = (("yi_baseline", YI, "dm", BASELINE, TCFG),
         ("granite_hier_int8", GRANITE, "pdm", HIER_INT8, TCFG),
         # the encoder and cross-attention on local heads, and gathered
         ("whisper_baseline", WHISPER, "dm", BASELINE, TCFG),
-        ("whisper_zero3", WHISPER, "d4", ZERO3, TCFG))
+        ("whisper_zero3", WHISPER, "d4", ZERO3, TCFG),
+        # the sequence mixers on local channels and heads: jamba's Mamba
+        # channels over model 2 (and FSDP over data), xlstm's mLSTM one
+        # head a rank on model 4 and its sLSTM recurrence whole
+        ("jamba_baseline", JAMBA, "dm", BASELINE, TCFG),
+        ("jamba_optimized", JAMBA, "dm", OPTIMIZED, TCFG),
+        ("xlstm_baseline", XLSTM, "m4", BASELINE, TCFG))
+# the mixer blocks run alone on ranks (``_blocks``): rows x tokens
+BLOCK_X = (2, 11)
+# (arch, config fields replaced, block kind) of each block case: the
+# SMOKE configs' blocks, and two whose channels (d_in 130) or heads (2)
+# ``model`` 4 does not divide, which compute whole there
+BLOCKS = {"mamba": (JAMBA, {}, "mamba"), "mlstm": (XLSTM, {}, "mlstm"),
+          "slstm": (XLSTM, {}, "slstm"),
+          "mamba_whole": (JAMBA, {"d_model": 65}, "mamba"),
+          "mlstm_whole": (XLSTM, {"xlstm": dict(n_heads=2)}, "mlstm")}
+
+
+def block_cfg(case):
+    """(config, block kind) of a ``BLOCKS`` case."""
+    arch, fields, kind = BLOCKS[case]
+    cfg = registry.smoke(arch)
+    fields = {k: dataclasses.replace(getattr(cfg, k), **v)
+              if isinstance(v, dict) else v for k, v in fields.items()}
+    return dataclasses.replace(cfg, **fields), kind
 # capacity factors of the exchange's byte count (1.0: E * C = M * k)
 A2A_CF = (1.0, 1.25)
 A2A_X = (4, 16)             # groups x tokens of the exchange's input
@@ -157,6 +182,52 @@ def _a2a(mesh, inputs):
     return out
 
 
+def _blocks(meshes, inputs):
+    """Each sequence-mixer block (``inputs["blocks"]``: ``BLOCKS`` case
+    -> (whole params, x, the output's cotangent), float32) on (data 2,
+    model 2) and (data 1, model 4), every rank on the same rows: the output,
+    the input's gradient and every parameter's gradient gathered whole,
+    and the ``model`` bytes; and ``layers.split_halves`` alone on
+    ``inputs["halves"]`` (each rank's contiguous columns of it), its
+    output and its input's gradient.  Rank 0's (None elsewhere)."""
+    from repro_torch.models import layers, transformer
+    out = {}
+    for mname in ("dm", "m4"):
+        mesh = meshes[mname]
+        for case, (full, x, dy) in inputs["blocks"].items():
+            cfg, kind = block_cfg(case)
+            defs = transformer.position_defs(
+                cfg, cfg.block_pattern.index(kind))[kind]
+            specs = shd.tree_shardings(defs, mesh, shd.param_rules(BASELINE))
+            p = P.tree_map(lambda t: t.requires_grad_(True),
+                           _shard_tree(P.from_numpy(full), specs, mesh))
+            xt = torch.from_numpy(x).requires_grad_(True)
+            collectives.reset_counters()
+            with activation_sharding(mesh, BASELINE):
+                y, _ = transformer.MIXERS[kind](cfg, p, xt)
+            (y * torch.from_numpy(dy)).sum().backward()
+            grads = _np_whole(P.tree_map(lambda t: t.grad, p), specs, mesh)
+            if mesh.rank == 0:
+                out[(mname, case)] = {
+                    "y": y.detach().numpy().copy(),
+                    "dx": xt.grad.numpy().copy(), "grads": grads,
+                    "model_bytes": collectives.PAYLOAD_BYTES.get("model",
+                                                                 0)}
+        whole, dy = (torch.from_numpy(t) for t in inputs["halves"])
+        spec = (None, None, "model")
+        xz = shd.shard(whole, spec, mesh).requires_grad_(True)
+        collectives.reset_counters()
+        u, z = layers.split_halves(xz, mesh)
+        (torch.cat([u, z], -1) * shd.shard(dy, spec, mesh)).sum().backward()
+        moved = collectives.PAYLOAD_BYTES.get("model", 0)
+        got = {"uz": torch.cat([u, z], -1).detach(), "grad": xz.grad}
+        got = {k: shd.gather(v, spec, mesh).numpy().copy()
+               for k, v in got.items()}
+        if mesh.rank == 0:
+            out[(mname, "halves")] = dict(got, model_bytes=moved)
+    return out
+
+
 def _checkpoint(meshes, params, ckpt_dir):
     """yi on (data 2, model 2): 2 steps, a checkpoint, 2 more (the
     uninterrupted run); then a Trainer on (data 4, model 1) restores
@@ -217,6 +288,8 @@ def run_rank(rank, init_file, inputs_file, ckpt_dir, queue):
                 "pdm": dmesh.make_mesh((2, 1, 2), ("pod", "data", "model"),
                                        timeout=TIMEOUT),
                 "pd": dmesh.make_mesh((2, 2, 1), ("pod", "data", "model"),
+                                      timeout=TIMEOUT),
+                "m4": dmesh.make_mesh((1, 4), ("data", "model"),
                                       timeout=TIMEOUT)}
             res = {"rank": rank,
                    "coords": {k: m.coords for k, m in meshes.items()}}
@@ -224,6 +297,7 @@ def run_rank(rank, init_file, inputs_file, ckpt_dir, queue):
                 res[name] = _train(meshes[mesh], arch, strategy, tcfg,
                                    inputs["params"][arch])
             res["a2a"] = _a2a(meshes["pdm"], inputs)
+            res["blocks"] = _blocks(meshes, inputs)
             res["checkpoint"] = _checkpoint(meshes, inputs["params"][YI],
                                             ckpt_dir)
         finally:
