@@ -147,16 +147,18 @@ Phases, each printing its own lines:
              a (pod=2, data=2) mesh, one row each) under hierarchical
              sync and under int8 error-feedback sync (both comm_strict):
              losses against the one-device run, the quantize kernels'
-             launches per step, a traced compressed step on rank 0, and
+             launches per step, a traced compressed step on rank 0,
              one sync of a gradient of the largest leaf's shape against
-             its exact mean;
+             its exact mean, and the staging burst: the layers' staged
+             collectives of mixed shapes and dtypes back to back with no
+             synchronization, against the same one at a time, bit for
+             bit;
    tp      - tensor, expert and FSDP parallelism on four ranks of the
              one card (spawned processes, gloo): yi-6b at full width and
              2 of its 32 layers, 3 steps of 2 x 4096 on (data 2, model
              2) under baseline (tensor parallelism, ZeRO-1) and
              optimized (and FSDP), and granite-moe-1b-a400m at full
-             width and 8 of its 24 layers (GRANITE_TP_LAYERS: the
-             script's time limit), 3 steps of 4 x 4096 on (pod 2, data
+             size (GRANITE_TP_LAYERS), 3 steps of 4 x 4096 on (pod 2, data
              1, model 2) with expert
              parallelism, hierarchical MoE dispatch and int8
              hierarchical sync; losses against one rank's run of the
@@ -165,8 +167,13 @@ Phases, each printing its own lines:
              against its resolved shards (exactly), granite's exchange
              bytes in one forward against the count the CPU tests pin,
              every kernel's launches at the local shapes, step times,
-             payload bytes by axis and peak memory; yi's sharded
-             checkpoint restored on one rank and stepped once; then the
+             payload bytes by axis and peak memory; yi-6b's cut under
+             Adafactor (the adafactor part: factored moments split by
+             model and data) on (data 2, model 2), optimized, ADA_STEPS
+             steps without warm-up, held alike; yi's two sharded
+             checkpoints (AdamW and Adafactor) restored on one rank and
+             stepped once, the Adafactor one's factored moments held to
+             the one-rank run's (ADA_MOMENT_RTOL); then the
              same four ranks serve (``serve_tp``) on (data 2, model 2),
              the pools split by KV head and data shard (dp_shards 2):
              yi-6b at full size (8 requests of 64-512 tokens) and
@@ -182,7 +189,9 @@ Phases, each printing its own lines:
              xlstm-1.3b at full width and 8 of its 48 (4 requests) on
              (data 2, model 2) by the same rule (the Mamba channels and
              mLSTM heads over ``model``, the in-projection's u/z halves
-             exchanged, the sLSTM's recurrence whole on every rank), time
+             exchanged, the sLSTM's recurrence whole on every rank),
+             count the MoE jamba's top-k routing choices that part from
+             one rank's at the teacher-forced input by MoE layer, time
              that exchange alone, and train the seqmix_train phase's
              2-layer cuts on (data 1, model 4) (jamba 2 x 4096, xlstm 1 x
              256, 2 steps) against one rank's losses and grad_norm;
@@ -193,7 +202,12 @@ Phases, each printing its own lines:
              mid-decode and a shrink back, each run token for token the
              uninterrupted run on its starting mesh, and served chunked
              on (2, 2) by the ServeExecutor (held to the one-rank eager
-             engine by the tp phase's parting rule); lammps-proxy (head
+             engine by the tp phase's parting rule); two RemoteEngine
+             replicas of it on (1, 2) each through the FleetServeExecutor,
+             staggered requests sharing a 256-token prefix with the
+             fleet's prefix cache on and off (the same streams, at least
+             n - 1 hits, fewer prefilled tokens, spans rebuilding
+             ttft_e2e); lammps-proxy (head
              dim 32) trained by the SubmeshExecutor on (2, 2) and by the
              ElasticTrainExecutor 2 -> 4 -> 2 hosts through the
              checkpoint, against one rank's losses; each placement's
@@ -239,6 +253,7 @@ import dataclasses
 import gc
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -311,9 +326,7 @@ COMPRESS_RTOL = 1e-2
 # depths cut for the script's time limit (each path keeps its checks; the
 # checkpoints through host memory and npz are what take the time)
 COMM_LAYERS = 4             # of granite's 24: four ranks of all 24 need ~150 GB
-YI_TRAIN_LAYERS = 2         # of yi-6b's 32, here and in the tp phase (4
-                            # before the tp phase's seqmix_tp part: the
-                            # seconds each cut saves, PERF.md section 5)
+YI_TRAIN_LAYERS = 4         # of yi-6b's 32, here and in the tp phase
 PIPE_LAYERS = 8             # of granite's 24 in the pipeline: 5.6 GB a step
 QWEN2_LAYERS = 16           # of qwen2-72b's 80: 16.5e9 params, 33 GB in bf16
 COMM_STEPS = 4
@@ -2864,11 +2877,9 @@ def train_phase(torch, dev, build):
 # 7 mLSTM : 1 sLSTM super-block of its 48 layers, for time: the sLSTM
 # recurrence is the host's loop (a step about a minute at 48 layers); and
 # at 2 x XLSTM_SEQ tokens: at 2 x 4096 its step took 20-26 s on an H100,
-# and reading the trace of one step about 400 s more; 512 before the tp
-# phase's seqmix_tp part took the script past 1200 s on slower hosts (the
-# trace of a 512-token step took ~80 s to read there).
+# and reading the trace of one step about 400 s more.
 XLSTM_TRAIN_LAYERS = 8
-XLSTM_SEQ = 256
+XLSTM_SEQ = 512
 SEQMIX_SPANS = ("SelectiveScan", "SelectiveScanBackward")
 SEQMIX_KERNELS = ("flash_fwd", "flash_bwd", "moe_gemm", "rmsnorm")
 
@@ -3306,6 +3317,72 @@ def _function_sync(torch, dist, mesh, strategy, dev):
     return err, lim, excess
 
 
+# the staging burst: (op, axis, dtype, shape) of each collective, every
+# shape twice in a row (the second call asks the caching host allocator
+# for the pinned block size whose copy back the first may still have in
+# flight); run three times
+BURST = (("reduce", "data", "float32", (256, 512)),
+         ("reduce", "data", "float32", (256, 512)),
+         ("gather", "pod", "bfloat16", (3, 64, 96)),
+         ("gather", "pod", "bfloat16", (3, 64, 96)),
+         ("scatter", "data", "float32", (2, 40, 33)),
+         ("reduce", "pod", "bfloat16", (64, 96)),
+         ("broadcast", "pod", "int8", (17, 300)),
+         ("exchange", "data", "bfloat16", (8, 1024)),
+         ("exchange", "data", "bfloat16", (8, 1024)),
+         ("uneven", "pod", "float32", (5, 77)),
+         ("reduce", "data", "bfloat16", (1, 4096, 1024)),
+         ("broadcast", "pod", "int8", (17, 300)))
+
+
+def _staging_burst(torch, mesh, dev):
+    """``BURST``'s collectives (``comm.collectives``' staged all-reduce,
+    all-gather, reduce-scatter, broadcast and all-to-all) back to back
+    with no synchronization between them, each input behind a GPU sleep
+    so that its copy to the host is still queued when the collective is
+    called, against the same collectives one at a time with the card
+    synchronized after each: the number of results that differ (bit for
+    bit) and the number compared."""
+    from repro_torch.comm import collectives as coll
+
+    cycles = int(sleep_cycles_per_ms(torch) * 0.5)
+
+    def inp(i, dtype, shape):
+        g = torch.Generator(device=dev).manual_seed(7919 * i + mesh.rank)
+        x = torch.randn(shape, generator=g, device=dev) * 8
+        return x.to(getattr(torch, dtype))
+
+    def run(i, op, axis, x):
+        if op == "reduce":
+            return coll._reduce(x, mesh, axis)
+        if op == "gather":
+            return coll.gather_along(x, 1, mesh, axis)
+        if op == "scatter":
+            return coll.scatter_along(x, 0, mesh, axis)
+        if op == "broadcast":
+            return coll.broadcast_along(x, mesh, axis, src=i % 2)
+        if op == "exchange":
+            return coll._exchange(x, mesh, axis)
+        me = mesh.coords[axis]                  # uneven: 2 rows, then 3
+        return coll._exchange(x, mesh, axis, send=[2, 3],
+                              recv=[2, 2] if me == 0 else [3, 3])
+
+    plan = [(i, *b) for i, b in enumerate(BURST * 3)]
+    xs = [inp(i, dt, sh) for i, _, _, dt, sh in plan]
+    torch.cuda.synchronize()
+    burst = []
+    for (i, op, axis, _, _), x in zip(plan, xs):
+        torch.cuda._sleep(cycles)
+        burst.append(run(i, op, axis, x))
+    torch.cuda.synchronize()
+    one = []
+    for (i, op, axis, _, _), x in zip(plan, xs):
+        one.append(run(i, op, axis, x.clone()))
+        torch.cuda.synchronize()
+    bad = sum(not torch.equal(a, b) for a, b in zip(burst, one))
+    return bad, len(plan)
+
+
 def comm_rank(rank, init_file, queue):
     """One of the comm phase's four ranks: its own process, on card 0,
     in a gloo process group of four as rank ``rank`` of a (pod=2, data=2)
@@ -3397,6 +3474,7 @@ def comm_rank(rank, init_file, queue):
     out["launches"] = launches
     out["sync_check"] = _function_sync(torch, dist, mesh,
                                        strategies["hier-int8"], dev)
+    out["burst"] = _staging_burst(torch, mesh, dev)
     dist.destroy_process_group()
     queue.put(out)
 
@@ -3499,6 +3577,14 @@ def comm_phase(torch, dev, build, smi):
           f"{cgaps}")
     n_leaves = res[0]["n_leaves"]
     for r in res:
+        bad, n = r["burst"]
+        check(bad == 0, f"rank {r['rank']}: {bad} of {n} staged collectives "
+              f"run back to back differ from the same run one at a time")
+    print(f"[comm] the staging burst: {res[0]['burst'][1]} staged "
+          f"collectives of mixed shapes and dtypes back to back, no "
+          f"synchronization between them, equal the same one at a time, "
+          f"bit for bit, on every rank")
+    for r in res:
         runs = r["runs"]
         check(runs["hier-int8"]["ef_max"][0] > 0, f"rank {r['rank']}: the "
               f"residual is zero after step 0")
@@ -3558,11 +3644,26 @@ def comm_phase(torch, dev, build, smi):
 TP_RTOL = 5e-4
 TP_GRAD_RTOL = 2e-3
 TP_STEPS = 3
-# granite's tp run at 8 of its 24 layers (the pipeline's cut): with the
-# seqmix_tp part the script took 1169.4 s uncut on one host (NVIDIA H100
-# 80GB HBM3, 700.00 W), where its three steps on ranks took 97.6 s
-# (39.8-40.3 s at 8 layers; PERF.md section 5)
-GRANITE_TP_LAYERS = 8
+# granite's tp run at all 24 layers: its three steps on ranks take about
+# 51 s, 16.5 s at 8 layers, with the collectives staged through
+# page-locked buffers (28.8 s at 8 before them; NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 5)
+GRANITE_TP_LAYERS = 24
+# the adafactor part: yi-6b's tp cut under Adafactor (factored moments
+# split by model and by data) on (data 2, model 2), ``optimized``,
+# ADA_STEPS steps with no warm-up (TrainConfig()'s warm-up gives step 0 a
+# learning rate of 0, so no update would reach the losses held).  Its
+# checkpoint, restored on one rank, also holds every optimizer leaf to
+# the one-rank run's at the same step within ADA_MOMENT_RTOL (relative
+# L2, leaf by leaf).  Read on an NVIDIA H100 80GB HBM3 at 700.00 W, the
+# largest gap was 4.06e-3 (a (4096,) norm scale's unfactored moment, the
+# squares of its bf16 gradient), the median 1.54e-3; the limit is about
+# ten times the largest, while a mean over the local dim's size doubles a
+# split leaf's moment (a gap of 1).  tools/adafactor_faults.py plants that
+# fault and unsummed shards: the step-1 losses already part by 0.11 and
+# 0.21 of one rank's.
+ADA_STEPS = 2
+ADA_MOMENT_RTOL = 4e-2
 TP_TIMEOUT_S = 300          # each collective (gloo's own timeout)
 TP_DEADLINE_S = 900         # the ranks' whole run, children included
 
@@ -3593,6 +3694,31 @@ def _tp_setup():
             ("yi-6b optimized", yi, yi_shape, *dm, STRATEGIES["optimized"]),
             ("granite hier", granite, WorkloadShape("chip", "train", 4096, 4),
              *pdm, hier)]
+
+
+def _ada_setup():
+    """The adafactor part's run: (name, config, shape, mesh shape, mesh
+    axes, strategy): the tp phase's yi-6b cut and batch with
+    ``optimizer="adafactor"``, on (data 2, model 2) under ``optimized``
+    (FSDP splits a weight's rows over data, tensor parallelism its heads
+    or FFN columns over model, and the factored moments with them)."""
+    from repro_torch.configs import STRATEGIES
+    name, yi, shape, mshape, axes, _ = _tp_setup()[1]
+    return ("yi-6b adafactor", dataclasses.replace(yi, optimizer="adafactor"),
+            shape, mshape, axes, STRATEGIES["optimized"])
+
+
+def _ada_tcfg():
+    from repro_torch.configs import TrainConfig
+    return TrainConfig(warmup_steps=0)
+
+
+def _ada_counts(cfg):
+    """The adafactor part's launches on each rank."""
+    L = cfg.n_layers
+    return {"flash_fwd": 2 * L * ADA_STEPS, "flash_bwd_dq": L * ADA_STEPS,
+            "flash_bwd_dkv": L * ADA_STEPS,
+            "rmsnorm": (2 * 2 * L + 1) * ADA_STEPS}
 
 
 def _exchange_bytes(cfg, shape, mesh_shape):
@@ -3707,12 +3833,99 @@ def serve_tp_rank(torch, dev, mesh, build, archs=SERVE_TP_ARCHS,
                             _leaves_of(eng.pool)) / 1e9)
             out[(arch, chunk)] = run
             if not chunk:
-                out[(arch, "forced")] = ranks_forced(torch, dev, cfg, eng,
-                                                     mesh)
+                with record_routes(cfg, arch in ROUTED) as routes:
+                    out[(arch, "forced")] = ranks_forced(torch, dev, cfg,
+                                                         eng, mesh)
+                if mesh.rank == 0:
+                    out[(arch, "routes")] = routes
             del eng
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# the archs whose teacher-forced MoE routing the seqmix_tp part reads
+ROUTED = ("jamba-v0.1-52b",)
+
+
+class record_routes:
+    """Within it (where ``on``), each MoE layer call
+    (``models.moe.moe_apply``) appends its top-k expert ids (G, M, k) and
+    its output (G, M, D) in float32, on the host as numpy, to the list it
+    yields (the calls in order: a forward's MoE layers in turn, forward
+    after forward)."""
+
+    def __init__(self, cfg, on=True):
+        self.on = on and cfg.moe is not None
+        self.routes = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = moe.route, moe.moe_apply
+        if self.on:
+            ids = []
+
+            def route(*a, **kw):
+                out = self.real[0](*a, **kw)
+                ids.append(out[3].cpu().numpy())
+                return out
+
+            def moe_apply(*a, **kw):
+                out = self.real[1](*a, **kw)
+                self.routes.append((ids.pop(), out[0].detach().float()
+                                    .cpu().numpy()))
+                return out
+            moe.route, moe.moe_apply = route, moe_apply
+        return self.routes
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route, moe.moe_apply = self.real
+
+
+def _n_moe(cfg, *runs):
+    from repro_torch.models.transformer import _pos_is_moe
+    n = sum(_pos_is_moe(cfg, i % len(cfg.block_pattern))
+            for i in range(cfg.n_layers))
+    check(n and len({len(r) for r in runs}) == 1 and len(runs[0]) % n == 0,
+          f"{[len(r) for r in runs]} MoE calls for {n} MoE layers")
+    return n
+
+
+def _same(x, y):
+    """Per token, how many of x's top-k experts y chose too."""
+    x, y = x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])
+    return (x[:, :, None] == y[:, None, :]).any(-1).sum(-1)
+
+
+def route_flips(cfg, a, b):
+    """Top-k routing choices that differ between two teacher-forced runs'
+    ``record_routes`` lists, for each MoE layer (summed over the prefill
+    and decode steps): a token's k - |its experts in a & in b|."""
+    import numpy as np
+    n_moe = _n_moe(cfg, a, b)
+    flips = np.zeros(n_moe, np.int64)
+    for j, ((x, _), (y, _)) in enumerate(zip(a, b)):
+        flips[j % n_moe] += int((x.shape[-1] - _same(x, y)).sum())
+    return flips.tolist()
+
+
+def routed_drift(cfg, got, plain, f32):
+    """For each MoE layer, the relative L2 gap of ``got``'s and of
+    ``plain``'s MoE outputs to ``f32``'s (``record_routes`` lists of one
+    teacher-forced input), over the tokens whose top-k experts all three
+    chose alike: the MoE path's drift without the routing's flips."""
+    import numpy as np
+    n_moe = _n_moe(cfg, got, plain, f32)
+    sq = np.zeros((n_moe, 3))
+    for j, ((g, og), (p, op), (f, of)) in enumerate(zip(got, plain, f32)):
+        k = g.shape[-1]
+        keep = (_same(g, f) == k) & (_same(p, f) == k)
+        og, op, of = (o.reshape(-1, o.shape[-1])[keep] for o in (og, op, of))
+        sq[j % n_moe] += [((og - of) ** 2).sum(), ((op - of) ** 2).sum(),
+                          (of ** 2).sum()]
+    return (np.sqrt(sq[:, 0] / sq[:, 2]).round(5).tolist(),
+            np.sqrt(sq[:, 1] / sq[:, 2]).round(5).tolist())
 
 
 def ranks_forced(torch, dev, cfg, eng, mesh):
@@ -3769,8 +3982,14 @@ def serve_tp_reference(torch, dev, build, archs=SERVE_TP_ARCHS,
             run["logits"] = [logits_of[k] for k in sorted(logits_of)]
             out[(arch, chunk)] = run
             if not chunk:
-                out[(arch, "forced")] = one_rank_forced(torch, dev, cfg,
-                                                        eng.params)
+                with record_routes(cfg, arch in ROUTED) as routes:
+                    out[(arch, "forced")] = one_rank_forced(torch, dev, cfg,
+                                                            eng.params)
+                # one_rank_forced's three modes in turn, alike
+                n = len(routes) // 3
+                out[(arch, "routes")] = {
+                    m: routes[i * n:(i + 1) * n] for i, m in enumerate(
+                        ("kernels", "plain", "plain_f32"))}
             del eng, logits_of
     gc.collect()
     torch.cuda.empty_cache()
@@ -4071,6 +4290,35 @@ def seqmix_tp_report(res, refs, smi):
         s_f = _rel_steps(got, "sharded", "plain_f32")
         p_f = _rel_steps(got, "plain", "plain_f32")
         ratio[name] = (s_f, p_f, max(s_f) / max(p_f))
+    # the MoE jamba's top-k routing choices that part, by MoE layer: the
+    # ranks against one rank's kernels (both bf16), and one rank's plain
+    # bf16 against its plain f32 (the drift the check allows for)
+    cfg = seqmix_tp_cfg(jamba)
+    one = refs[(jamba, "routes")]
+    ranks = res[0]["seqmix"]["serve"][(jamba, "routes")]
+    flips = {"ranks vs one rank": route_flips(cfg, ranks, one["kernels"]),
+             "ranks vs f32": route_flips(cfg, ranks, one["plain_f32"]),
+             "one rank's kernels vs f32": route_flips(cfg, one["kernels"],
+                                                      one["plain_f32"]),
+             "one rank's plain bf16 vs f32": route_flips(cfg, one["plain"],
+                                                         one["plain_f32"])}
+    n_choices = sum(int(x.size) for x, _ in one["kernels"])
+    print(f"[seqmix_tp] {jamba}'s top-{cfg.moe.top_k} routing choices that "
+          f"part at the teacher-forced input, by MoE layer (of "
+          f"{n_choices} choices in all): "
+          + "; ".join(f"{k} {v}" for k, v in flips.items()) + f" ({smi})")
+    # the MoE layers' outputs where no run's routing parted from f32's:
+    # the ranks' drift from f32 against one rank's plain bf16 drift
+    s_m, p_m = routed_drift(cfg, ranks, one["plain"], one["plain_f32"])
+    r_m = max(s_m) / max(p_m)
+    print(f"[seqmix_tp] {jamba}'s MoE layers' outputs on the tokens whose "
+          f"top-{cfg.moe.top_k} experts agree in all three runs, relative "
+          f"L2 error by MoE layer: ranks vs f32 {s_m}; one rank's plain "
+          f"bf16 vs f32 {p_m}; the ranks' largest {r_m:.4f} x one rank's "
+          f"(limit {LOGIT_NOISE_FACTOR})")
+    check(r_m <= LOGIT_NOISE_FACTOR, f"seqmix_tp {jamba}: the MoE layers' "
+          f"outputs on agreeing tokens drift from f32 by {s_m} on the "
+          f"ranks, by {p_m} in one rank's plain bf16")
     s_f, p_f, r = ratio["dense"]
     print(f"[seqmix_tp] {jamba} with dense FFNs (moe=None) teacher-forced "
           f"on (data 2, model 2): relative L2 error per step: ranks vs f32 "
@@ -4111,8 +4359,9 @@ def seqmix_tp_report(res, refs, smi):
 
 
 def _tp_train_run(torch, dev, build, name, cfg, shape, mesh, strategy,
-                  steps, ckpt=None):
-    """One train run on this rank's ``mesh`` (``TrainConfig()``, seed 0,
+                  steps, ckpt=None, tcfg=None):
+    """One train run on this rank's ``mesh`` (``tcfg``, by default
+    ``TrainConfig()``; seed 0,
     ``steps`` steps, a checkpoint at the last where ``ckpt``): losses,
     step times, the bytes the allocator gave the state against its
     resolved shards, payload bytes by axis, peak memory and launch
@@ -4130,13 +4379,14 @@ def _tp_train_run(torch, dev, build, name, cfg, shape, mesh, strategy,
     from repro_torch.models.model import Model
     from repro_torch.train import Trainer
 
+    tcfg = tcfg if tcfg is not None else TrainConfig()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        tr = Trainer(cfg, TrainConfig(), shape, mesh=mesh, strategy=strategy,
+        tr = Trainer(cfg, tcfg, shape, mesh=mesh, strategy=strategy,
                      ckpt_dir=ckpt, seed=0, device=dev)
     n_warn = sum(issubclass(x.category, comm.CommFallbackWarning)
                  for x in caught)
@@ -4155,7 +4405,7 @@ def _tp_train_run(torch, dev, build, name, cfg, shape, mesh, strategy,
     blocks = torch.cuda.memory_allocated() - before_blocks
     specs = P.tree_leaves(dsteps.train_state_shardings(cfg, strategy, mesh))
     template = P.tree_leaves(dsteps.abstract_train_state(
-        cfg, TrainConfig(), strategy))
+        cfg, tcfg, strategy))
     shards = [math.prod(shd.local_shape(t.shape, sp, mesh))
               * t.element_size() for t, sp in zip(template, specs)]
     check([tuple(x.shape) for x in P.tree_leaves(tr.state)]
@@ -4200,11 +4450,12 @@ def tp_rank(rank, init_file, ckpt_dir, queue):
     a gloo process group of four, on torch's default intra-op threads
     (PERF.md section 5).  Runs each of ``_tp_setup``'s runs
     (``_tp_train_run``, TP_STEPS steps; yi's baseline run writes a
-    checkpoint at its last step), then, the training's memory freed, the
-    serving part on (data 2, model 2) (``serve_tp_rank``), then the
-    seqmix_tp part (``seqmix_tp_rank``), and puts what it measured on
-    ``queue``.  Any failure raises: the process exits non-zero and the
-    parent fails."""
+    checkpoint at its last step), the adafactor part (``_ada_setup``,
+    ADA_STEPS steps, a checkpoint at its last under ``ckpt_dir``'s
+    ``adafactor``), then, the training's memory freed, the serving part
+    on (data 2, model 2) (``serve_tp_rank``), then the seqmix_tp part
+    (``seqmix_tp_rank``), and puts what it measured on ``queue``.  Any
+    failure raises: the process exits non-zero and the parent fails."""
     import os
     from datetime import timedelta
 
@@ -4232,13 +4483,22 @@ def tp_rank(rank, init_file, ckpt_dir, queue):
         out["runs"][name] = _tp_train_run(
             torch, dev, build, name, cfg, shape, meshes[mshape], strategy,
             TP_STEPS, ckpt_dir if name == "yi-6b baseline" else None)
+    name, cfg, shape, mshape, axes, strategy = _ada_setup()
+    t = time.perf_counter()
+    out["adafactor"] = _tp_train_run(
+        torch, dev, build, name, cfg, shape, meshes[mshape], strategy,
+        ADA_STEPS, os.path.join(ckpt_dir, "adafactor"), _ada_tcfg())
+    out["adafactor"]["part_s"] = time.perf_counter() - t
     # serving on (data 2, model 2), the training's memory freed
     out["serve"] = serve_tp_rank(torch, dev, meshes[(2, 2)], build)
     meshes[(1, 4)] = dmesh.make_mesh((1, 4), ("data", "model"),
                                      timeout=timeout)
     out["seqmix"] = seqmix_tp_rank(torch, dev, meshes, build)
     dist.destroy_process_group()
-    queue.put(out)
+    # pickled here, by value: a queue of torch.multiprocessing passes a
+    # CPU tensor (rank 0's forced logits) as a file descriptor that the
+    # reader fetches from this process, which may have exited by then
+    queue.put(pickle.dumps(out))
 
 
 def _tp_train_report(tag, name, cfg, shape, mshape, axes, strategy, runs,
@@ -4306,6 +4566,96 @@ def _tp_train_report(tag, name, cfg, shape, mshape, axes, strategy, runs,
               f"{ {k: v for k, v in run['launches'].items() if v} } ({smi})")
 
 
+def ada_reference(torch, dev):
+    """The adafactor part's one-rank run, ADA_STEPS + 1 steps (the last
+    is the one a one-rank restore of the ranks' checkpoint takes):
+    (its history, its optimizer state's leaves after ADA_STEPS steps, as
+    float32 on the host)."""
+    from repro_torch.models import params as P
+    from repro_torch.train import Trainer
+
+    name, acfg, ashape = _ada_setup()[:3]
+    t = time.perf_counter()
+    ref = Trainer(acfg, _ada_tcfg(), ashape, seed=0, device=dev)
+    ref.run(ADA_STEPS, log_every=0)
+    moments = [x.float().cpu() for x in P.tree_leaves(ref.state["opt"])]
+    ref.run(1, log_every=0)
+    hist = ref.history
+    print(f"[tp] one-rank reference: {name}, batch {ashape.global_batch} x "
+          f"{ashape.seq_len}, no warm-up: losses "
+          f"{[round(h['loss'], 5) for h in hist]} in "
+          f"{time.perf_counter() - t:.1f} s")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, moments
+
+
+def restore_on_one_rank(torch, dev, cfg, shape, tcfg, where, step, want,
+                        moments=None):
+    """A sharded run's checkpoint (at ``step`` under ``where``) restored
+    whole on this one rank: its next step's loss within TP_RTOL and
+    grad_norm within TP_GRAD_RTOL of the one-rank run's (``want``); given
+    ``moments`` (the one-rank run's optimizer state at ``step``), every
+    restored optimizer leaf within ADA_MOMENT_RTOL of it in relative
+    L2."""
+    from repro_torch.models import params as P
+    from repro_torch.train import Trainer
+
+    t = time.perf_counter()
+    one = Trainer(cfg, tcfg, shape, ckpt_dir=str(where), seed=0, device=dev)
+    check(one.init_or_resume() == "resumed" and one.start_step == step,
+          f"one rank did not resume the sharded run's checkpoint {where}")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t
+    if moments is not None:
+        got = P.tree_leaves(one.state["opt"])
+        check(len(got) == len(moments), "the restored optimizer state has "
+              f"{len(got)} leaves, the one-rank run's {len(moments)}")
+        gaps = [float(torch.linalg.vector_norm(a.float().cpu() - b)
+                      / max(float(torch.linalg.vector_norm(b)), 1e-30))
+                for a, b in zip(got, moments)]
+        worst = max(range(len(gaps)), key=gaps.__getitem__)
+        print(f"[tp] {cfg.name} ({cfg.optimizer})'s restored optimizer "
+              f"state, {len(gaps)} leaves, against the one-rank run's at "
+              f"step {step}: largest relative L2 gap {gaps[worst]:.3g} "
+              f"(leaf {worst}, shape {tuple(moments[worst].shape)}; tol "
+              f"{ADA_MOMENT_RTOL}), median {sorted(gaps)[len(gaps) // 2]:.3g}")
+        check(gaps[worst] <= ADA_MOMENT_RTOL, f"the restored optimizer "
+              f"state's leaf {worst} differs from one rank's by "
+              f"{gaps[worst]}")
+    one.run(1, log_every=0)
+    got = one.history[0]
+    gap = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    g_gap = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    print(f"[tp] {cfg.name} ({cfg.optimizer})'s checkpoint from (data 2, "
+          f"model 2), restored on one rank in {t_restore:.1f} s: step "
+          f"{step} loss {got['loss']:.5f} against the one-rank run's "
+          f"{want['loss']:.5f}, relative {gap:.3g} (tol {TP_RTOL}); "
+          f"grad_norm {got['grad_norm']:.5f} against "
+          f"{want['grad_norm']:.5f}, relative {g_gap:.3g} (tol "
+          f"{TP_GRAD_RTOL})")
+    check(gap <= TP_RTOL, f"the restored step's loss differs by {gap}")
+    check(g_gap <= TP_GRAD_RTOL,
+          f"the restored step's grad_norm differs by {g_gap}")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ada_report(torch, dev, runs, want, moments, where, smi, total):
+    """The adafactor part's ranks (``runs``: (rank, its run) each) against
+    its one-rank run (``ada_reference``'s ``want`` and ``moments``): the
+    train rule of ``_tp_train_report``, then its checkpoint under
+    ``where`` restored on one rank (``restore_on_one_rank``, the factored
+    moments held too)."""
+    name, cfg, shape, mshape, axes, strategy = _ada_setup()
+    _tp_train_report("tp", name, cfg, shape, mshape, axes, strategy, runs,
+                     want, ADA_STEPS, _ada_counts(cfg), smi, total)
+    restore_on_one_rank(torch, dev, cfg, shape, _ada_tcfg(), where,
+                        ADA_STEPS, want[ADA_STEPS], moments)
+
+
 def tp_phase(torch, dev, build, smi):
     """Tensor, expert and FSDP parallelism on four gloo ranks of the one
     card (``_tp_setup``), each run held against one rank's run of the
@@ -4355,6 +4705,7 @@ def tp_phase(torch, dev, build, smi):
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+    refs["adafactor"], ada_moments = ada_reference(torch, dev)
 
     print(f"[tp] this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
           f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
@@ -4376,7 +4727,7 @@ def tp_phase(torch, dev, build, smi):
     try:
         while len(results) < len(procs):
             try:
-                r = q.get(timeout=5)
+                r = pickle.loads(q.get(timeout=5))
             except queue_mod.Empty:
                 dead = [p.exitcode for p in procs
                         if p.exitcode not in (None, 0)]
@@ -4412,31 +4763,15 @@ def tp_phase(torch, dev, build, smi):
                          [(r["rank"], r["runs"][name]) for r in res], want,
                          steps, counts, smi, total)
 
-    # yi's sharded checkpoint (step 3), restored whole on this one rank
-    cfg, shape = setup[0][1], setup[0][2]
-    t = time.perf_counter()
-    one = Trainer(cfg, TrainConfig(), shape, ckpt_dir=str(ckpt_dir), seed=0,
-                  device=dev)
-    check(one.init_or_resume() == "resumed" and one.start_step == TP_STEPS,
-          "one rank did not resume the sharded run's checkpoint")
-    torch.cuda.synchronize()
-    t_restore = time.perf_counter() - t
-    one.run(1, log_every=0)
-    got, want = one.history[0], refs["yi-6b"][TP_STEPS]
-    gap = abs(got["loss"] - want["loss"]) / abs(want["loss"])
-    g_gap = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
-    print(f"[tp] yi-6b's checkpoint from (data 2, model 2), restored on one "
-          f"rank in {t_restore:.1f} s: step {TP_STEPS} loss "
-          f"{got['loss']:.5f} against the one-rank run's {want['loss']:.5f}, "
-          f"relative {gap:.3g} (tol {TP_RTOL}); grad_norm "
-          f"{got['grad_norm']:.5f} against {want['grad_norm']:.5f}, relative "
-          f"{g_gap:.3g} (tol {TP_GRAD_RTOL})")
-    check(gap <= TP_RTOL, f"the restored step's loss differs by {gap}")
-    check(g_gap <= TP_GRAD_RTOL,
-          f"the restored step's grad_norm differs by {g_gap}")
-    del one
-    gc.collect()
-    torch.cuda.empty_cache()
+    # yi's sharded checkpoint at step 3, restored whole on this one rank
+    restore_on_one_rank(torch, dev, *setup[0][1:3], TrainConfig(), ckpt_dir,
+                        TP_STEPS, refs["yi-6b"][TP_STEPS])
+    # the adafactor part: the same rule against its one-rank run
+    ada_report(torch, dev, [(r["rank"], r["adafactor"]) for r in res],
+               refs["adafactor"], ada_moments, ckpt_dir / "adafactor", smi,
+               total)
+    print(f"[tp] the adafactor part took "
+          f"{res[0]['adafactor']['part_s']:.1f} s on the ranks")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     return (total, serve_tp_report(res, serve_refs, smi),
             seqmix_tp_report(res, seqmix_refs, smi))
@@ -4814,6 +5149,111 @@ def _decode_median(ticks):
             f"over {len(dec)}")
 
 
+OPR_FLEET_SHARED = 6         # staggered requests sharing a 256-token prefix
+OPR_FLEET_NEW = 8
+
+
+def fleet_on_ranks(torch, yi, ecfg, pool, cluster, until, smi):
+    """The fleet part of the operator_ranks phase: yi-6b (OPR_LAYERS
+    layers) served by two RemoteEngine replicas, each on (1, 2) of its
+    own slots, through the FleetServeExecutor (a host a replica, chunked
+    at OPR_CHUNK); then on its replicas OPR_FLEET_SHARED
+    staggered requests sharing a 256-token prefix (the first alone until
+    its prompt is prefilled and registered), once through a Router with
+    the prefix cache and a tracer, once through one without the cache.
+    Holds the greedy streams equal, at least n - 1 hits, fewer prefilled
+    prompt tokens with the cache, and every finished request's spans
+    rebuilding ``ttft_e2e`` exactly; prints the hits, ``n_prefill_tokens``
+    and seconds of each run."""
+    import numpy as np
+    from repro_torch.core import JobState
+    from repro_torch.obs.trace import (REQUEST_SPANS, Tracer, WallClock,
+                                       ttft_breakdown)
+    from repro_torch.serve import Router
+    from repro_torch.spec import ResourceSpec, ServeSpec, WorkloadSpec
+
+    t_part = time.perf_counter()
+    clock, mc = cluster("fleet", 2, 2, 2, 2)
+    h = mc.apply(WorkloadSpec(
+        kind="serve", name="yi-6b:fleet", arch="yi-6b",
+        resources=ResourceSpec(n_nodes=1),
+        serve=ServeSpec(max_new=OPR_FLEET_NEW, n_requests=2, replicas=2,
+                        prefill_chunk=OPR_CHUNK, **ecfg)),
+        cfg=yi, executor_opts=dict(ranks=pool))
+    until(clock, lambda: h.job.state == JobState.INACTIVE, "the fleet's end")
+    _lifecycle(h)
+    rec = h.executor.ran[h.job.jobid]
+    router, = h.executor._fleets.values()
+    engines = router.engines
+    check(rec["mesh_shapes"] == [(1, 2), (1, 2)]
+          and [e.slots for e in engines] == [(0, 1), (2, 3)],
+          f"yi-6b:fleet: meshes {rec['mesh_shapes']}, slots "
+          f"{[e.slots for e in engines]}")
+    check(router.prefix_cache is not None,
+          "the fleet of RemoteEngines has no prefix cache")
+    print(f"[operator_ranks] yi-6b:fleet: {rec['replicas']} RemoteEngine "
+          f"replicas, meshes {rec['mesh_shapes']} on slots "
+          f"{[e.slots for e in engines]}, {rec['n_tokens']} tokens, "
+          f"prefix cache {rec['prefix_cache']}")
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, yi.vocab_size, 256).tolist()
+    shared = [prefix + rng.integers(0, yi.vocab_size, 64).tolist()
+              for _ in range(OPR_FLEET_SHARED)]
+
+    def staggered(r):
+        reqs = [r.submit(shared[0], max_new_tokens=OPR_FLEET_NEW)]
+        while not reqs[0].tokens:
+            check(r.step(), "the fleet idled mid-prefill")
+        reqs += [r.submit(p, max_new_tokens=OPR_FLEET_NEW)
+                 for p in shared[1:]]
+        r.run()
+        return reqs
+
+    def prefilled():
+        return sum(e.stats()["n_prefill_tokens"] for e in engines)
+
+    runs = {}
+    tracer = Tracer(WallClock())
+    for name, kw in (("on", dict(tracer=tracer)),
+                     ("off", dict(prefix_cache=False))):
+        r = Router(engines, **kw)       # (each sets the engines' cache)
+        before, t = prefilled(), time.perf_counter()
+        reqs = staggered(r)
+        runs[name] = (reqs, time.perf_counter() - t, prefilled() - before,
+                      r.prefix_cache)
+    for e in engines:
+        e.tracer = None
+    (warm, t_on, n_on, cache), (cold, t_off, n_off, _) = (runs["on"],
+                                                           runs["off"])
+    check([q.tokens for q in warm] == [q.tokens for q in cold],
+          "prefix adoption on ranks changed the greedy streams")
+    check(cache.hits >= len(shared) - 1, f"the fleet's prefix cache hit "
+          f"{cache.hits} times for {len(shared) - 1} requests sharing a "
+          f"cached prefix")
+    check(n_on < n_off, f"the cache prefilled {n_on} prompt tokens, "
+          f"without it {n_off}")
+    for q in warm:
+        spans = tracer.spans_for(f"req-{q.rid}")
+        got = ttft_breakdown(spans)
+        check([sp.name for sp in spans] == list(REQUEST_SPANS)
+              and got["sum_s"] == q.ttft_e2e
+              and (got["start"], got["end"]) == (q.t_created, q.t_first),
+              f"request {q.rid}'s spans {[sp.name for sp in spans]} do not "
+              f"rebuild its ttft_e2e")
+    entry = next(iter(cache._store.values()))
+    print(f"[operator_ranks] yi-6b:fleet prefix cache on ranks: "
+          f"{len(shared)} staggered requests sharing a 256-token prefix; "
+          f"cache on: {cache.stats()}, {n_on} prompt tokens prefilled, "
+          f"{t_on:.2f} s; off: {n_off} prompt tokens, {t_off:.2f} s; the "
+          f"same streams token for token; an entry on the host with all "
+          f"{yi.n_kv_heads} KV heads "
+          f"{[tuple(t.shape) for t in entry['p0'].values()]}; every "
+          f"request's spans {list(REQUEST_SPANS)} rebuild its ttft_e2e "
+          f"exactly; the part {time.perf_counter() - t_part:.1f} s ({smi})")
+    for e in engines:
+        e.close()
+
+
 def operator_ranks_phase(torch, dev, build, smi):
     """The executors on meshes of ranks: one ``RankPool(4)`` of the one
     card, whose slots Flux allocations map onto (``ResourceGraph`` of 1
@@ -5035,6 +5475,10 @@ def operator_ranks_phase(torch, dev, build, smi):
               + _decode_median(eng.ticks)
               + f"; {time.perf_counter() - t:.1f} s")
         eng.close()
+
+        pool.launches(reset=True)
+        fleet_on_ranks(torch, yi, ecfg, pool, cluster, until, smi)
+        tally()
 
         # lammps-proxy through the SubmeshExecutor on (2, 2)
         t = time.perf_counter()

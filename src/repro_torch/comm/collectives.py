@@ -221,7 +221,8 @@ def sum_over(x, mesh, axes):
 # --------------------------------------------------------------------------
 #
 # Each is an ``autograd.Function`` over one axis's gloo group.  A CUDA
-# payload goes through host memory in the collective itself: gloo's CUDA
+# payload goes through host memory in the collective itself (``_staged``:
+# page-locked host tensors, copies that do not block): gloo's CUDA
 # path is proven for float32 and int8 reduce-scatter, all-gather and
 # all-reduce only, and these carry bfloat16 activations and an
 # all-to-all.  On a mesh of one rank (or an axis of size 1) each is the
@@ -235,14 +236,25 @@ def _live_group(mesh, axis):
 
 
 def _staged(op, x, out_shape=None):
-    """``op(inp, out)`` on a contiguous copy of ``x`` (on the host where
-    ``x`` is a CUDA tensor); returns ``out`` (``inp`` itself, reduced in
-    place, when ``out_shape`` is None) on ``x``'s device."""
-    inp = (x.detach().to("cpu", copy=True) if x.is_cuda
-           else x.detach().clone()).contiguous()
-    out = inp if out_shape is None else inp.new_empty(out_shape)
+    """``op(inp, out)`` on a contiguous copy of ``x``; returns ``out``
+    (``inp`` itself, reduced in place, when ``out_shape`` is None) on
+    ``x``'s device.  A CUDA ``x`` goes through page-locked host tensors,
+    copied there and back without blocking: the stream is synchronized
+    before gloo reads them, and torch's caching host allocator, which
+    hands the pinned blocks out again, holds a block back until the copy
+    that reads it has finished."""
+    if not x.is_cuda:
+        inp = x.detach().clone().contiguous()
+        out = inp if out_shape is None else inp.new_empty(out_shape)
+        op(inp, out)
+        return out
+    inp = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    inp.copy_(x.detach(), non_blocking=True)
+    out = inp if out_shape is None else torch.empty(
+        out_shape, dtype=x.dtype, pin_memory=True)
+    torch.cuda.current_stream(x.device).synchronize()
     op(inp, out)
-    return out.to(x.device) if x.is_cuda else out
+    return out.to(x.device, non_blocking=True)
 
 
 def _reduce(x, mesh, axis, op=dist.ReduceOp.SUM):

@@ -283,13 +283,6 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     n_shards = dmesh.axis_size(mesh, batch_ax)
     dp_world = dmesh.axis_size(mesh, dmesh.data_axes(mesh))
     specs = train_state_shardings(cfg, strategy, mesh)
-    if mesh.size > 1 and cfg.optimizer == "adafactor" and any(
-            shd.local_shape(d.shape, sp, mesh) != tuple(d.shape)
-            for d, sp in zip(P.tree_leaves(train_state_defs(cfg)["opt"]),
-                             P.tree_leaves(specs["opt"]))):
-        raise NotImplementedError(
-            f"{cfg.name}: Adafactor's factored moments on sharded leaves "
-            "(ROADMAP Queue 1 item 5(e))")
 
     policy = comm.resolve_policy(strategy, mesh)
     n_chunks = ga * dp_world
@@ -313,9 +306,16 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     defs = model.param_defs()
     paths = _paths(defs)
     pspecs = P.tree_leaves(specs["params"])
-    # Adafactor's factored moments never split here (refused above)
-    ospecs = (P.tree_leaves(specs["opt"]["m"]) if "m" in specs["opt"]
-              else pspecs)
+    # AdamW's moments are the parameter's shape, ZeRO-1 slices over data
+    # beyond it; Adafactor's factored moments have shapes of their own,
+    # so its update runs on the parameter's shard (each moment's specs
+    # beside it, for the optimizer's sums over the axes that split it)
+    if "m" in specs["opt"]:
+        ospecs, moment_specs = P.tree_leaves(specs["opt"]["m"]), None
+    else:
+        ospecs = pspecs
+        moment_specs = list(zip(pspecs, P.tree_leaves(specs["opt"]["vr"]),
+                                P.tree_leaves(specs["opt"]["vc"])))
     plans = ([_LeafPlan(ps, os_, mesh, batch_ax, policy)
               for ps, os_ in zip(pspecs, ospecs)]
              if mesh.size > 1 else None)
@@ -424,8 +424,9 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return grads
 
     def apply_update(state, params, grads):
-        """AdamW or Adafactor on each leaf's optimizer slice; a ZeRO-1
-        leaf's updated slice is all-gathered back into the parameter."""
+        """AdamW on each leaf's optimizer slice (a ZeRO-1 leaf's updated
+        slice all-gathered back into the parameter), or Adafactor on
+        each leaf's parameter shard."""
         leaves = P.tree_leaves(params)
         if plans is None:
             return update(P.tree_unflatten(params, grads), state["opt"],
@@ -442,7 +443,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             p_view.append(p)
         out = update(P.tree_unflatten(params, g_view), state["opt"],
                      P.tree_unflatten(params, p_view), state["step"],
-                     norm_axes=[pl.norm for pl in plans], mesh=mesh)
+                     norm_axes=[pl.norm for pl in plans], mesh=mesh,
+                     specs=moment_specs)
         for p, v, pl in zip(leaves, p_view, plans):
             for dim, axes in reversed(pl.zero1):
                 whole = v.contiguous()

@@ -458,6 +458,33 @@ class Engine:
         self.n_prefills, self.n_decode_steps, self.n_generated = \
             snap["counters"]
 
+    # -- the fleet's prefix cache (fleet.PrefixCache) ----------------------
+    def prefix_pages(self, slot: int, n_pages: int) -> dict:
+        """The KV of the first ``n_pages`` pages of ``slot``: one tensor
+        per attention leaf, ``(reps, n_pages, page, kv, hd)``, gathered
+        out of the pools (this rank's KV heads on a mesh of ranks)."""
+        pages = torch.from_numpy(np.asarray(
+            self.alloc.block_table[slot, :n_pages], np.int64))
+        return {f"p{i}": {n: a.index_select(1, pages.to(a.device))
+                          for n, a in self.pool[f"p{i}"].items()}
+                for i in range(len(self.cfg.block_pattern))}
+
+    def adopt_prefix(self, req: Request, n_pages: int, entry: dict) -> int:
+        """Copy ``entry`` (a :meth:`prefix_pages` of ``n_pages`` pages,
+        with every KV head) into the first pages of ``req``'s slot and
+        mark those prompt tokens prefilled; on a mesh of ranks this
+        rank's KV heads of it.  Returns the tokens skipped."""
+        pages = torch.from_numpy(np.asarray(
+            self.alloc.block_table[req.slot, :n_pages], np.int64))
+        for lk, sub in entry.items():
+            for n, src in sub.items():
+                dst = self.pool[lk][n]
+                if self._ranks:
+                    src = shd.shard(src, self._pool_specs[lk][n], self.mesh)
+                dst.index_copy_(1, pages.to(dst.device), src.to(dst.device))
+        req.prefill_progress = n_pages * self.ecfg.page_size
+        return req.prefill_progress
+
     # -- request API --------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
                temperature: float = 0.0, eos_id: Optional[int] = None,

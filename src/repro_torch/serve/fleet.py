@@ -19,12 +19,21 @@ output is token-for-token identical to the uncached path — extending
 the paged-vs-contiguous invariant ``tests/test_serve.py`` pins.
 
 The port of the JAX package's ``serve/fleet.py``.  There the cache moves
-pages between the host and the device; here its entries stay on the
-engines' device: ``register`` gathers a prompt's prefix pages out of the
-pools (``index_select`` over its block-table row) and ``adopt`` copies
-them into the adopting slot's own pages (``index_copy_``).  The replicas
-of a fleet share one device, so an entry taken from one engine's pool is
-copied into another's without leaving it.
+pages between the host and the device; here, over local engines, its
+entries stay on the engines' device: ``register`` gathers a prompt's
+prefix pages out of the pools (``Engine.prefix_pages``, an
+``index_select`` over its block-table row) and ``adopt`` copies them
+into the adopting slot's own pages (``Engine.adopt_prefix``,
+``index_copy_``).  The replicas of a fleet share one device, so an entry
+taken from one engine's pool is copied into another's without leaving
+it.  Over ``serve.remote.RemoteEngine`` replicas an entry is held on this
+host with every KV head (rank 0 gathers the ranks' heads), so a replica
+on any ``model`` size adopts it: the engine looks its admissions up here
+and ships the entries to its ranks with the tick that admits them.
+
+Request spans need one clock: a ``RemoteEngine``'s requests are stamped
+on its ranks' ``time.perf_counter``, so a Router over one takes only
+wall clocks (``obs.trace.WallClock``) and raises for any other.
 """
 from __future__ import annotations
 
@@ -32,12 +41,10 @@ import math
 from collections import OrderedDict, deque
 from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
 
-import numpy as np
-import torch
-
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import Clock, Tracer
+from repro_torch.obs.trace import Clock, Tracer, WallClock
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.remote import RemoteEngine
 from repro_torch.serve.scheduler import Request, StreamError, SubmitError
 
 
@@ -84,15 +91,8 @@ class PrefixCache:
                    if tuple(req.prompt[:k * ps]) not in self._store]
         if not missing:
             return
-        pages = torch.from_numpy(np.asarray(
-            engine.alloc.block_table[req.slot, :kmax], np.int64))
         # one gather of the full prefix; per-k entries are views
-        leaves = {}
-        for i, kind in enumerate(engine.cfg.block_pattern):
-            key = f"p{i}"
-            leaves[key] = {
-                n: a.index_select(1, pages.to(a.device))
-                for n, a in engine.pool[key].items()}
+        leaves = engine.prefix_pages(req.slot, kmax)
         for k in missing:
             self._store[tuple(req.prompt[:k * ps])] = {
                 lk: {n: a[:, :k] for n, a in sub.items()}
@@ -115,23 +115,18 @@ class PrefixCache:
 
     def adopt(self, engine: Engine, req: Request) -> int:
         """Copy the longest cached prefix into ``req``'s own pages on
-        ``engine`` and mark those prompt tokens prefilled.  Returns the
-        number of prompt tokens skipped (0 on a miss)."""
+        ``engine`` and mark those prompt tokens prefilled (a
+        ``RemoteEngine`` ships the entry to its ranks with the tick that
+        admits ``req``).  Returns the number of prompt tokens skipped (0
+        on a miss)."""
         if req.prefill_progress:
             return 0
         k, entry = self.lookup(req.prompt)
         if k == 0:
             self.misses += 1
             return 0
-        pages = torch.from_numpy(np.asarray(
-            engine.alloc.block_table[req.slot, :k], np.int64))
-        for lk, sub in entry.items():
-            for n, src in sub.items():
-                dst = engine.pool[lk][n]
-                dst.index_copy_(1, pages.to(dst.device), src)
-        req.prefill_progress = k * self.page_size
         self.hits += 1
-        return req.prefill_progress
+        return engine.adopt_prefix(req, k, entry)
 
     def stats(self) -> dict:
         return {"size": len(self._store), "cap": self.max_entries,
@@ -145,16 +140,32 @@ def _cacheable(engines: List[Engine]) -> bool:
     attention KV is positionwise (seq-mixer state is a recurrence over
     the whole prefix, not a per-page value).  Nor may a data tier split
     an engine's slots over ranks: a page would then lie on one data
-    shard, and a slot of another could not adopt it.  The cache copies
-    pages between engines of this process, so every replica must be an
-    ``Engine`` here (not a ``serve.remote.RemoteEngine``)."""
+    shard, and a slot of another could not adopt it.  The replicas are
+    all ``Engine``s of this process (entries on their device) or all
+    ``serve.remote.RemoteEngine``s (entries on this host)."""
     e0 = engines[0]
     return all(
-        isinstance(e, Engine) and e._chunked and not e.splits_slots
+        isinstance(e, (Engine, RemoteEngine)) and type(e) is type(e0)
+        and e._chunked and not e.splits_slots
         and all(kind == "attn" for kind in e.cfg.block_pattern)
         and e.ecfg.page_size == e0.ecfg.page_size
         and e.cfg.name == e0.cfg.name
         for e in engines)
+
+
+def _check_clocks(clock: Clock, engines) -> None:
+    """A ``RemoteEngine``'s requests are stamped on its ranks'
+    ``time.perf_counter`` (the clock a ``WallClock`` reads on this host):
+    a Router over one refuses any other clock, its own or the engine's,
+    rather than record spans that mix two clocks."""
+    for e in engines:
+        if isinstance(e, RemoteEngine) and not (
+                type(clock) is WallClock and type(e.clock) is WallClock):
+            raise ValueError(
+                f"a Router over RemoteEngines needs wall clocks (its ranks "
+                f"stamp requests on time.perf_counter); got "
+                f"{type(clock).__name__} for the router and "
+                f"{type(e.clock).__name__} for an engine")
 
 
 class Router:
@@ -185,6 +196,7 @@ class Router:
         # defaults to the engines' clock (under a tick/sim clock, raw
         # wall time here would make slack ordering nondeterministic)
         self.clock = clock if clock is not None else engines[0].clock
+        _check_clocks(self.clock, self.engines)
         self.tracer = tracer
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         if tracer is not None:
@@ -246,6 +258,7 @@ class Router:
         cacheability contract (chunked, attention-only, shape-identical
         replicas); otherwise it detaches fleet-wide — correctness never
         depends on a cache entry, so detaching is always safe."""
+        _check_clocks(self.clock, [eng])
         self.engines.append(eng)
         if self.tracer is not None:
             eng.tracer = self.tracer
@@ -260,6 +273,7 @@ class Router:
         path: the new engine has ADOPTED the old one's snapshot, so
         in-flight requests continue where they parked).  Returns the
         replaced engine."""
+        _check_clocks(self.clock, [eng])
         old = self.engines[index]
         self.engines[index] = eng
         if self.tracer is not None:

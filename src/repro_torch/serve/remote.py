@@ -25,11 +25,25 @@ A snapshot is gathered to rank 0's host and written to a file under the
 pool's directory; ``snapshot_state`` returns the file's path with the
 controller's requests in their queues, and ``adopt_state`` on an
 engine of any mesh reads it (each rank cutting its shard) and removes
-it.  The prefix cache of a fleet ``Router`` copies pages between
-engines of one process, so it stays off for remote engines.
+it.
+
+A fleet ``Router``'s prefix cache works through the same channel: its
+``register`` asks the ranks for a prompt's prefix pages
+(:meth:`RemoteEngine.prefix_pages`: rank 0 gathers every rank's KV heads
+to its host and writes them to a file), and the entry is held on the
+controller's host.  Before each tick the controller works out which
+waiting requests the tick admits (rank 0's allocator, mirrored, takes
+them in the scheduler's order), looks each up in the cache, and the hits
+travel with the tick's command, through a file: on every rank a
+stand-in for the cache copies the rank's KV heads of an entry into the
+admitted slot's pages at admission.  An entry shipped and not adopted,
+or a rank's failure in either direction, raises here.  With a
+``tracer`` set, each finished request's spans are recorded from the
+mirrored stamps.
 """
 from __future__ import annotations
 
+import copy
 import os
 import time
 from collections import deque
@@ -38,6 +52,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import BASELINE, ModelConfig, ShardingStrategy
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.ranks import RankError, pool_of, slots_of
 from repro_torch.models import params as P
 from repro_torch.obs.trace import Clock, WallClock
@@ -94,6 +109,7 @@ class RemoteEngine:
         self.tracer = None
         self._reqs: Dict[int, Request] = {}
         self._outbox: List[Dict] = []
+        self._adopts: Dict[int, tuple] = {}     # rid -> (pages, entry)
         self.ticks: List = []         # (kind, rank 0's seconds) a tick
         self.gid = pool.group(self.slots)
         self.handle = pool.handle()
@@ -118,12 +134,24 @@ class RemoteEngine:
         return self.gid is not None and self.pool.alive(self.gid)
 
     def _call(self, fn: str, *args):
+        """``fn`` on every rank, with the queued submits and (a tick's)
+        the prefix entries its admissions adopt, through a file."""
         if not self.alive:
             raise RankError(f"the engine on ranks {self.slots} is gone: its "
                             "group was dissolved or it was closed")
         submits, self._outbox = self._outbox, []
-        out = self.pool.run(self.slots, f"{_HERE}:{fn}", self.handle,
-                            submits, *args)
+        adopts, self._adopts = self._adopts, {}
+        path = None
+        if adopts:
+            path = self.pool.path("adopt")
+            torch.save({rid: (k, P.tree_map(lambda t: t.clone(), entry))
+                        for rid, (k, entry) in adopts.items()}, path)
+        try:
+            out = self.pool.run(self.slots, f"{_HERE}:{fn}", self.handle,
+                                (submits, path), *args)
+        finally:
+            if path is not None and os.path.exists(path):
+                os.remove(path)
         out, report = out
         self._apply(report)
         return out
@@ -147,6 +175,8 @@ class RemoteEngine:
              req.t_done) = stamps
             if state == FINISHED:
                 del self._reqs[rid]
+                if self.tracer is not None:
+                    self.tracer.record_request(req)
         sch = self.scheduler
         sch.waiting = deque(self._reqs[r] for r in report["waiting"])
         sch.prefilling = deque(self._reqs[r] for r in report["prefilling"])
@@ -166,12 +196,49 @@ class RemoteEngine:
             ttft_slo_s=ttft_slo_s, t_created=self.clock.now()))
 
     def step(self) -> bool:
-        """One tick on every rank; False when there was no work."""
+        """One tick on every rank; False when there was no work.  With a
+        fleet's prefix cache, the requests the tick admits are looked up
+        first (:meth:`_admissions`)."""
+        if self.prefix_cache is not None and self._chunked:
+            for req in self._admissions():
+                self.prefix_cache.adopt(self, req)
         return self._call("engine_step")
 
     def run(self) -> None:
-        """Ticks on the ranks until every submitted request finished."""
+        """Ticks on the ranks until every submitted request finished
+        (tick by tick from here under a prefix cache, which looks up
+        each tick's admissions)."""
+        if self.prefix_cache is not None:
+            while self.step():
+                pass
+            return
         self._call("engine_run")
+
+    def _admissions(self) -> List[Request]:
+        """The waiting requests the next tick admits, in its order: the
+        scheduler's ``first_fit`` on a copy of rank 0's allocator."""
+        return [req for req, _ in
+                self.scheduler.first_fit(copy.deepcopy(self.alloc))]
+
+    # -- the fleet's prefix cache (fleet.PrefixCache) ----------------------
+    def prefix_pages(self, slot: int, n_pages: int) -> dict:
+        """The KV of the first ``n_pages`` pages of ``slot``, every KV
+        head, on this host (``Engine.prefix_pages`` on each rank, the
+        heads gathered to rank 0 and passed through a file)."""
+        path = self.pool.path("prefix")
+        try:
+            self._call("engine_prefix", slot, n_pages, path)
+            return torch.load(path, map_location="cpu", weights_only=True)
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+
+    def adopt_prefix(self, req: Request, n_pages: int, entry: dict) -> int:
+        """Ship ``entry`` with the next tick, which admits ``req``: its
+        ranks copy their KV heads of it into the slot's pages at
+        admission (``_Adopter``).  Returns the tokens skipped."""
+        self._adopts[req.rid] = (n_pages, entry)
+        return n_pages * self.ecfg.page_size
 
     def stats(self) -> dict:
         return self._call("engine_stats")
@@ -267,13 +334,33 @@ class _Served:
                 "n_finished": sch.n_finished, "alloc": self.eng.alloc}
 
 
-def _served(rk, h, submits) -> _Served:
+class _Adopter:
+    """Stands in for the fleet's ``PrefixCache`` at a tick's admission on
+    a rank: the entries the controller looked up for the requests the
+    tick admits, by request id (``Engine.adopt_prefix``: this rank's KV
+    heads of each)."""
+
+    def __init__(self, entries: Dict[int, tuple]):
+        self.entries = entries
+
+    def adopt(self, engine, req: Request) -> int:
+        got = self.entries.pop(req.rid, None)
+        return 0 if got is None else engine.adopt_prefix(req, *got)
+
+
+def _served(rk, h, mail) -> _Served:
+    """The rank's engine, given the command's submits and, where the
+    controller shipped prefix entries, the ``_Adopter`` of its tick."""
+    submits, adopt = mail
     s = rk.get(h)
     s.take(submits)
+    if adopt is not None:
+        s.eng.prefix_cache = _Adopter(
+            torch.load(adopt, map_location="cpu", weights_only=True))
     return s
 
 
-def engine_new(rk, h, submits, shape, axes, cfg, ecfg, strategy, seed,
+def engine_new(rk, h, mail, shape, axes, cfg, ecfg, strategy, seed,
                compute_dtype, path):
     from repro_torch.serve.engine import Engine
     mesh = rk.mesh(shape, axes)
@@ -286,42 +373,66 @@ def engine_new(rk, h, submits, shape, axes, cfg, ecfg, strategy, seed,
     del params
     s = _Served(eng)
     rk.put(h, s)
-    s.take(submits)
+    s.take(mail[0])
     return eng.splits_slots, s.report()
 
 
-def engine_step(rk, h, submits):
-    s = _served(rk, h, submits)
-    return s.tick(), s.report()
+def engine_step(rk, h, mail):
+    s = _served(rk, h, mail)
+    try:
+        out = s.tick()
+    finally:
+        left, s.eng.prefix_cache = s.eng.prefix_cache, None
+    if left is not None and left.entries:
+        raise RuntimeError(f"prefix entries shipped for requests "
+                           f"{sorted(left.entries)}, which the tick did not "
+                           f"admit")
+    return out, s.report()
 
 
-def engine_run(rk, h, submits):
-    s = _served(rk, h, submits)
+def engine_run(rk, h, mail):
+    s = _served(rk, h, mail)
     while s.tick():
         pass
     return None, s.report()
 
 
-def engine_stats(rk, h, submits):
-    s = _served(rk, h, submits)
+def engine_stats(rk, h, mail):
+    s = _served(rk, h, mail)
     return s.eng.stats(), s.report()
 
 
-def engine_metrics(rk, h, submits):
-    s = _served(rk, h, submits)
+def engine_metrics(rk, h, mail):
+    s = _served(rk, h, mail)
     return s.eng.metrics, s.report()
 
 
-def engine_snapshot(rk, h, submits, path):
-    s = _served(rk, h, submits)
+def engine_prefix(rk, h, mail, slot, n_pages, path):
+    """``Engine.prefix_pages`` of ``slot`` on every rank, each leaf's KV
+    heads gathered to rank 0's host (a collective), written to ``path``
+    by rank 0."""
+    s = _served(rk, h, mail)
+    eng = s.eng
+    pages = eng.prefix_pages(slot, n_pages)
+    if eng._ranks:
+        pages = {lk: {n: shd.gather_to_host(t, eng._pool_specs[lk][n],
+                                            eng.mesh)
+                      for n, t in sub.items()} for lk, sub in pages.items()}
+    if rk.rank == 0:
+        torch.save(P.tree_map(lambda t: t.to("cpu"), pages), path)
+    return None, s.report()
+
+
+def engine_snapshot(rk, h, mail, path):
+    s = _served(rk, h, mail)
     snap = s.eng.snapshot_state()
     if rk.rank == 0:
         torch.save(snap, path)
     return None, s.report()
 
 
-def engine_adopt(rk, h, submits, path):
-    s = _served(rk, h, submits)
+def engine_adopt(rk, h, mail, path):
+    s = _served(rk, h, mail)
     snap = torch.load(path, map_location="cpu", weights_only=False)
     s.eng.adopt_state(snap)
     for req in (list(snap["running"].values()) + list(snap["waiting"])

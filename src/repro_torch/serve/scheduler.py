@@ -175,8 +175,30 @@ class Scheduler:
         return req
 
     def admit(self) -> List[Request]:
-        """Move admissible waiting requests into slots (length-aware
-        first-fit in arrival order).
+        """Move admissible waiting requests into slots (:meth:`first_fit`
+        on this scheduler's allocator)."""
+        admitted = []
+        for req, slot in self.first_fit(self.alloc):
+            req.slot = slot
+            req.state = RUNNING
+            req.t_admit = self.clock.now()
+            self.running[slot] = req
+            admitted.append(req)
+            if self.prefill_chunk > 0:
+                req.prefill_progress = 0
+                self.prefilling.append(req)
+            else:
+                req.prefill_progress = len(req.prompt)
+        taken = {id(r) for r in admitted}
+        self.waiting = deque(r for r in self.waiting if id(r) not in taken)
+        return admitted
+
+    def first_fit(self, alloc: PageAllocator) -> List[Tuple[Request, int]]:
+        """The waiting requests an admission pass takes on ``alloc``,
+        with their slots, in order (each admitted into ``alloc``; the
+        queue is left as it is): length-aware first fit in arrival order.
+        A remote engine's controller runs it on a copy of its ranks'
+        allocator to learn which requests their next tick admits.
 
         The pass ends early the moment no remaining candidate can
         possibly fit: when slots run out, or when even the *smallest*
@@ -185,37 +207,25 @@ class Scheduler:
         pass, so breaking is sound — and it keeps a long router backlog
         from costing an O(queue) rescan on every page-starved tick.
         """
-        admitted = []
-        skipped: Deque[Request] = deque()
+        taken: List[Tuple[Request, int]] = []
+        skipped: List[Request] = []
         min_need = None             # smallest worst-case page need queued
-        while self.waiting:
-            req = self.waiting.popleft()
-            if self.alloc.can_admit(len(req.prompt), req.max_new_tokens):
-                req.slot = self.alloc.admit(len(req.prompt),
-                                            req.max_new_tokens)
-                req.state = RUNNING
-                req.t_admit = self.clock.now()
-                self.running[req.slot] = req
-                admitted.append(req)
-                if self.prefill_chunk > 0:
-                    req.prefill_progress = 0
-                    self.prefilling.append(req)
-                else:
-                    req.prefill_progress = len(req.prompt)
-            else:
-                skipped.append(req)
-                if not self.alloc.free_slots:
-                    break
-                if min_need is None:
-                    min_need = min(
-                        self.alloc.pages_for(len(r.prompt)
-                                             + max(r.max_new_tokens, 0))
-                        for r in itertools.chain([req], self.waiting,
-                                                 skipped))
-                if self.alloc.max_admit_pages() < min_need:
-                    break
-        self.waiting = skipped + self.waiting
-        return admitted
+        for i, req in enumerate(self.waiting):
+            if alloc.can_admit(len(req.prompt), req.max_new_tokens):
+                taken.append((req, alloc.admit(len(req.prompt),
+                                               req.max_new_tokens)))
+                continue
+            skipped.append(req)
+            if not alloc.free_slots:
+                break
+            if min_need is None:
+                min_need = min(
+                    alloc.pages_for(len(r.prompt) + max(r.max_new_tokens, 0))
+                    for r in itertools.chain(
+                        skipped, itertools.islice(self.waiting, i + 1, None)))
+            if alloc.max_admit_pages() < min_need:
+                break
+        return taken
 
     # -- chunked prefill (mixed ticks) --------------------------------------
     def next_chunk(self) -> Optional[Tuple[Request, int, int]]:

@@ -376,11 +376,164 @@ def test_fleet_replicas_run_on_their_own_slots(pool):
         if name == "ranks":
             router, = h.executor._fleets.values()
             assert [e.slots for e in router.engines] == [(0,), (1,)]
+            # unchunked replicas: no prefix cache, by the reference's rule
+            # (a chunked fleet on ranks has one: the tests below)
+            assert not router.engines[0]._chunked
             assert router.prefix_cache is None
     assert runs["ranks"]["mesh_shapes"] == [(1, 1), (1, 1)]
     assert runs["ranks"]["n_devices"] == 2
     assert runs["ranks"]["tokens"] == runs["one"]["tokens"]
     assert all(len(t) == 4 for t in runs["ranks"]["tokens"])
+
+
+# the reference's fleet tests (tests/test_fleet.py, tests/test_obs.py)
+# on RemoteEngine replicas: chunked, each on (data 1, model 2) of its own
+# slots (one KV head a rank), at float32 compute on the JAX package's
+# parameters.  Three page-aligned prefixes under a cap of two entries:
+# the third evicts, and a later prompt of an evicted prefix misses again
+CHUNKED = dict(ECFG, prefill_chunk=4)
+_PREFIXES = ([5, 9, 2, 6], [1, 12, 3, 4], [7, 7, 8, 8])
+FLEET_PROMPTS = [_PREFIXES[a] + [10 + i, 20 + i, 3]
+                 for i, a in enumerate((0, 0, 1, 0, 2, 1, 2, 0))]
+PREFIX_CAP = 2
+
+
+@pytest.fixture(scope="module")
+def remote_fleet(pool):
+    """(the JAX package's parameters, two chunked RemoteEngine replicas
+    on them)."""
+    from repro.models.model import Model as JModel
+    from repro_torch.models import params as P
+    jp = JModel(JESERVE).init(jax.random.PRNGKey(0))
+    tp = P.from_numpy(jax.device_get(jp))
+    engines = [RemoteEngine(ESERVE, EngineConfig(**CHUNKED),
+                            mesh=pool.mesh((1, 2), slots=s), params=tp,
+                            compute_dtype=torch.float32)
+               for s in ((0, 1), (2, 3))]
+    yield jp, engines
+    for e in engines:
+        e.close()
+
+
+def _staggered(router, prompts):
+    """tests/test_fleet.py's run: the first prompt alone until its prefix
+    is registered, then the rest; the streams."""
+    if router.prefix_cache is not None:
+        router.prefix_cache.max_entries = PREFIX_CAP
+    reqs = [router.submit(list(prompts[0]), max_new_tokens=4)]
+    for _ in range(8):
+        router.step()
+        if router.prefix_cache is not None \
+                and router.prefix_cache.stats()["size"]:
+            break
+    reqs += [router.submit(list(p), max_new_tokens=4) for p in prompts[1:]]
+    router.run()
+    return [r.tokens for r in reqs]
+
+
+def test_remote_fleet_prefix_cache_equals_the_reference_fleet(
+        remote_fleet, monkeypatch):
+    """A fleet of RemoteEngines registers prompt prefixes through its
+    ranks (every KV head, held on this host) and adopts them at
+    admission: the hits, misses and evictions equal the JAX fleet's on
+    the same requests, the streams equal the JAX fleet's at float32
+    compute and the port's own fleet without the cache, and fewer prompt
+    tokens are prefilled."""
+    from repro.models.model import Model as JModel
+    from repro.serve import Engine as JEngine
+    from repro.serve import EngineConfig as JEngineConfig
+    from repro.serve import Router as JRouter
+    from repro_torch.serve import Router
+    import jax.numpy as jnp
+    jp, engines = remote_fleet
+    for name in ("prefill", "prefill_chunk", "decode_step"):
+        fn = getattr(JModel, name)
+        monkeypatch.setattr(JModel, name, lambda self, *a, _fn=fn, **k: _fn(
+            self, *a, **dict(k, compute_dtype=jnp.float32)))
+    jrouter = JRouter([JEngine(JESERVE, JEngineConfig(**CHUNKED), params=jp)
+                       for _ in range(2)])
+    want = _staggered(jrouter, FLEET_PROMPTS)
+
+    def prefilled():
+        return sum(e.stats()["n_prefill_tokens"] for e in engines)
+
+    before = prefilled()
+    cold = _staggered(Router(engines, prefix_cache=False), FLEET_PROMPTS)
+    cold_tokens = prefilled() - before
+    warm = Router(engines)
+    assert warm.prefix_cache is not None
+    before = prefilled()
+    got = _staggered(warm, FLEET_PROMPTS)
+    warm_tokens = prefilled() - before
+    assert got == cold == want
+    assert warm.prefix_cache.stats() == jrouter.prefix_cache.stats()
+    assert warm.prefix_cache.hits > 0 and warm.prefix_cache.evictions > 0
+    assert warm_tokens < cold_tokens
+    entry = next(iter(warm.prefix_cache._store.values()))
+    assert all(t.device.type == "cpu" and t.dtype == torch.bfloat16
+               and t.shape[3] == ESERVE.n_kv_heads
+               for sub in entry.values() for t in sub.values())
+
+
+def test_remote_fleet_spans_rebuild_ttft_exactly(remote_fleet):
+    """tests/test_obs.py's traced wall-clock run over RemoteEngines: each
+    finished request's spans, recorded here from the stamps rank 0
+    mirrors, come in the reference's names and order and telescope to
+    ``ttft_e2e`` exactly."""
+    from repro.obs.trace import REQUEST_SPANS
+    from repro_torch.obs.trace import Tracer, WallClock, ttft_breakdown
+    from repro_torch.serve import Router
+    _, engines = remote_fleet
+    tracer = Tracer(WallClock())
+    router = Router(engines, prefix_cache=False, tracer=tracer)
+    reqs = [router.submit([3, 1, 4, 1, 5], max_new_tokens=4)
+            for _ in range(3)]
+    router.run()
+    for r in reqs:
+        assert r.finished
+        spans = tracer.spans_for(f"req-{r.rid}")
+        assert [s.name for s in spans] == list(REQUEST_SPANS)
+        got = ttft_breakdown(spans)
+        assert got["sum_s"] == r.ttft_e2e          # EXACT, not approx
+        assert got["start"] == r.t_created and got["end"] == r.t_first
+    for e in engines:
+        e.tracer = None
+
+
+def test_router_over_remote_engines_refuses_other_clocks(remote_fleet):
+    """The ranks stamp requests on ``time.perf_counter``: a Router over
+    RemoteEngines with any other clock, its own or an engine's, raises
+    rather than record spans that mix two clocks."""
+    from repro_torch.obs.trace import Clock, WallClock
+    from repro_torch.serve import Router
+
+    class Frozen(Clock):
+        def now(self):
+            return 0.0
+
+    _, engines = remote_fleet
+    with pytest.raises(ValueError, match="wall clocks"):
+        Router(engines, clock=Frozen())
+    engines[1].clock = Frozen()
+    try:
+        with pytest.raises(ValueError, match="wall clocks"):
+            Router(engines)
+    finally:
+        engines[1].clock = WallClock()
+    assert Router(engines).clock is engines[0].clock
+
+
+def test_remote_fleet_adoption_failure_raises_here(remote_fleet):
+    """No silent fallback: an entry shipped for a request that its tick
+    does not admit fails the tick on the ranks, and the controller
+    raises with the rank's traceback."""
+    from repro_torch.serve.scheduler import Request
+    _, engines = remote_fleet
+    entry = engines[0].prefix_pages(0, 1)
+    ghost = Request(prompt=[1, 2, 3, 4, 5], max_new_tokens=2)
+    engines[0].adopt_prefix(ghost, 1, entry)
+    with pytest.raises(RankError, match="(?s)Traceback.*did not admit"):
+        engines[0].step()
 
 
 def test_elastic_fleet_scales_up_and_promotes_on_ranks(pool):

@@ -142,6 +142,28 @@ def test_scheduler_first_fit_and_chunks():
     assert set(sched.decodable()) == {holder.slot}
 
 
+def test_first_fit_on_a_copied_allocator_predicts_admit():
+    """What a remote engine's controller does to learn a tick's
+    admissions: ``first_fit`` on a copy of the allocator names the
+    requests and slots ``admit`` then takes, and leaves the queue."""
+    import copy
+
+    alloc = PageAllocator(4, PagedLayout(4, 4, 10))  # 9 usable pages
+    sched = Scheduler(alloc, max_prompt_len=12, prefill_chunk=4)
+    reqs = [sched.submit(Request(prompt=[1] * n, max_new_tokens=m))
+            for n, m in [(8, 4), (12, 4), (3, 1), (8, 8), (2, 2), (5, 3)]]
+    for _ in range(2):
+        plan = sched.first_fit(copy.deepcopy(sched.alloc))
+        assert list(sched.waiting) == [r for r in reqs if r.slot is None]
+        got = sched.admit()
+        assert [(r.rid, r.slot) for r in got] == \
+            [(r.rid, s) for r, s in plan]
+        assert all(r.state == WAITING for r in sched.waiting)
+        sched.alloc.free(got[0].slot)
+        sched.running.pop(got[0].slot)
+    assert [r.rid for r in sched.waiting] == [reqs[3].rid]
+
+
 def test_cache_schemas_mirror_jax():
     from repro.models import transformer as jtr
     from repro_torch.models import transformer as ttr

@@ -111,6 +111,14 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
+def _jax_smoke(arch):
+    """The reference's SMOKE config of a ``torch_tp_ranks.RUNS`` arch."""
+    name, _, optimizer = arch.partition("/")
+    cfg = jreg.smoke(name)
+    return dataclasses.replace(cfg, optimizer=optimizer) if optimizer \
+        else cfg
+
+
 def _jax_params(arch):
     init = jax.jit(lambda key: jsteps.init_train_state(
         jreg.smoke(arch), _jax(R.TCFG), key)["params"])
@@ -165,8 +173,8 @@ def spawned(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp")
     moe_params, moe_x = _moe_inputs()
     blocks, halves = _block_inputs()
-    inputs = {"params": {a: _jax_params(a)
-                         for a in sorted({r[1] for r in R.RUNS})},
+    inputs = {"params": {a: _jax_params(a) for a in sorted(
+                  {R.base_arch(r[1]) for r in R.RUNS})},
               "moe_params": moe_params, "moe_x": moe_x,
               "blocks": blocks, "halves": halves}
     with open(tmp / "inputs.pkl", "wb") as f:
@@ -212,7 +220,8 @@ def ranks(spawned, jax_runs):
 # them so too)
 REFERENCES = {"yi": (R.YI, 1), "granite2": (R.GRANITE, 2),
               "granite4": (R.GRANITE, 4), "whisper": (R.WHISPER, 1),
-              "jamba2": (R.JAMBA, 2), "xlstm": (R.XLSTM, 1)}
+              "jamba2": (R.JAMBA, 2), "xlstm": (R.XLSTM, 1),
+              "arctic2": (R.ARCTIC, 2), "yi_adafactor": (R.YI_ADAFACTOR, 1)}
 RUN_REFERENCE = {"yi_baseline": "yi", "yi_optimized": "yi",
                  "yi_zero3": "yi", "yi_zero3_dm": "yi",
                  "yi_optimized_pod": "yi", "yi_optimized_pod_int8": "yi",
@@ -221,8 +230,13 @@ RUN_REFERENCE = {"yi_baseline": "yi", "yi_optimized": "yi",
                  "granite_hier_int8": "granite2",
                  "whisper_baseline": "whisper", "whisper_zero3": "whisper",
                  "jamba_baseline": "jamba2", "jamba_optimized": "jamba2",
-                 "xlstm_baseline": "xlstm"}
+                 "xlstm_baseline": "xlstm",
+                 "arctic_adafactor": "arctic2",
+                 "yi_adafactor_zero3": "yi_adafactor",
+                 "yi_adafactor_optimized": "yi_adafactor"}
 INT8_RUNS = ("yi_optimized_pod_int8", "granite_hier_int8")
+ADAFACTOR_RUNS = ("arctic_adafactor", "yi_adafactor_zero3",
+                  "yi_adafactor_optimized")
 
 
 @pytest.fixture(scope="module")
@@ -232,11 +246,11 @@ def jax_runs(spawned):
     out = {}
     for key, (arch, ga) in REFERENCES.items():
         jtcfg = dataclasses.replace(_jax(R.TCFG), grad_accum=ga)
-        jtr = JTrainer(jreg.smoke(arch), jtcfg, _jax(R.SHAPE),
+        jtr = JTrainer(_jax_smoke(arch), jtcfg, _jax(R.SHAPE),
                        make_local_mesh(1, 1))
         jtr.init_or_resume()
         jtr.state["params"] = jax.tree_util.tree_map(
-            jnp.asarray, spawned[2]["params"][arch])
+            jnp.asarray, spawned[2]["params"][R.base_arch(arch)])
         # the Trainer's own loop, keeping every metric of the step
         pipe = JDataPipeline(jtr.cfg, jtr.shape, seed=jtr.seed)
         hist = []
@@ -269,13 +283,15 @@ def _jax_mesh(name):
 
 @pytest.mark.parametrize("strategy", sorted(STRATEGIES))
 @pytest.mark.parametrize("mesh", sorted(MESHES))
-@pytest.mark.parametrize("arch", [R.YI, R.GRANITE, R.JAMBA, R.XLSTM])
+@pytest.mark.parametrize("arch", [R.YI, R.GRANITE, R.JAMBA, R.XLSTM,
+                                  R.ARCTIC])
 def test_shards_equal_the_reference_train_state_shardings(arch, mesh,
                                                           strategy):
     """Each rank's init holds, of every parameter, optimizer and residual
     leaf, the slice the reference's ``NamedSharding`` gives its device
     (devices laid out row-major, as the port's ranks), drawn from the
-    same generator as a one-rank init."""
+    same generator as a one-rank init (arctic: Adafactor's factored
+    moments)."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 JAX devices (conftest forces 8)")
     cfg, st = treg.smoke(arch), STRATEGIES[strategy]
@@ -381,6 +397,55 @@ def test_optimizer_state_is_zero1_sharded_over_data(ranks):
     # zero3 on (data 4, model 1): embed over data for both
     z = r["yi_zero3"]["shapes"]
     assert wq(z["params"]) == wq(z["opt"]["v"]) == (2, 16, 64)
+
+
+@pytest.mark.parametrize("name", ADAFACTOR_RUNS)
+def test_adafactor_state_is_each_ranks_resolved_shards(ranks, name):
+    """Under Adafactor every rank holds exactly its resolved shard of
+    each parameter and of each factored moment (``vr`` over the
+    parameter's leading dims, ``vc`` over all but its second last): the
+    shapes leaf by leaf and the bytes in all, in the state's dtypes
+    (arctic's moments bf16)."""
+    _, arch, mname, strategy, _ = next(r for r in R.RUNS if r[0] == name)
+    cfg = R.smoke(arch)
+    abstract = tsteps.abstract_train_state(cfg, R.TCFG, strategy)
+    for r in _rank_results(ranks):
+        tm = Mesh(*MESHES[mname], rank=r["rank"])
+        specs = tsteps.train_state_shardings(cfg, strategy, tm)
+        want, nbytes = {}, 0
+        for part in ("params", "opt"):
+            want[part] = P.tree_map(lambda t: None, abstract[part])
+            shapes = [tshd.local_shape(t.shape, sp, tm) for t, sp in zip(
+                P.tree_leaves(abstract[part]), P.tree_leaves(specs[part]))]
+            nbytes += sum(int(np.prod(s)) * t.element_size() for s, t in zip(
+                shapes, P.tree_leaves(abstract[part])))
+            want[part] = P.tree_unflatten(want[part], shapes)
+        got = r[name]["shapes"]
+        assert got == want
+        assert r[name]["state_bytes"] == nbytes
+    # the moments are split (over data, and model where it is 2)
+    vr = r[name]["shapes"]["opt"]["vr"]["blocks"]["p0"]["attn"]["wq"]
+    whole = abstract["opt"]["vr"]["blocks"]["p0"]["attn"]["wq"].shape
+    assert vr != tuple(whole)
+
+
+@pytest.mark.parametrize("mesh,strategy", [("dm", "optimized"),
+                                           ("d4", "zero3"),
+                                           ("dm", "baseline")])
+def test_adafactor_step_builds_where_its_moments_split(mesh, strategy):
+    """The train step builds for Adafactor on a mesh whose rules split its
+    factored moments (once refused with ``NotImplementedError``): a
+    moment leaf's shard is smaller than the leaf."""
+    cfg, st = R.smoke(R.YI_ADAFACTOR), STRATEGIES[strategy]
+    tm = Mesh(*MESHES[mesh], rank=0)
+    specs = tsteps.train_state_shardings(cfg, st, tm)
+    opt = tsteps.abstract_train_state(cfg, R.TCFG, st)["opt"]
+    assert any(tshd.local_shape(t.shape, sp, tm) != tuple(t.shape)
+               for t, sp in zip(P.tree_leaves(opt),
+                                P.tree_leaves(specs["opt"])))
+    step = tsteps.build_train_step(cfg, R.TCFG, R.SHAPE, strategy=st,
+                                   mesh=tm)
+    assert callable(step)
 
 
 # ---------------------------------------------------------------------------
@@ -638,3 +703,21 @@ def test_checkpoint_carries_across_meshes_and_one_rank(ranks, tmp_path):
     back = jckpt.restore_state(jsteps.abstract_train_state(
         _jax(cfg), _jax(R.TCFG)), path)
     assert int(back["step"]) == 2
+
+
+def test_sharded_adafactor_checkpoint_restores_on_one_rank(ranks, tmp_path):
+    """yi under Adafactor on (data 2, model 2), ``optimized``: its
+    checkpoint at step 2 (each factored moment gathered whole over its
+    own spec) restores on one rank, whose next two steps equal the
+    sharded run's (rtol 1e-4, the float32 sums' order)."""
+    import shutil
+    ck = _rank_results(ranks)[0]["checkpoint"]["adafactor"]
+    shutil.copytree(f"{ranks[-1]['ckpt']}/adafactor", tmp_path / "ada")
+    one = Trainer(R.smoke(R.YI_ADAFACTOR), R.TCFG, R.SHAPE,
+                  ckpt_dir=str(tmp_path / "ada"), device="cpu")
+    assert one.init_or_resume() == "resumed"
+    one.run(2, log_every=0)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[key] for h in one.history],
+                                   [h[key] for h in ck[2:]], rtol=1e-4,
+                                   err_msg=key)

@@ -40,6 +40,22 @@ WORLD = 4
 TIMEOUT = timedelta(seconds=120)
 YI, GRANITE, WHISPER = "yi-6b", "granite-moe-1b-a400m", "whisper-base"
 JAMBA, XLSTM = "jamba-v0.1-52b", "xlstm-1.3b"
+ARCTIC = "arctic-480b"
+# a config under Adafactor in place of its own optimizer: "<arch>/adafactor"
+YI_ADAFACTOR = YI + "/adafactor"
+
+
+def base_arch(arch):
+    """The registry id of a RUNS arch (its parameters' draw)."""
+    return arch.partition("/")[0]
+
+
+def smoke(arch):
+    """The SMOKE config of a RUNS arch, with the optimizer it names."""
+    name, _, optimizer = arch.partition("/")
+    cfg = registry.smoke(name)
+    return dataclasses.replace(cfg, optimizer=optimizer) if optimizer \
+        else cfg
 # float32 compute isolates the placement from bf16 noise.  The learning
 # rate is 1e-3 for the int8 runs' sake: AdamW's first step moves every
 # weight by about lr whatever its gradient, so a near-zero gradient
@@ -82,7 +98,13 @@ RUNS = (("yi_baseline", YI, "dm", BASELINE, TCFG),
         # head a rank on model 4 and its sLSTM recurrence whole
         ("jamba_baseline", JAMBA, "dm", BASELINE, TCFG),
         ("jamba_optimized", JAMBA, "dm", OPTIMIZED, TCFG),
-        ("xlstm_baseline", XLSTM, "m4", BASELINE, TCFG))
+        ("xlstm_baseline", XLSTM, "m4", BASELINE, TCFG),
+        # Adafactor's factored moments on sharded leaves: arctic's own
+        # (bf16 state) under tensor and expert parallelism with ZeRO-1,
+        # yi's split over data by FSDP, and over both axes
+        ("arctic_adafactor", ARCTIC, "dm", BASELINE, TCFG),
+        ("yi_adafactor_zero3", YI_ADAFACTOR, "d4", ZERO3, TCFG),
+        ("yi_adafactor_optimized", YI_ADAFACTOR, "dm", OPTIMIZED, TCFG))
 # the mixer blocks run alone on ranks (``_blocks``): rows x tokens
 BLOCK_X = (2, 11)
 # (arch, config fields replaced, block kind) of each block case: the
@@ -134,9 +156,9 @@ def _state_shapes(tr):
 
 def _train(mesh, arch, strategy, tcfg, params):
     """N_STEPS from the JAX package's initial parameters (numpy, whole):
-    the history, the warnings, the local state shapes and the updated
-    parameters gathered whole."""
-    cfg = registry.smoke(arch)
+    the history, the warnings, the local state shapes and bytes and the
+    updated parameters gathered whole."""
+    cfg = smoke(arch)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         tr = Trainer(cfg, tcfg, SHAPE, mesh=mesh, strategy=strategy,
@@ -148,9 +170,12 @@ def _train(mesh, arch, strategy, tcfg, params):
     tr.state["params"] = _shard_tree(P.from_numpy(params), specs["params"],
                                      mesh)
     shapes = _state_shapes(tr)
+    state_bytes = sum(t.numel() * t.element_size() for t in P.tree_leaves(
+        {k: tr.state[k] for k in ("params", "opt")}))
     collectives.reset_counters()
     tr.run(N_STEPS, log_every=0)
     return {"history": _history(tr), "warnings": n_warn, "shapes": shapes,
+            "state_bytes": state_bytes,
             "bytes": dict(collectives.PAYLOAD_BYTES),
             "params": _np_whole(tr.state["params"], specs["params"], mesh)}
 
@@ -233,15 +258,17 @@ def _checkpoint(meshes, params, ckpt_dir):
     uninterrupted run); then a Trainer on (data 4, model 1) restores
     step 2 and takes the same 2 steps; and ``Trainer.remesh`` (data 2,
     model 2) -> (data 4, model 1) at step 2, through the checkpoint and
-    through host memory."""
+    through host memory; and yi under Adafactor on (data 2, model 2),
+    ``optimized``: 2 steps, a checkpoint, 2 more (one rank restores it
+    in the test)."""
     cfg = registry.smoke(YI)
     dm, d4 = meshes["dm"], meshes["d4"]
 
-    def fresh(mesh, ckpt):
-        tr = Trainer(cfg, TCFG, SHAPE, mesh=mesh, strategy=BASELINE,
+    def fresh(mesh, ckpt, cfg=cfg, strategy=BASELINE):
+        tr = Trainer(cfg, TCFG, SHAPE, mesh=mesh, strategy=strategy,
                      ckpt_dir=ckpt, device="cpu")
         tr.init_or_resume()
-        specs = dsteps.train_state_shardings(cfg, BASELINE, mesh)
+        specs = dsteps.train_state_shardings(cfg, strategy, mesh)
         tr.state["params"] = _shard_tree(P.from_numpy(params),
                                          specs["params"], mesh)
         return tr
@@ -263,6 +290,11 @@ def _checkpoint(meshes, params, ckpt_dir):
         tr.run(2, log_every=0)
         out[name] = _history(tr)[2:]
         out[name + "_shapes"] = _state_shapes(tr)
+    ada = fresh(dm, os.path.join(ckpt_dir, "adafactor"), smoke(YI_ADAFACTOR),
+                OPTIMIZED)
+    ada.run(2, ckpt_every=2, log_every=0)
+    ada.run(2, log_every=0)
+    out["adafactor"] = _history(ada)
     return out
 
 
@@ -295,7 +327,7 @@ def run_rank(rank, init_file, inputs_file, ckpt_dir, queue):
                    "coords": {k: m.coords for k, m in meshes.items()}}
             for name, arch, mesh, strategy, tcfg in RUNS:
                 res[name] = _train(meshes[mesh], arch, strategy, tcfg,
-                                   inputs["params"][arch])
+                                   inputs["params"][base_arch(arch)])
             res["a2a"] = _a2a(meshes["pdm"], inputs)
             res["blocks"] = _blocks(meshes, inputs)
             res["checkpoint"] = _checkpoint(meshes, inputs["params"][YI],
